@@ -1,14 +1,16 @@
-"""Inferer classes (counterpart of monai_tpu/inferers/inferer.py:18-64)."""
+"""Inferer classes (counterpart of monai_tpu/inferers/inferer.py:18-140)."""
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
 from collections.abc import Callable, Sequence
 from typing import Any
 
+import torch
+
 from ..utils.enums import BlendMode
 from .utils import sliding_window_inference
 
-__all__ = ["Inferer", "SimpleInferer", "SlidingWindowInferer"]
+__all__ = ["Inferer", "SimpleInferer", "SlidingWindowInferer", "SlidingWindowInfererAdapt"]
 
 
 class Inferer(ABC):
@@ -46,3 +48,24 @@ class SlidingWindowInferer(Inferer):
         return sliding_window_inference(inputs, self.roi_size, self.sw_batch_size, network, self.overlap,
                                         self.mode, self.sigma_scale, self.padding_mode, self.cval,
                                         *args, **kwargs)
+
+
+class SlidingWindowInfererAdapt(SlidingWindowInferer):
+    """Sliding-window inference that adapts to the card's memory: on
+    ``torch.cuda.OutOfMemoryError`` it halves ``sw_batch_size`` and tries again; once at
+    1, it stitches the output on the host, each window still running where the input
+    lies. The adapted ``sw_batch_size`` stays on the instance, so later volumes skip the
+    sizes that failed."""
+
+    def __call__(self, inputs: Any, network: Callable, *args, **kwargs):
+        while True:
+            try:
+                return super().__call__(inputs, network, *args, **kwargs)
+            except torch.cuda.OutOfMemoryError:
+                torch.cuda.empty_cache()  # a no-op where CUDA was never initialised
+                if self.sw_batch_size > 1:
+                    self.sw_batch_size = max(1, self.sw_batch_size // 2)
+                    continue
+                return sliding_window_inference(inputs, self.roi_size, 1, network, self.overlap, self.mode,
+                                                self.sigma_scale, self.padding_mode, self.cval, *args,
+                                                device="cpu", **kwargs)

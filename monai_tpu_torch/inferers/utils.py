@@ -42,13 +42,16 @@ def compute_scan_interval(image_size: Sequence[int], roi_size: Sequence[int], nu
 def sliding_window_inference(inputs: Any, roi_size: Sequence[int] | int, sw_batch_size: int,
                              predictor: Callable[..., torch.Tensor], overlap: Sequence[float] | float = 0.25,
                              mode: str = BlendMode.CONSTANT, sigma_scale: Sequence[float] | float = 0.125,
-                             padding_mode: str = "constant", cval: float = 0.0, *args, **kwargs) -> torch.Tensor:
+                             padding_mode: str = "constant", cval: float = 0.0, *args,
+                             device: torch.device | str | None = None, **kwargs) -> torch.Tensor:
     """Run ``predictor`` over sliding windows of ``inputs`` (B, C, *spatial) and blend the
     window predictions into a float32 output (B, C_out, *spatial).
 
     ``predictor(windows, *args, **kwargs)`` takes (sw_batch_size * B, C, *roi) and must
     return (sw_batch_size * B, C_out, *roi). Inputs smaller than the roi are padded
-    symmetrically with ``padding_mode`` (``cval`` for constant) and cropped back."""
+    symmetrically with ``padding_mode`` (``cval`` for constant) and cropped back. The
+    output is stitched on ``device`` (default: the input's), e.g. on the host when the
+    card's memory does not hold it."""
     x = to_torch(inputs)
     num_spatial_dims = x.ndim - 2
     batch_size = x.shape[0]
@@ -73,20 +76,21 @@ def sliding_window_inference(inputs: Any, roi_size: Sequence[int] | int, sw_batc
 
     scan_interval = compute_scan_interval(image_size, roi_size_, num_spatial_dims, overlap_)
     slices = dense_patch_slices(image_size, roi_size_, scan_interval)
+    device = x.device if device is None else torch.device(device)
     importance = compute_importance_map(get_valid_patch_size(image_size, roi_size_), mode=mode,
-                                        sigma_scale=sigma_scale, device=x.device)
+                                        sigma_scale=sigma_scale, device=device)
 
     out = count = None
     for c0 in range(0, len(slices), sw_batch_size):
         chunk = slices[c0:c0 + sw_batch_size]
         windows = torch.cat([x[(slice(None), slice(None)) + sl] for sl in chunk])
-        preds = predictor(windows, *args, **kwargs)
+        preds = predictor(windows, *args, **kwargs).to(device)
         if tuple(preds.shape[2:]) != tuple(roi_size_) or preds.shape[0] != windows.shape[0]:
             raise ValueError(f"predictor must map windows {tuple(windows.shape)} to (N, C_out, *roi); "
                              f"got {tuple(preds.shape)}")
         if out is None:
-            out = torch.zeros((batch_size, preds.shape[1]) + image_size, dtype=torch.float32, device=x.device)
-            count = torch.zeros((1, 1) + image_size, dtype=torch.float32, device=x.device)
+            out = torch.zeros((batch_size, preds.shape[1]) + image_size, dtype=torch.float32, device=device)
+            count = torch.zeros((1, 1) + image_size, dtype=torch.float32, device=device)
         for i, sl in enumerate(chunk):
             idx = (slice(None), slice(None)) + sl
             out[idx].add_(preds[i * batch_size:(i + 1) * batch_size] * importance)

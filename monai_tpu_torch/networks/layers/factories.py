@@ -1,12 +1,15 @@
 """Layer factories: dimension-parametrized layer construction (counterpart of
-monai_tpu/networks/layers/factories.py, for the layers the UNet uses).
+monai_tpu/networks/layers/factories.py, for the layers the UNet and SwinUNETR use).
 
 ``Conv[Conv.CONV, 3]`` gives a constructor of ``Conv3d``, which sends a 3x3x3
 stride-1 SAME convolution to the CUDA kernel (``ops/conv3d.py``); every other
-convolution and every transposed convolution is ``F.conv3d`` /
-``F.conv_transpose3d``, as the JAX package leaves them to XLA. ``Norm`` (instance)
-runs the Triton kernel of ``fast_norm.py``. ``Act`` has the learnable PReLU (init
-0.25), ``Dropout`` torch's dropouts.
+convolution (1x1, the strided patch embedding) and every transposed convolution is
+``F.conv3d`` / ``F.conv_transpose3d``, as the JAX package leaves them to XLA.
+``Norm``: instance runs the Triton kernel of ``fast_norm.py``; layer is
+``nn.LayerNorm`` with the JAX package's eps of 1e-6 (torch MONAI uses 1e-5). ``Act``:
+the learnable PReLU (init 0.25), LeakyReLU (slope 0.01) and GELU in the tanh
+approximation, which is ``jax.nn.gelu``'s default (torch MONAI uses the exact erf).
+``Dropout``: torch's dropouts.
 
 Constructors take ``device``, ``dtype`` and a ``torch.Generator``; weights are drawn
 from the generator on the generator's device and copied in, so one seed gives the
@@ -25,7 +28,7 @@ from ...ops.conv3d import conv3d_3x3_same
 from .fast_norm import InstanceNorm
 
 __all__ = ["LayerFactory", "Conv", "ConvTrans", "Norm", "Act", "Dropout", "Conv3d", "split_args",
-           "get_act_layer", "get_dropout_layer", "get_norm_layer"]
+           "get_act_layer", "get_dropout_layer", "get_norm_layer", "init_uniform_", "linear"]
 
 
 class LayerFactory:
@@ -70,18 +73,24 @@ Dropout = LayerFactory("Dropout")
 
 
 @torch.no_grad()
-def _init_conv_(conv: nn.Module, generator: torch.Generator | None) -> nn.Module:
-    """torch's default conv init, U(±1/sqrt(fan_in)) for weight and bias, drawn from
-    ``generator``; with no generator torch's own init stands."""
+def init_uniform_(layer: nn.Module, generator: torch.Generator | None) -> nn.Module:
+    """torch's default conv and linear init, U(±1/sqrt(fan_in)) for weight and bias,
+    drawn from ``generator``; with no generator torch's own init stands."""
     if generator is None:
-        return conv
-    w = conv.weight
+        return layer
+    w = layer.weight
     bound = 1.0 / math.sqrt(w.shape[1] * math.prod(w.shape[2:]))
-    for p in (w, conv.bias):
+    for p in (w, layer.bias):
         if p is not None:
             vals = torch.empty(p.shape, dtype=torch.float32, device=generator.device)
             p.copy_(vals.uniform_(-bound, bound, generator=generator))
-    return conv
+    return layer
+
+
+def linear(in_features: int, out_features: int, bias: bool = True, device=None, dtype=None,
+           generator: torch.Generator | None = None) -> nn.Linear:
+    """``nn.Linear`` with its weights drawn from ``generator``."""
+    return init_uniform_(nn.Linear(in_features, out_features, bias=bias, device=device, dtype=dtype), generator)
 
 
 class Conv3d(nn.Conv3d):
@@ -111,9 +120,9 @@ _DROPOUT = {1: nn.Dropout, 2: nn.Dropout2d, 3: nn.Dropout3d}
 def conv_factory(dim: int):
     def make(in_channels, out_channels, kernel_size=3, stride=1, padding=0, dilation=1, groups=1,
              bias=True, device=None, dtype=None, generator=None):
-        return _init_conv_(_CONV[dim](in_channels, out_channels, kernel_size, stride=stride, padding=padding,
-                                      dilation=dilation, groups=groups, bias=bias, device=device,
-                                      dtype=dtype), generator)
+        return init_uniform_(_CONV[dim](in_channels, out_channels, kernel_size, stride=stride, padding=padding,
+                                        dilation=dilation, groups=groups, bias=bias, device=device,
+                                        dtype=dtype), generator)
 
     return make
 
@@ -123,10 +132,10 @@ def conv_factory(dim: int):
 def convtrans_factory(dim: int):
     def make(in_channels, out_channels, kernel_size=3, stride=1, padding=0, output_padding=0, groups=1,
              bias=True, dilation=1, device=None, dtype=None, generator=None):
-        return _init_conv_(_CONVTRANS[dim](in_channels, out_channels, kernel_size, stride=stride,
-                                           padding=padding, output_padding=output_padding, groups=groups,
-                                           bias=bias, dilation=dilation, device=device, dtype=dtype),
-                           generator)
+        return init_uniform_(_CONVTRANS[dim](in_channels, out_channels, kernel_size, stride=stride,
+                                             padding=padding, output_padding=output_padding, groups=groups,
+                                             bias=bias, dilation=dilation, device=device, dtype=dtype),
+                             generator)
 
     return make
 
@@ -140,10 +149,35 @@ def instance_factory(dim: int):
     return make
 
 
+@Norm.factory_function("layer")
+def layer_factory(dim: int):
+    def make(num_features, eps: float = 1e-6, elementwise_affine: bool = True, device=None, dtype=None):
+        return nn.LayerNorm(num_features, eps=eps, elementwise_affine=elementwise_affine, device=device,
+                            dtype=dtype)
+
+    return make
+
+
 @Act.factory_function("prelu")
 def prelu_factory(dim: int = 1):
     def make(num_parameters: int = 1, init: float = 0.25, device=None, dtype=None):
         return nn.PReLU(num_parameters, init, device=device, dtype=dtype)
+
+    return make
+
+
+@Act.factory_function("leakyrelu")
+def leakyrelu_factory(dim: int = 1):
+    def make(negative_slope: float = 0.01, inplace: bool = False, device=None, dtype=None):
+        return nn.LeakyReLU(negative_slope, inplace=inplace)
+
+    return make
+
+
+@Act.factory_function("gelu")
+def gelu_factory(dim: int = 1):
+    def make(approximate: str = "tanh", device=None, dtype=None):
+        return nn.GELU(approximate=approximate)
 
     return make
 

@@ -227,7 +227,8 @@ def channels_last(x: torch.Tensor) -> torch.Tensor:
 class InstanceNorm(nn.Module):
     """Instance norm with torch's ``InstanceNorm{1,2,3}d`` parameter names (``weight`` and
     ``bias`` when ``affine``; none otherwise, and no running statistics), running
-    ``instance_norm_prelu`` without a slope."""
+    ``instance_norm_prelu``. Called with a ``slope`` (1,) or (C,), it fuses the leaky or
+    parametric ReLU that follows it into the same launch."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, affine: bool = False, device=None,
                  dtype=None):
@@ -242,8 +243,8 @@ class InstanceNorm(nn.Module):
             self.register_parameter("weight", None)
             self.register_parameter("bias", None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return instance_norm_prelu(channels_last(x), self.weight, self.bias, None, self.eps)
+    def forward(self, x: torch.Tensor, slope: torch.Tensor | None = None) -> torch.Tensor:
+        return instance_norm_prelu(channels_last(x), self.weight, self.bias, slope, self.eps)
 
     def extra_repr(self) -> str:
         return f"{self.num_features}, eps={self.eps}, affine={self.affine}"

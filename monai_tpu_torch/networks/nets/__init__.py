@@ -1,1 +1,2 @@
+from .swin_unetr import SwinUNETR
 from .unet import SkipConnection, UNet, Unet

@@ -1,12 +1,14 @@
-"""Weight bridge: a monai_tpu UNet's parameters as a monai_tpu_torch ``state_dict``.
+"""Weight bridge: a monai_tpu UNet's or SwinUNETR's parameters as a monai_tpu_torch
+``state_dict``.
 
-The input is keyed by the flattened nnx ``Param`` paths of ``monai_tpu``'s UNet, e.g.
+The input is keyed by the flattened nnx variable paths of ``monai_tpu``'s network, e.g.
 ``model.down.convs.0.conv.kernel``, ``model.down.convs.0.adn.2.alpha`` or
 ``model.up.mods.0.conv.kernel``; the output by torch MONAI's names, which the port's
-UNet uses (``model.0.conv.unit0.conv.weight``, ``model.0.conv.unit0.adn.A.weight``,
+networks use (``model.0.conv.unit0.conv.weight``, ``model.0.conv.unit0.adn.A.weight``,
 ``model.2.0.conv.weight``). Layouts: a conv kernel goes from (*K, I, O) to (O, I, *K);
 a transposed-conv kernel from (*K, I, O) to (I, O, *K), spatially flipped, which
-inverts ``monai_tpu/networks/torch_compat.py::convtrans_kernel_from_torch``.
+inverts ``monai_tpu/networks/torch_compat.py::convtrans_kernel_from_torch``; a linear
+kernel (I, O) is transposed to (O, I); a norm's ``scale`` is its ``weight``.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["unet_state_dict_from_jax"]
+__all__ = ["swin_state_dict_from_jax", "unet_state_dict_from_jax"]
 
 _ADN_LEAVES = {"alpha": "A.weight", "scale": "N.weight", "bias": "N.bias"}
 
@@ -59,6 +61,13 @@ def _is_transposed(toks: list[str]) -> bool:
     return head[-1:] == ["up"] or head[-3:] == ["up", "mods", "0"]
 
 
+def _conv_weight(arr: np.ndarray, transposed: bool) -> np.ndarray:
+    nsp = arr.ndim - 2
+    if transposed:
+        return np.flip(arr, axis=tuple(range(nsp))).transpose(nsp, nsp + 1, *range(nsp))
+    return arr.transpose(nsp + 1, nsp, *range(nsp))
+
+
 def unet_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """Map ``{nnx param path: array}`` of a monai_tpu UNet to the port's ``state_dict``
     (CPU float tensors, loadable with ``UNet.load_state_dict``)."""
@@ -67,10 +76,50 @@ def unet_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tenso
         toks = path.split(".")
         arr = np.asarray(value)
         if toks[-1] == "kernel":
-            nsp = arr.ndim - 2
-            if toks[-2] == "conv" and _is_transposed(toks):
-                arr = np.flip(arr, axis=tuple(range(nsp))).transpose(nsp, nsp + 1, *range(nsp))
-            else:
-                arr = arr.transpose(nsp + 1, nsp, *range(nsp))
+            arr = _conv_weight(arr, toks[-2] == "conv" and _is_transposed(toks))
         out[_torch_key(toks)] = torch.tensor(np.ascontiguousarray(arr))
+    return out
+
+
+# modules of the DynUNet blocks (and UnetOutBlock's ``conv``) that are a torch MONAI
+# ``Convolution``, whose conv is one level down
+_CONV_WRAPPED = {"conv1", "conv2", "conv3", "transp_conv", "conv"}
+
+
+def swin_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Map ``{nnx variable path: array}`` of a monai_tpu SwinUNETR (its ``Param``s and the
+    ``relative_position_index`` variables) to the port's ``state_dict``, loadable with
+    ``SwinUNETR.load_state_dict``: ``swinViT.layers.<i>`` becomes ``swinViT.layers<i+1>.0``,
+    a DynUNet block's conv and the output conv gain the ``.conv`` level of torch MONAI's
+    ``Convolution``, and ``kernel`` / ``scale`` become ``weight``."""
+    out: dict[str, torch.Tensor] = {}
+    for path, value in params.items():
+        toks = path.split(".")
+        arr = np.asarray(value)
+        key: list[str] = []
+        i = 0
+        while i < len(toks) - 1:
+            t = toks[i]
+            if t == "layers" and key == ["swinViT"]:
+                key += [f"layers{int(toks[i + 1]) + 1}", "0"]
+                i += 1
+            else:
+                key.append(t)
+            i += 1
+        parent, leaf = key[-1], toks[-1]
+        if parent in _CONV_WRAPPED:
+            key.append("conv")
+        if leaf == "kernel":
+            if arr.ndim == 2:  # nnx.Linear (I, O)
+                arr = arr.T
+            else:
+                arr = _conv_weight(arr, parent == "transp_conv")
+            leaf = "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        elif leaf not in ("bias", "relative_position_bias_table", "relative_position_index"):
+            raise KeyError(f"cannot map {path}")
+        if leaf == "relative_position_index":
+            arr = arr.astype(np.int64)
+        out[".".join(key + [leaf])] = torch.tensor(np.ascontiguousarray(arr))
     return out

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every ``monai_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` into one shared library
-with a plain C interface, at first use, and loaded with ``ctypes``. The library lands
-in ``build/monai_tpu_torch/`` at the root of the checkout, under a name that carries a
+Every ``monai_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` at first use, one process
+per source, all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``. The library lands in
+``build/monai_tpu_torch/`` at the root of the checkout, under a name that carries a
 hash of the sources and flags, so an edited source builds anew and an unchanged one is
-loaded as it is. The build writes to a temporary name and renames it into place, so
-processes that build at the same time do not see each other's half-written files.
-A failed build raises.
+loaded as it is. The build works in a temporary directory and renames the library into
+place, so processes that build at the same time do not see each other's half-written
+files. A failed build raises.
 """
 from __future__ import annotations
 
@@ -23,8 +24,7 @@ __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "library", "libra
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "monai_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 
 def _sources() -> list[Path]:
@@ -53,19 +53,30 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels of monai_tpu_torch need the CUDA toolkit")
 
 
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> None:
+    """Wait for every process; raise with the compiler's errors if one failed."""
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _start(cmd: list[str]) -> tuple[list[str], subprocess.Popen]:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
 def _compile(out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=out.stem + ".", suffix=".so.tmp", dir=out.parent)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(prefix=out.stem + ".", dir=out.parent) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
+        _run([_start([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]) for src, obj in zip(_sources(), objs)])
+        lib = str(Path(tmp) / out.name)
+        _run([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs])])
+        os.replace(lib, out)
 
 
 @functools.cache

@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""Where the time of the port's sliding-window eval goes, on one NVIDIA GPU.
+
+Runs a chip_smoke.py path (``--net unet`` or ``swinunetr``: the same network, inferer,
+volume and bfloat16 weights) and reports, per 224x224x112 volume:
+
+- wall time with the profiler off (synchronised), and the host's enqueue time (the
+  inferer call returning, before the device finishes);
+- under ``torch.profiler``: wall time, the device's kernel time (the sum of its kernels'
+  durations; one stream, so they do not overlap) and its idle share of the wall;
+- the kernels by device time, the port's own three first.
+
+Run from the repository root: ``python3 scripts/profile_torch_sw.py --net swinunetr``
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+OWN = {"window_attention_kernel": "window attention (CUDA)", "conv3d_3x3_same": "3x3x3 conv (CUDA)",
+       "_partial_sums_kernel": "instance norm (Triton)", "_normalize_kernel": "instance norm (Triton)"}
+
+
+def build(net_name: str, dev):
+    from monai_tpu_torch.inferers import SlidingWindowInferer, SlidingWindowInfererAdapt
+    from monai_tpu_torch.networks.nets import SwinUNETR, UNet
+
+    g = torch.Generator().manual_seed(0)
+    if net_name == "unet":
+        net = UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2), num_res_units=2, generator=g)
+        inferer = SlidingWindowInferer(96, sw_batch_size=18, overlap=0.25, mode="gaussian")
+    else:
+        net = SwinUNETR(1, 14, feature_size=24, generator=g)
+        inferer = SlidingWindowInfererAdapt(96, sw_batch_size=6, overlap=0.25, mode="gaussian")
+    return net.eval().to(dev, torch.bfloat16), inferer
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--net", choices=("unet", "swinunetr"), default="swinunetr")
+    ap.add_argument("--volumes", type=int, default=5, help="volumes profiled, after 3 warm-ups")
+    ap.add_argument("--top", type=int, default=25, help="kernels listed")
+    ap.add_argument("--trace", help="write a chrome trace here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_sw: no CUDA device")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    net, inferer = build(args.net, dev)
+    vol = torch.rand((1, 1, 224, 224, 112), generator=torch.Generator(device=dev).manual_seed(4),
+                     device=dev).to(torch.bfloat16)
+    n = args.volumes
+    with torch.inference_mode():
+        for _ in range(3):
+            inferer(vol, net)
+        torch.cuda.synchronize()
+        enqueue, wall = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            inferer(vol, net)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            enqueue.append(t1 - t0)
+            wall.append(time.perf_counter() - t0)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                inferer(vol, net)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) / n
+    by_name: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            rec = by_name[evt.name]
+            rec[0] += evt.time_range.elapsed_us() / 1e3 / n
+            rec[1] += 1
+    device_ms = sum(v[0] for v in by_name.values())
+    wall_ms, enq_ms = 1e3 * sum(wall) / n, 1e3 * sum(enqueue) / n
+    print(f"{args.net}: {smi}; {n} volumes")
+    print(f"per volume: wall {wall_ms:.3f} ms (profiler off), host enqueue {enq_ms:.3f} ms; under the profiler "
+          f"wall {prof_wall * 1e3:.3f} ms; device kernel time {device_ms:.3f} ms; device idle "
+          f"{1 - device_ms / wall_ms:.1%} of the profiler-off wall, {1 - device_ms / (prof_wall * 1e3):.1%} "
+          f"under the profiler")
+    own: dict[str, float] = defaultdict(float)
+    for name, (ms, _) in by_name.items():
+        for key, label in OWN.items():
+            if key in name:
+                own[label] += ms
+    for label, ms in sorted(own.items()):
+        print(f"  {label:28s} {ms:9.3f} ms/volume")
+    print(f"  {'everything else':28s} {device_ms - sum(own.values()):9.3f} ms/volume")
+    for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]:
+        print(f"  {ms:9.3f} ms  x{count / n:6.1f}/vol  {name[:110]}")
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+
+if __name__ == "__main__":
+    main()

@@ -21,10 +21,11 @@ REPO = Path(__file__).resolve().parents[1]
 def test_port_imports_no_jax():
     code = ("import sys\n"
             "import monai_tpu_torch\n"
-            "from monai_tpu_torch.networks.nets import UNet\n"
-            "from monai_tpu_torch.networks import unet_state_dict_from_jax\n"
-            "from monai_tpu_torch.inferers import SlidingWindowInferer\n"
+            "from monai_tpu_torch.networks.nets import SwinUNETR, UNet\n"
+            "from monai_tpu_torch.networks import swin_state_dict_from_jax, unet_state_dict_from_jax\n"
+            "from monai_tpu_torch.inferers import SlidingWindowInferer, SlidingWindowInfererAdapt\n"
             "from monai_tpu_torch.ops.conv3d import conv3d_3x3_same\n"
+            "from monai_tpu_torch.ops.window_attention import fused_window_attention\n"
             "from monai_tpu_torch.networks.layers.fast_norm import instance_norm_prelu\n"
             "import monai_tpu_torch.data, monai_tpu_torch.utils, monai_tpu_torch.ops._build\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'monai_tpu', 'triton'))\n"
