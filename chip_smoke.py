@@ -1,26 +1,39 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port, monai_tpu_torch, on one NVIDIA GPU.
 
-Drives the port's two sliding-window eval paths, each at full width with random weights
-from a seed, in bfloat16, over 224x224x112 volumes (roi 96³, overlap 0.25, gaussian
-blend, 18 windows per volume):
+Drives the port's three paths, each at full width with random weights from a seed:
 
 - UNet: the Spleen-CT 3-D UNet (channels 16-32-64-128-256, strides 2, two residual
-  units, instance norm, PReLU) under ``SlidingWindowInferer``, one window batch of 18;
+  units, instance norm, PReLU) under ``SlidingWindowInferer``, one window batch of 18,
+  bfloat16, over 224x224x112 volumes (roi 96³, overlap 0.25, gaussian, 18 windows);
 - SwinUNETR: ``SwinUNETR(1, 14, feature_size=24)`` (BTCV; depths 2-2-2-2, heads
-  3-6-12-24, window 7) under ``SlidingWindowInfererAdapt``, window batches of 6.
+  3-6-12-24, window 7) under ``SlidingWindowInfererAdapt``, window batches of 6, bfloat16,
+  over the same volumes;
+- Spleen inference: the Spleen bundle's inference entry point in float32, from a
+  512x512x90 int16 CT at (0.79, 0.79, 5.0) mm written as .nii.gz under ``build/``:
+  LoadImaged, EnsureChannelFirstd, Orientationd RAS, Spacingd (1.5, 1.5, 2.0) bilinear
+  (the separable resample kernel), ScaleIntensityRanged; the bundle's batch-norm UNet
+  under SlidingWindowInferer(96, sw_batch_size=4, overlap=0.25), 48 windows; Activationsd
+  softmax, AsDiscreted argmax, and Invertd at nearest interpolation (the resample kernel
+  again), back to a (1, 512, 512, 90) label map on the input's affine.
 
   1. the card's name and power limit; the CUDA kernels built from the checkout's sources
   2. each kernel against its plain PyTorch version at every shape each path gives it
-     (read off one forward by hooks), bfloat16 and float32: max error under a stated
-     tolerance, and the kernel's and the plain version's times; the window attention
-     also at head dim 16 (feature size 48)
-  3. per path, the sliding-window inferer over 224x224x112 volumes: output shape and
+     (read off one forward by hooks; the resample at its two sites and over an order x
+     bound grid at odd extents): max error under a stated tolerance, and the kernel's,
+     the plain version's and the one PyTorch library call's times, with the least time
+     the card could take (bytes over 3.35 TB/s or operations over the type's peak)
+  3. per sliding-window path, the inferer over 224x224x112 volumes: output shape and
      finiteness, single-volume latency, vols/s and peak memory, with the launch counts of
      that run (every count set to 0 just before it and read just after)
-  4. per path, one forward on a 96³ window, on the card in float32 and in bfloat16,
-     against the port's own CPU float32 forward of the same weights and input, with the
-     launch counts of that forward
+  4. per sliding-window path, one forward on a 96³ window, on the card in float32 and in
+     bfloat16, against the port's own CPU float32 forward of the same weights and input
+  5. the Spleen inference path, volume after volume: the time of each stage (NIfTI load,
+     preprocessing on the card, the Spacing resample within it, sliding window,
+     postprocessing with the inverse), the per-volume latency and peak memory, the launch
+     counts, and the output's shape and affine; then its preprocessed image against the
+     port's CPU preprocessing of the same file, its inverse against the CPU's inverse of
+     the card's own label map, and one 96³ float32 forward of its UNet against the CPU
 
 It prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0; so it is without a CUDA device.
@@ -36,21 +49,34 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from pathlib import Path
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROI = (96, 96, 96)
 VOLUME = (224, 224, 112)
 N_WINDOWS = 18  # per volume
 UNET_BATCH, SWIN_BATCH = N_WINDOWS, 6
 UNET_TIMING, SWIN_TIMING = (10, 30), (5, 10)  # (latency runs, throughput volumes)
-# launches per forward: (3x3x3 conv, instance norm, window attention)
-UNET_PER_FORWARD, SWIN_PER_FORWARD = (10, 17, 0), (20, 26, 8)
+# launches per forward: (3x3x3 conv, instance norm, window attention, separable resample)
+UNET_PER_FORWARD, SWIN_PER_FORWARD = (10, 17, 0, 0), (20, 26, 8, 0)
+# the Spleen inference path: a Task09-shaped CT, the bundle's Spacing, its inferer
+CT_SHAPE, CT_SPACING, PIXDIM = (512, 512, 90), (0.79, 0.79, 5.0), (1.5, 1.5, 2.0)
+SPLEEN_PRE = (1, 270, 270, 224)  # the preprocessed image
+SPLEEN_BATCH, SPLEEN_WINDOWS = 4, 48
+SPLEEN_PER_VOLUME = (120, 0, 0, 2)  # 12 forwards of 10 convs; Spacing and its inverse
+SPLEEN_TIMED = 5  # volumes timed end to end, after one warm-up
+CT_PATH = Path(__file__).resolve().parent / "build" / "spleen_ct" / "ct_512x512x90.nii.gz"
 
 # Tolerances, relative to max|plain output|. bfloat16: both versions round an f32 sum to
 # bf16 (8-bit significand), so they may differ by one bf16 step, <= 2^-7 of the value.
 # float32: the sums differ only in order.
 TOL_BF16, TOL_F32 = 1e-2, 1e-4
+# The resample: orders 1 and 3 sum 2 or 4 taps per axis in float32 in another order than
+# the dense product (1e-5 of max|ref|); order 0 has one tap of weight 1 and is bit-identical.
+TOL_RESAMPLE = 1e-5
 # A forward against the CPU float32 forward, relative to the std of the CPU logits:
 # float32 on the card (tight: sums in another order), bfloat16 (loose: ~30-40 layers
 # each rounding to bf16), and the share of voxels whose argmax class agrees. For the
@@ -58,6 +84,13 @@ TOL_BF16, TOL_F32 = 1e-2, 1e-4
 # below 0.026 std (the port's CPU float32 forward), so bf16 noise of ~0.01 std flips
 # about 1% of them (0.9887 agreement between the CPU's bf16 and f32 forwards).
 TOL_FWD_F32_MAX, TOL_FWD_BF16_MEAN, MIN_ARGMAX_AGREE = 1e-3, 5e-2, 0.95
+# The Spleen preprocessing on the card against the CPU's (values in [0, 1]; float32 sums
+# in another order), absolute.
+TOL_PRE = 1e-5
+
+# The card's peaks (NVIDIA H100 SXM data sheet): memory 3.35 TB/s; dense bf16 989 TFLOP/s
+# on the tensor cores, float32 67 TFLOP/s outside them.
+HBM_BYTES_S, PEAK_FLOPS = 3.35e12, {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -89,20 +122,27 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
-def launch_counts() -> tuple[int, int, int]:
+def bound(nbytes: float, flops: float, dtype: torch.dtype) -> tuple[float, float]:
+    """(ms for the bytes at the memory rate, ms for the operations at the type's peak)."""
+    return nbytes / HBM_BYTES_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+
+
+def _wrappers():
     from monai_tpu_torch.networks.layers.fast_norm import instance_norm_prelu
     from monai_tpu_torch.ops.conv3d import conv3d_3x3_same
+    from monai_tpu_torch.ops.separable_resample import separable_resample_3d
     from monai_tpu_torch.ops.window_attention import fused_window_attention
 
-    return conv3d_3x3_same.launches, instance_norm_prelu.launches, fused_window_attention.launches
+    return conv3d_3x3_same, instance_norm_prelu, fused_window_attention, separable_resample_3d
+
+
+def launch_counts() -> tuple[int, int, int, int]:
+    return tuple(w.launches for w in _wrappers())
 
 
 def reset_launch_counts() -> None:
-    from monai_tpu_torch.networks.layers.fast_norm import instance_norm_prelu
-    from monai_tpu_torch.ops.conv3d import conv3d_3x3_same
-    from monai_tpu_torch.ops.window_attention import fused_window_attention
-
-    conv3d_3x3_same.launches = instance_norm_prelu.launches = fused_window_attention.launches = 0
+    for w in _wrappers():
+        w.launches = 0
 
 
 def record_sites(net, window):
@@ -149,14 +189,26 @@ def record_sites(net, window):
     return Counter(convs), Counter(norms), Counter(attns), masks
 
 
-def _summary(rows: list[tuple[int, float, float, float]]) -> dict:
-    """rows of (count, bf16 max abs err, kernel ms, plain ms) -> the kernels-line numbers
-    for one forward: worst error, summed times."""
-    return {"max_abs_err": max((r[1] for r in rows), default=0.0), "ms": sum(r[0] * r[2] for r in rows),
-            "plain_ms": sum(r[0] * r[3] for r in rows)}
+def _summary(rows: list[tuple]) -> dict:
+    """rows of (count, max abs err, kernel ms, plain ms, library ms or None, bytes ms,
+    operations ms) -> the kernels-line numbers for one forward (or volume): worst error,
+    summed times, the summed per-site bound and which side bounds the sum."""
+    lib = [None if r[4] is None else r[0] * r[4] for r in rows]
+    out = {"max_abs_err": max((r[1] for r in rows), default=0.0), "ms": sum(r[0] * r[2] for r in rows),
+           "plain_ms": sum(r[0] * r[3] for r in rows), "bound_ms": sum(r[0] * max(r[5], r[6]) for r in rows),
+           "library_ms": None if any(v is None for v in lib) else sum(lib),
+           "bytes_ms": sum(r[0] * r[5] for r in rows), "ops_ms": sum(r[0] * r[6] for r in rows)}
+    return _bound_by(out)
 
 
-def check_conv(sites: Counter, batch: int, dev) -> dict:
+def _bound_by(summary: dict) -> dict:
+    summary["bound_by"] = "bytes" if summary["bytes_ms"] >= summary["ops_ms"] else "operations"
+    return summary
+
+
+def check_conv(sites: Counter, batch: int, dev, timed: torch.dtype = torch.bfloat16) -> dict:
+    """Every site in bfloat16 and float32; the ``timed`` type also timed against the plain
+    version and cuDNN's ``F.conv3d`` on channel-first tensors (the library call)."""
     from monai_tpu_torch.ops.conv3d import conv3d_3x3_same, conv3d_3x3_same_plain
 
     g = torch.Generator(device=dev).manual_seed(2)
@@ -171,10 +223,16 @@ def check_conv(sites: Counter, batch: int, dev) -> dict:
             err, rel = rel_err(got, ref)
             require(rel <= tol, f"conv {ci}->{co} @{sp} {dtype}: max err {err:.3g} = {rel:.3g} x max|ref| > {tol}")
             msg = f"conv {ci:3d}->{co:3d} @{sp} x{count} {str(dtype)[6:]:8s} max_abs_err {err:.4g} ({rel:.3g} of max|ref|, tol {tol})"
-            if dtype == torch.bfloat16:
+            if dtype == timed:
                 k_ms, p_ms = paired_ms(lambda: conv3d_3x3_same(x, w, b), lambda: conv3d_3x3_same_plain(x, w, b))
-                rows.append((count, err, k_ms, p_ms))
-                msg += f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms"
+                xc, wc = x.permute(0, 4, 1, 2, 3).contiguous(), w.permute(4, 3, 0, 1, 2).contiguous()
+                lib_ms = cuda_ms(lambda: F.conv3d(xc, wc, b, padding=1))
+                size = x.element_size()
+                b_ms, o_ms = bound((x.numel() + w.numel() + b.numel() + got.numel()) * size,
+                                   2.0 * batch * np.prod(sp) * 27 * ci * co, dtype)
+                rows.append((count, err, k_ms, p_ms, lib_ms, b_ms, o_ms))
+                msg += (f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  cuDNN {lib_ms:.4f} ms  "
+                        f"bound {max(b_ms, o_ms):.4f} ms")
             print(msg, flush=True)
     return _summary(rows)
 
@@ -203,15 +261,19 @@ def check_norm(sites: Counter, batch: int, dev) -> dict:
             if dtype == torch.bfloat16:
                 k_ms, p_ms = paired_ms(lambda: instance_norm_prelu(x, w, b, a),
                                        lambda: instance_norm_prelu_plain(x, w, b, a))
-                rows.append((count, err, k_ms, p_ms))
-                msg += f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms"
+                # reads x once, writes y once; ~10 operations an element are far below the peak
+                b_ms, o_ms = bound(2 * x.numel() * x.element_size(), 10.0 * x.numel(), torch.float32)
+                rows.append((count, err, k_ms, p_ms, None, b_ms, o_ms))
+                msg += f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  bound {max(b_ms, o_ms):.4f} ms"
             print(msg, flush=True)
     return _summary(rows)
 
 
 def check_attention(sites: Counter, masks: dict, dev) -> dict:
     """Every site, plus the first stage's masked site at head dim 16 (feature size 48),
-    which is not counted in the per-forward sums."""
+    which is not counted in the per-forward sums. The library call is
+    ``F.scaled_dot_product_attention`` with bias + mask as one additive mask in the
+    input's type (built before the timing)."""
     from monai_tpu_torch.ops.window_attention import fused_window_attention, fused_window_attention_plain
 
     g = torch.Generator(device=dev).manual_seed(5)
@@ -233,15 +295,118 @@ def check_attention(sites: Counter, masks: dict, dev) -> dict:
             if dtype == torch.bfloat16:
                 k_ms, p_ms = paired_ms(lambda: fused_window_attention(q, k, v, bias, mask),
                                        lambda: fused_window_attention_plain(q, k, v, bias, mask), iters=10)
-                rows.append((count, err, k_ms, p_ms))
-                msg += f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms"
+                groups = 1 if nw is None else nw
+                add = (bias if nw is None else bias[None] + mask[:, None]).to(dtype)  # (nW, H, N, N) or (H, N, N)
+                qs, ks, vs = (t.view(b // groups, groups, h, n, d) if nw else t for t in (q, k, v))
+                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=add, scale=1.0),
+                                 iters=10)
+                nbytes = 4 * q.numel() * q.element_size() + bias.numel() * 4 + (0 if mask is None else mask.numel() * 4)
+                b_ms, o_ms = bound(nbytes, 4.0 * b * h * n * n * d, dtype)
+                rows.append((count, err, k_ms, p_ms, lib_ms, b_ms, o_ms))
+                msg += (f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  SDPA {lib_ms:.4f} ms  "
+                        f"bound {max(b_ms, o_ms):.4f} ms")
+                del add, qs, ks, vs
             print(msg, flush=True)
             del q, k, v, got, ref
     return _summary(rows)
 
 
-def sliding_window(name: str, inferer, net, per_forward: tuple[int, int, int], timing: tuple[int, int], dev,
-                   out_channels: int) -> tuple[tuple[int, int, int], int]:
+def _diag(scales, offsets) -> np.ndarray:
+    m = np.diag([*scales, 1.0])
+    m[:3, 3] = offsets
+    return m
+
+
+def spacing_matrix() -> np.ndarray:
+    """The Spacing op of the path's CT: output voxel (1.5, 1.5, 2.0) mm to input voxel."""
+    return _diag([p / s for p, s in zip(PIXDIM, CT_SPACING)], [0.0, 0.0, 0.0])
+
+
+def _grid_sample_fn(x: torch.Tensor, m: np.ndarray, out_shape, mode: str):
+    """``F.grid_sample`` (5-D, border, align_corners=True) on a precomputed grid of the
+    diagonal affine ``m``: the library call that computes the resample at order 1 (and,
+    but for ties at half a voxel, order 0)."""
+    axes = []
+    for d in range(3):
+        n_in = x.shape[1 + d]
+        c = m[d, d] * torch.arange(out_shape[d], device=x.device, dtype=torch.float64) + m[d, 3]
+        axes.append((2 * c / max(n_in - 1, 1) - 1).float())
+    gz, gy, gx = torch.meshgrid(*axes, indexing="ij")
+    grid = torch.stack((gx, gy, gz), dim=-1)[None]  # grid_sample takes (x, y, z) = (last axis first)
+    x5 = x[None]
+    return lambda: F.grid_sample(x5, grid, mode=mode, padding_mode="border", align_corners=True)[0]
+
+
+def check_resample(dev) -> dict:
+    """The separable resample at the path's two sites (a CT-like volume through Spacing at
+    order 1; a label map back at order 0), timed against the plain version and
+    ``F.grid_sample``; and every order x bound, upsampling and downsampling, at odd extents.
+    Returns the kernels-line numbers of the Spacing site, with the worst error of all."""
+    from monai_tpu_torch.ops.separable_resample import (interp_taps, separable_resample_3d,
+                                                        separable_resample_3d_plain)
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    worst = 0.0
+    for name, m, shape, out in (("up", _diag([0.45, 0.7, 0.38], [0.3, -0.6, 0.1]), (1, 61, 47, 53), (133, 66, 138)),
+                                ("down", _diag([1.7, 2.3, 1.9], [-0.4, 0.5, 0.2]), (2, 61, 47, 53), (35, 21, 27))):
+        x = torch.randn(shape, generator=g, device=dev)
+        for order in (0, 1, 3):
+            for bnd in ("zeros", "border", "reflection"):
+                for ac in (False, True):
+                    got = separable_resample_3d(x, m, out, order, bnd, ac)
+                    torch.cuda.synchronize()
+                    ref = separable_resample_3d_plain(x, m, out, order, bnd, ac)
+                    err, rel = rel_err(got, ref)
+                    worst = max(worst, err)
+                    require(torch.equal(got, ref) if order == 0 else rel <= TOL_RESAMPLE,
+                            f"resample {name} order {order} {bnd} align {ac}: max err {err:.3g} ({rel:.3g})")
+        print(f"resample grid {name} {tuple(shape)} -> {out}: orders 0/1/3 x zeros/border/reflection x "
+              f"align_corners, order 0 bit-identical, worst max_abs_err {worst:.4g}", flush=True)
+
+    m = spacing_matrix()
+    inv = np.linalg.inv(m)
+    ct = (torch.randn((1, *CT_SHAPE), generator=g, device=dev) * 200 - 300).round()
+    labels = (torch.rand(SPLEEN_PRE, generator=g, device=dev) > 0.7).float()
+    rows = []
+    for name, x, mat, out, order, mode in (("Spacing", ct, m, SPLEEN_PRE[1:], 1, "bilinear"),
+                                           ("inverse", labels, inv, CT_SHAPE, 0, "nearest")):
+        got = separable_resample_3d(x, mat, out, order, "border")
+        torch.cuda.synchronize()
+        ref = separable_resample_3d_plain(x, mat, out, order, "border")
+        err, rel = rel_err(got, ref)
+        worst = max(worst, err)
+        require(torch.equal(got, ref) if order == 0 else rel <= TOL_RESAMPLE,
+                f"resample {name} site: max err {err:.3g} ({rel:.3g})")
+        lib = _grid_sample_fn(x, mat, out, mode)
+        lib_err = (lib() - ref).abs().max().item()
+        k_ms, p_ms = paired_ms(lambda: separable_resample_3d(x, mat, out, order, "border"),
+                               lambda: separable_resample_3d_plain(x, mat, out, order, "border"), iters=20)
+        lib_ms = cuda_ms(lib, iters=20)
+        flops = 0.0
+        n = list(x.shape[1:])
+        for d in range(3):
+            taps = interp_taps(n[d], out[d], float(mat[d, d]), float(mat[d, 3]), order, "border")
+            n[d] = out[d]
+            flops += 0 if taps is None else 2.0 * taps[0].shape[1] * x.shape[0] * np.prod(n)
+        b_ms, o_ms = bound((x.numel() + got.numel()) * 4, flops, torch.float32)
+        rows.append((1, err, k_ms, p_ms, lib_ms, b_ms, o_ms))
+        print(f"resample {name} site {tuple(x.shape)} -> {tuple(out)} order {order} border: max_abs_err {err:.4g} "
+              f"({'bit-identical' if order == 0 else f'{rel:.3g} of max|ref|, tol {TOL_RESAMPLE}'})  kernel "
+              f"{k_ms:.4f} ms  plain {p_ms:.4f} ms  grid_sample {lib_ms:.4f} ms (max |diff| to plain "
+              f"{lib_err:.4g})  bound {max(b_ms, o_ms):.4f} ms", flush=True)
+    # the kernels line holds the Spacing site, which F.grid_sample computes; at the inverse
+    # site grid_sample's nearest mode rounds half-voxel ties to even, the resample up, so
+    # its time there is printed but is no library time of the same function
+    whole = _summary(rows)
+    print(f"resample per volume (both sites): kernel {whole['ms']:.4f} ms  plain {whole['plain_ms']:.4f} ms  "
+          f"bound {whole['bound_ms']:.4f} ms", flush=True)
+    summary = _summary(rows[:1])
+    summary["max_abs_err"] = worst
+    return summary
+
+
+def sliding_window(name: str, inferer, net, per_forward: tuple[int, ...], timing: tuple[int, int], dev,
+                   out_channels: int) -> tuple[tuple[int, ...], int]:
     """The path's inferer over 224x224x112 bf16 volumes; returns the launch counts of the
     run and its number of forwards."""
     n_latency, n_throughput = timing
@@ -275,7 +440,7 @@ def sliding_window(name: str, inferer, net, per_forward: tuple[int, int, int], t
     print(f"{name} sliding window {VOLUME}: out {tuple(out.shape)} {out.dtype}; {vols_per_s:.3f} vols/s "
           f"({n_throughput} volumes back to back); latency median {statistics.median(lat) * 1e3:.2f} ms "
           f"(min {min(lat) * 1e3:.2f}, {n_latency} runs); peak memory {peak_gb:.2f} GB; {calls} forwards, "
-          f"launches conv {counts[0]}, norm {counts[1]}, attention {counts[2]}", flush=True)
+          f"launches conv {counts[0]}, norm {counts[1]}, attention {counts[2]}, resample {counts[3]}", flush=True)
     require(tuple(out.shape) == (1, out_channels, *VOLUME) and bool(torch.isfinite(out).all()),
             f"{name} sliding-window output is not finite (1, {out_channels}, 224, 224, 112)")
     n_volumes = 1 + n_latency + n_throughput
@@ -285,28 +450,199 @@ def sliding_window(name: str, inferer, net, per_forward: tuple[int, int, int], t
     return counts, calls
 
 
-def forward_check(name: str, net_cpu, net_f32, net_bf16, per_forward: tuple[int, int, int], dev) -> None:
-    """One forward on a 96³ window on the card, float32 and bfloat16, against the CPU."""
+def forward_check(name: str, net_cpu, net_f32, net_bf16, per_forward: tuple[int, ...], dev) -> None:
+    """One forward on a 96³ window on the card, float32 and (where ``net_bf16`` is given)
+    bfloat16, against the CPU; the launch counts of the last forward."""
     window = torch.rand((1, 1, *ROI), generator=torch.Generator().manual_seed(1))
     ref = net_cpu(window)
     std = ref.std().item()
-    out_f32 = net_f32(window.to(dev)).cpu()
     reset_launch_counts()
-    out_bf16 = net_bf16(window.to(dev, torch.bfloat16)).float().cpu()
-    counts = launch_counts()
-    d32, d16 = (out_f32 - ref).abs(), (out_bf16 - ref).abs()
-    agree = (out_bf16.argmax(1) == ref.argmax(1)).float().mean().item()
-    print(f"{name} forward 96^3: logit std {std:.4g}; f32 card max err {d32.max().item():.4g} "
-          f"({d32.max().item() / std:.3g} std, tol {TOL_FWD_F32_MAX}); bf16 card mean err "
-          f"{d16.mean().item():.4g} ({d16.mean().item() / std:.3g} std, tol {TOL_FWD_BF16_MEAN}), "
-          f"max {d16.max().item():.4g}; argmax agreement {agree:.5f} (min {MIN_ARGMAX_AGREE}); "
-          f"launches per forward: conv {counts[0]}, norm {counts[1]}, attention {counts[2]}", flush=True)
-    require(tuple(out_bf16.shape) == tuple(ref.shape) and bool(torch.isfinite(out_bf16).all()),
-            f"{name} bf16 forward output is not finite {tuple(ref.shape)}")
+    out_f32 = net_f32(window.to(dev)).cpu()
+    d32 = (out_f32 - ref).abs()
+    msg = (f"{name} forward 96^3: logit std {std:.4g}; f32 card max err {d32.max().item():.4g} "
+           f"({d32.max().item() / std:.3g} std, tol {TOL_FWD_F32_MAX})")
+    require(tuple(out_f32.shape) == tuple(ref.shape) and bool(torch.isfinite(out_f32).all()),
+            f"{name} f32 forward output is not finite {tuple(ref.shape)}")
     require(d32.max().item() / std <= TOL_FWD_F32_MAX, f"{name} f32 card forward disagrees with the CPU")
-    require(d16.mean().item() / std <= TOL_FWD_BF16_MEAN, f"{name} bf16 card forward disagrees with the CPU")
-    require(agree >= MIN_ARGMAX_AGREE, f"{name} bf16 argmax disagrees with the CPU")
+    if net_bf16 is not None:
+        reset_launch_counts()
+        out_bf16 = net_bf16(window.to(dev, torch.bfloat16)).float().cpu()
+        d16 = (out_bf16 - ref).abs()
+        agree = (out_bf16.argmax(1) == ref.argmax(1)).float().mean().item()
+        msg += (f"; bf16 card mean err {d16.mean().item():.4g} ({d16.mean().item() / std:.3g} std, tol "
+                f"{TOL_FWD_BF16_MEAN}), max {d16.max().item():.4g}; argmax agreement {agree:.5f} "
+                f"(min {MIN_ARGMAX_AGREE})")
+        require(tuple(out_bf16.shape) == tuple(ref.shape) and bool(torch.isfinite(out_bf16).all()),
+                f"{name} bf16 forward output is not finite {tuple(ref.shape)}")
+        require(d16.mean().item() / std <= TOL_FWD_BF16_MEAN, f"{name} bf16 card forward disagrees with the CPU")
+        require(agree >= MIN_ARGMAX_AGREE, f"{name} bf16 argmax disagrees with the CPU")
+    counts = launch_counts()
+    print(msg + f"; launches per forward: conv {counts[0]}, norm {counts[1]}, attention {counts[2]}", flush=True)
     require(counts == per_forward, f"{name}: one forward launched {counts}, not {per_forward} kernels")
+
+
+def write_ct(path: Path) -> None:
+    """A 512x512x90 int16 abdominal CT phantom at (0.79, 0.79, 5.0) mm, stored as the
+    usual Task09 header does (x and y flipped: affine diag(-0.79, -0.79, 5.0)): air at
+    -1000 HU, an elliptic body at 40 HU, a spleen-like ellipsoid 60 HU brighter, and
+    noise of 25 HU, from seed 0."""
+    from monai_tpu_torch.data import write_nifti
+
+    rng = np.random.default_rng(0)
+    x, y, z = (np.linspace(-1, 1, n, dtype=np.float32) for n in CT_SHAPE)
+    x, y, z = x[:, None, None], y[None, :, None], z[None, None, :]
+    hu = np.where(x ** 2 / 0.8 + y ** 2 / 0.55 < 1, 40.0, -1000.0).astype(np.float32)
+    hu = hu + np.where(((x - 0.45) ** 2 + (y + 0.25) ** 2) / 0.02 + z ** 2 / 0.25 < 1, 60.0, 0.0).astype(np.float32)
+    hu = hu + rng.normal(0.0, 25.0, CT_SHAPE).astype(np.float32)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_nifti(hu.astype(np.int16), path, affine=np.diag([-CT_SPACING[0], -CT_SPACING[1], CT_SPACING[2], 1.0]))
+
+
+def spleen_pipelines(device):
+    """The bundle's preprocessing and postprocessing (configs/inference.json), up to the
+    inverted label map; SaveImaged is not ported."""
+    from monai_tpu_torch.transforms import (Activationsd, AsDiscreted, Compose, EnsureChannelFirstd, Invertd,
+                                            LoadImaged, Orientationd, ScaleIntensityRanged, Spacingd)
+
+    pre = Compose([LoadImaged("image", device=device), EnsureChannelFirstd("image"),
+                   Orientationd("image", axcodes="RAS"), Spacingd("image", pixdim=list(PIXDIM), mode="bilinear"),
+                   ScaleIntensityRanged("image", a_min=-57, a_max=164, b_min=0.0, b_max=1.0, clip=True)])
+    post = Compose([Activationsd("pred", softmax=True), AsDiscreted("pred", argmax=True),
+                    Invertd("pred", transform=pre, orig_keys="image", nearest_interp=True)])
+    return pre, post
+
+
+def spleen_net(generator: torch.Generator):
+    """The bundle's UNet (configs/inference.json: norm "batch") on the CPU, random weights
+    and running statistics from the generator's seed; the output conv's bias is zero, so
+    the argmax follows the data and not the bias."""
+    from monai_tpu_torch.networks.nets import UNet
+
+    net = UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2), num_res_units=2, norm="batch",
+               device="cpu", generator=generator)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm3d):
+                c = m.num_features
+                m.running_mean.copy_((torch.rand(c, generator=generator) - 0.5) * 0.2)
+                m.running_var.copy_(torch.rand(c, generator=generator) * 0.1 + 0.05)
+                m.weight.copy_(torch.rand(c, generator=generator) * 0.4 + 0.8)
+                m.bias.copy_((torch.rand(c, generator=generator) - 0.5) * 0.2)
+        net.model[2][1].conv.unit0.conv.bias.zero_()
+    return net.eval()
+
+
+def spleen_volume(pre, post, inferer, net) -> tuple[dict, dict, torch.Tensor, float]:
+    """One volume through the path's entry points, from the file to the inverted label
+    map: (the stages' seconds, the final dict, the argmax label map before the inverse,
+    the whole wall seconds). Each stage ends in a synchronise."""
+    stages, devices = {}, []
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = stage("load", lambda: pre({"image": str(CT_PATH)}, end=1))
+    devices.append(d["image"].device)
+    d = stage("channel_first_orientation", lambda: pre(d, start=1, end=3))
+    devices.append(d["image"].device)
+    d = stage("spacing", lambda: pre(d, start=3, end=4))
+    devices.append(d["image"].device)
+    d = stage("scale_intensity", lambda: pre(d, start=4))
+    devices.append(d["image"].device)
+    logits = stage("sliding_window", lambda: inferer(d["image"].data[None], net))
+    devices.append(logits.device)
+    d = stage("activations_argmax", lambda: post({**d, "pred": logits[0]}, end=2))
+    labels = d["pred"]
+    devices.append(labels.device)
+    d = stage("invert", lambda: post(d, start=2))
+    devices.append(d["pred"].device)
+    wall = time.perf_counter() - t0
+    require(all(dv.type == "cuda" for dv in devices), f"a stage of the spleen path left the card: {devices}")
+    return stages, d, labels, wall
+
+
+def spleen_path(dev) -> tuple[tuple[int, ...], dict]:
+    """Phase 5: the Spleen inference path on the card, then its checks against the CPU."""
+    from monai_tpu_torch.data import read_nifti
+    from monai_tpu_torch.data.utils import dense_patch_slices
+    from monai_tpu_torch.inferers import SlidingWindowInferer, compute_scan_interval
+    from monai_tpu_torch.transforms import Invertd
+
+    t0 = time.perf_counter()
+    write_ct(CT_PATH)
+    print(f"spleen CT {CT_SHAPE} int16 at {CT_SPACING} mm written to {CT_PATH.relative_to(CT_PATH.parents[2])} "
+          f"({CT_PATH.stat().st_size / 1e6:.1f} MB) in {time.perf_counter() - t0:.1f} s", flush=True)
+    require(len(dense_patch_slices(SPLEEN_PRE[1:], ROI, compute_scan_interval(SPLEEN_PRE[1:], ROI, 3, (0.25,) * 3)))
+            == SPLEEN_WINDOWS, f"the spleen volume should have {SPLEEN_WINDOWS} windows")
+    net_cpu = spleen_net(torch.Generator().manual_seed(0))
+    net = copy.deepcopy(net_cpu).to(dev)
+    pre, post = spleen_pipelines(None)  # the card, by default
+    inferer = SlidingWindowInferer(ROI, sw_batch_size=SPLEEN_BATCH, overlap=0.25)
+
+    window = torch.rand((SPLEEN_BATCH, 1, *ROI), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    conv_sites, norm_sites, attn_sites, _ = record_sites(net, window)
+    n_sites = (sum(conv_sites.values()), sum(norm_sites.values()), sum(attn_sites.values()))
+    print(f"spleen sites per {SPLEEN_BATCH}-window forward: {n_sites[0]} 3x3x3 stride-1 convs (float32), "
+          f"{n_sites[1]} instance norms, {n_sites[2]} window attentions", flush=True)
+    require(n_sites == (10, 0, 0), f"the spleen UNet should have 10 conv sites and no norm kernel, not {n_sites}")
+    conv = check_conv(conv_sites, SPLEEN_BATCH, dev, timed=torch.float32)
+    resample = check_resample(dev)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    spleen_volume(pre, post, inferer, net)  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = [spleen_volume(pre, post, inferer, net) for _ in range(SPLEEN_TIMED)]
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    stages, d, labels, _ = runs[-1]
+    med = {k: statistics.median(r[0][k] for r in runs) * 1e3 for k in stages}
+    walls = [r[3] * 1e3 for r in runs]
+    pre_ms = med["channel_first_orientation"] + med["spacing"] + med["scale_intensity"]
+    decode = []
+    for _ in range(3):  # the host's share of the load: gzip decode and header parse alone
+        t0 = time.perf_counter()
+        read_nifti(CT_PATH)
+        decode.append(time.perf_counter() - t0)
+    out, image = d["pred"], d["image"]
+    print(f"spleen inference {CT_SHAPE} -> {tuple(image.shape)} -> {tuple(out.shape)} float32, medians of "
+          f"{SPLEEN_TIMED} volumes (ms): load {med['load']:.2f} (read_nifti alone, host: median "
+          f"{statistics.median(decode) * 1e3:.2f} of 3); preprocessing on the card {pre_ms:.2f} "
+          f"(channel first + orientation {med['channel_first_orientation']:.2f}, Spacing {med['spacing']:.2f}, "
+          f"scale intensity {med['scale_intensity']:.2f}); sliding window {med['sliding_window']:.2f}; "
+          f"postprocessing {med['activations_argmax'] + med['invert']:.2f} (softmax + argmax "
+          f"{med['activations_argmax']:.2f}, invert {med['invert']:.2f}); per volume {statistics.median(walls):.2f} "
+          f"(min {min(walls):.2f}, max {max(walls):.2f}); peak memory {peak_gb:.2f} GB; label 1 on "
+          f"{out.data.mean().item() * 100:.2f}% of the voxels; launches over {1 + SPLEEN_TIMED} volumes: conv "
+          f"{counts[0]}, norm {counts[1]}, attention {counts[2]}, resample {counts[3]}", flush=True)
+    n_volumes = 1 + SPLEEN_TIMED
+    require(counts == tuple(n * n_volumes for n in SPLEEN_PER_VOLUME),
+            f"spleen: {n_volumes} volumes launched {counts} kernels, not {SPLEEN_PER_VOLUME} each")
+    file_affine = image.meta["original_affine"]
+    require(tuple(image.shape) == SPLEEN_PRE, f"spleen preprocessed image {tuple(image.shape)}, not {SPLEEN_PRE}")
+    require(tuple(out.shape) == (1, *CT_SHAPE) and np.abs(out.affine - file_affine).max() <= 1e-9,
+            f"spleen labels {tuple(out.shape)} on affine {out.affine.tolist()}, not (1, 512, 512, 90) on the input's")
+    require(bool(((out.data == 0) | (out.data == 1)).all()), "spleen labels are not 0 or 1")
+
+    # against the CPU: the preprocessing of the same file, the inverse of the card's own labels
+    pre_cpu, _ = spleen_pipelines("cpu")
+    d_cpu = pre_cpu({"image": str(CT_PATH)})
+    pre_err = (image.data.cpu() - d_cpu["image"].data).abs().max().item()
+    aff_err = np.abs(image.affine - d_cpu["image"].affine).max()
+    inv_cpu = Invertd("pred", transform=pre, orig_keys="image")({"image": image, "pred": labels.cpu()})["pred"]
+    same = torch.equal(inv_cpu.data, out.data.cpu())
+    print(f"spleen against the CPU: preprocessed image max abs err {pre_err:.4g} (tol {TOL_PRE}), affine "
+          f"{aff_err:.3g}; inverse of the card's label map identical to the CPU's: {same}", flush=True)
+    require(pre_err <= TOL_PRE and aff_err <= 1e-9, "the spleen preprocessing on the card disagrees with the CPU")
+    require(same, "the spleen inverse on the card disagrees with the CPU's")
+    forward_check("spleen", net_cpu, net, None, (10, 0, 0, 0), dev)
+    return counts, {"conv": conv, "resample": resample}
 
 
 def main() -> None:
@@ -330,11 +666,11 @@ def main() -> None:
     library()
     print(f"build: {library_path().name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # the two paths' networks: full width, random weights from seed 0, built on the CPU
+    # the sliding-window paths' networks: full width, random weights from seed 0, built on the CPU
     nets = {}
     for name, make in (("unet", lambda g: UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2),
-                                               num_res_units=2, generator=g)),
-                       ("swinunetr", lambda g: SwinUNETR(1, 14, feature_size=24, generator=g))):
+                                               num_res_units=2, generator=g, device="cpu")),
+                       ("swinunetr", lambda g: SwinUNETR(1, 14, feature_size=24, generator=g, device="cpu"))):
         cpu = make(torch.Generator().manual_seed(0)).eval()
         nets[name] = (cpu, copy.deepcopy(cpu).to(dev), copy.deepcopy(cpu).to(dev, torch.bfloat16))
     interval = compute_scan_interval(VOLUME, ROI, 3, (0.25,) * 3)
@@ -350,7 +686,7 @@ def main() -> None:
             per_forward = UNET_PER_FORWARD if name == "unet" else SWIN_PER_FORWARD
             print(f"{name} sites per {batch}-window forward: {n_sites[0]} 3x3x3 stride-1 convs, {n_sites[1]} "
                   f"instance norms, {n_sites[2]} window attentions", flush=True)
-            require(n_sites == per_forward, f"{name} should have {per_forward} kernel sites, not {n_sites}")
+            require(n_sites == per_forward[:3], f"{name} should have {per_forward[:3]} kernel sites, not {n_sites}")
             summaries[name] = (check_conv(conv_sites, batch, dev), check_norm(norm_sites, batch, dev),
                                check_attention(attn_sites, masks, dev) if attn_sites else None)
 
@@ -367,25 +703,44 @@ def main() -> None:
         # 4. one forward per path against the CPU float32 forward
         forward_check("unet", *nets["unet"], UNET_PER_FORWARD, dev)
         forward_check("swinunetr", *nets["swinunetr"], SWIN_PER_FORWARD, dev)
+        del nets
+        torch.cuda.empty_cache()
+
+        # 5. the Spleen inference path, its kernels at its shapes, and its checks against the CPU
+        spleen_counts, spleen = spleen_path(dev)
 
     def merged(i: int) -> dict:
+        """The per-forward sums of kernel i over the UNet and SwinUNETR paths (bfloat16)."""
         a, b = summaries["unet"][i], summaries["swinunetr"][i]
-        return {"max_abs_err": max(a["max_abs_err"], b["max_abs_err"]), "ms": a["ms"] + b["ms"],
-                "plain_ms": a["plain_ms"] + b["plain_ms"]}
+        out = {k: a[k] + b[k] for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
+        out["library_ms"] = None if a["library_ms"] is None else a["library_ms"] + b["library_ms"]
+        out["max_abs_err"] = max(a["max_abs_err"], b["max_abs_err"], spleen["conv"]["max_abs_err"] if i == 0 else 0)
+        return _bound_by(out)
 
     kernels = [
         {"name": "conv3d_3x3_same", "route": "cuda", "source": "monai_tpu_torch/csrc/conv3d_3x3_same.cu",
-         "replaces": "monai_tpu/ops/pallas_conv3d.py:91", "launches": unet_counts[0] + swin_counts[0], **merged(0)},
+         "replaces": "monai_tpu/ops/pallas_conv3d.py:91",
+         "launches": unet_counts[0] + swin_counts[0] + spleen_counts[0], **merged(0)},
         {"name": "instance_norm_prelu", "route": "triton", "source": "monai_tpu_torch/networks/layers/fast_norm.py",
          "replaces": "monai_tpu/networks/layers/fast_norm.py:44", "launches": unet_counts[1] + swin_counts[1],
          **merged(1)},
         {"name": "fused_window_attention", "route": "cuda", "source": "monai_tpu_torch/csrc/window_attention.cu",
          "replaces": "monai_tpu/ops/pallas_window_attention.py:106", "launches": swin_counts[2],
          **summaries["swinunetr"][2]},
+        {"name": "separable_resample_3d", "route": "cuda", "source": "monai_tpu_torch/csrc/separable_resample_3d.cu",
+         "replaces": "monai_tpu/ops/pallas_resample.py:117", "launches": spleen_counts[3], **spleen["resample"]},
     ]
-    print("per forward (ms, kernel / plain): " + "; ".join(
-        f"{name} {k} {s['ms']:.4f} / {s['plain_ms']:.4f}" for name, ss in summaries.items()
-        for k, s in zip(("conv", "norm", "attention"), ss) if s is not None), flush=True)
+    summaries["spleen"] = (spleen["conv"], None, None, spleen["resample"])
+
+    def line(s: dict) -> str:
+        lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
+        return f"{s['ms']:.4f} / {s['plain_ms']:.4f} / {lib} / {s['bound_ms']:.4f} ({s['bound_by']})"
+
+    print("per forward, the resample per volume (ms, kernel / plain / library / bound): " + "; ".join(
+        f"{name} {k} {line(s)}" for name, ss in summaries.items()
+        for k, s in zip(("conv", "norm", "attention", "resample"), ss) if s is not None), flush=True)
+    for k in kernels:  # the bound's two sides were for bound_by only
+        del k["bytes_ms"], k["ops_ms"]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,7 @@ import sys
 
 __version__ = "0.1.0"
 
-__all__ = ["data", "inferers", "networks", "ops", "utils"]
+__all__ = ["data", "inferers", "networks", "ops", "transforms", "utils"]
 
 _SUBMODULES = set(__all__)
 

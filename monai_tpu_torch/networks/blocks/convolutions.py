@@ -38,7 +38,9 @@ class Convolution(nn.Sequential):
     """conv, then norm / dropout / activation, optionally transposed.
 
     When the ADN block is instance norm → dropout(p=0) → PReLU, the forward runs the
-    three as one ``instance_norm_prelu`` call with the slope fused in."""
+    three as one ``instance_norm_prelu`` call with the slope fused in. Any other ADN
+    block (batch norm in the Spleen bundle's UNet) runs as it is, on channels-last
+    memory."""
 
     def __init__(self, spatial_dims: int, in_channels: int, out_channels: int,
                  strides: Sequence[int] | int = 1, kernel_size: Sequence[int] | int = 3,
@@ -85,8 +87,8 @@ class Convolution(nn.Sequential):
         if self.fused_norm_prelu:
             norm, act = self.adn.N, self.adn.A
             return instance_norm_prelu(channels_last(x), norm.weight, norm.bias, act.weight, norm.eps)
-        if "adn" in self._modules:
-            x = self.adn(x)
+        if "adn" in self._modules:  # e.g. batch norm: kept channels-last for the next 3x3x3 conv
+            x = self.adn(channels_last(x))
         return x
 
 

@@ -5,8 +5,10 @@ monai_tpu/networks/layers/factories.py, for the layers the UNet and SwinUNETR us
 stride-1 SAME convolution to the CUDA kernel (``ops/conv3d.py``); every other
 convolution (1x1, the strided patch embedding) and every transposed convolution is
 ``F.conv3d`` / ``F.conv_transpose3d``, as the JAX package leaves them to XLA.
-``Norm``: instance runs the Triton kernel of ``fast_norm.py``; layer is
-``nn.LayerNorm`` with the JAX package's eps of 1e-6 (torch MONAI uses 1e-5). ``Act``:
+``Norm``: instance runs the Triton kernel of ``fast_norm.py``; batch is
+``nn.BatchNorm{n}d`` (eps 1e-5, plain PyTorch, as the JAX package has no kernel for
+it); layer is ``nn.LayerNorm`` with the JAX package's eps of 1e-6 (torch MONAI uses
+1e-5). ``Act``:
 the learnable PReLU (init 0.25), LeakyReLU (slope 0.01) and GELU in the tanh
 approximation, which is ``jax.nn.gelu``'s default (torch MONAI uses the exact erf).
 ``Dropout``: torch's dropouts.
@@ -114,6 +116,7 @@ class Conv3d(nn.Conv3d):
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: Conv3d}
 _CONVTRANS = {1: nn.ConvTranspose1d, 2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
 _DROPOUT = {1: nn.Dropout, 2: nn.Dropout2d, 3: nn.Dropout3d}
+_BATCHNORM = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
 
 
 @Conv.factory_function("conv")
@@ -145,6 +148,15 @@ def instance_factory(dim: int):
     # affine defaults to False, as torch's InstanceNorm{n}d and the JAX package's factory
     def make(num_features, affine: bool = False, eps: float = 1e-5, device=None, dtype=None):
         return InstanceNorm(num_features, eps=eps, affine=affine, device=device, dtype=dtype)
+
+    return make
+
+
+@Norm.factory_function("batch")
+def batch_factory(dim: int):
+    # eps 1e-5 as the JAX package's nnx.BatchNorm (torch's momentum 0.1 is nnx's 0.9)
+    def make(num_features, eps: float = 1e-5, device=None, dtype=None):
+        return _BATCHNORM[dim](num_features, eps=eps, device=device, dtype=dtype)
 
     return make
 

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.window_attention import fused_window_attention
+from ...utils.backend import resolve_device
 from ...utils.misc import ensure_tuple_rep
 from ..blocks.attention import MLPBlock, PatchEmbed
 from ..blocks.dynunet_block import UnetOutBlock, UnetrBasicBlock, UnetrUpBlock
@@ -311,7 +312,9 @@ class SwinTransformer(nn.Module):
 class SwinUNETR(nn.Module):
     """Swin encoder and conv decoder: ``SwinUNETR(in_channels=1, out_channels=14,
     feature_size=24)`` is the BTCV network; channel-first (B, C, *spatial) in and out,
-    each spatial size a multiple of 32."""
+    each spatial size a multiple of 32. ``device=None`` is the CUDA card; the weights
+    are made on the CPU and then moved, so one seed gives the same weights on either
+    device."""
 
     def __init__(self, in_channels: int = 1, out_channels: int = 2, depths: Sequence[int] = (2, 2, 2, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), feature_size: int = 24,
@@ -322,7 +325,8 @@ class SwinUNETR(nn.Module):
         super().__init__()
         if feature_size % 12 != 0:
             raise ValueError("feature_size should be divisible by 12.")
-        common = dict(device=device, dtype=dtype, generator=generator)
+        device = resolve_device(device)
+        common = dict(device="cpu", dtype=dtype, generator=generator)
         self.normalize = normalize
         self.swinViT = SwinTransformer(in_channels, feature_size, ensure_tuple_rep(window_size, spatial_dims),
                                        ensure_tuple_rep(patch_size, spatial_dims), depths, num_heads,
@@ -342,6 +346,7 @@ class SwinUNETR(nn.Module):
         self.decoder2 = UnetrUpBlock(spatial_dims, 2 * f, f, **dec)
         self.decoder1 = UnetrUpBlock(spatial_dims, f, f, **dec)
         self.out = UnetOutBlock(spatial_dims, f, out_channels, **common)
+        self.to(device)
 
     def forward(self, x_in: torch.Tensor) -> torch.Tensor:
         x_in = channels_last(x_in)

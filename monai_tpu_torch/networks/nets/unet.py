@@ -13,6 +13,7 @@ from collections.abc import Sequence
 import torch
 from torch import nn
 
+from ...utils.backend import resolve_device
 from ..blocks.convolutions import Convolution, ResidualUnit
 
 __all__ = ["SkipConnection", "UNet", "Unet"]
@@ -39,7 +40,12 @@ class SkipConnection(nn.Module):
 
 
 class UNet(nn.Module):
-    """Residual or plain UNet: each level is down → skip(inner levels) → up."""
+    """Residual or plain UNet: each level is down → skip(inner levels) → up.
+
+    ``device=None`` is the CUDA card (``utils.backend.resolve_device``); pass
+    ``device="cpu"`` for the CPU. The weights are made on the CPU and then moved, so one
+    seed (``generator``, or torch's global seed) gives the same weights on either
+    device."""
 
     def __init__(self, spatial_dims: int, in_channels: int, out_channels: int, channels: Sequence[int],
                  strides: Sequence[int], kernel_size: Sequence[int] | int = 3,
@@ -57,8 +63,9 @@ class UNet(nn.Module):
         self.channels = channels
         self.strides = strides
         self.num_res_units = num_res_units
+        device = resolve_device(device)
         common = dict(act=act, norm=norm, dropout=dropout, bias=bias, adn_ordering=adn_ordering,
-                      device=device, dtype=dtype, generator=generator)
+                      device="cpu", dtype=dtype, generator=generator)
 
         def down_layer(inc: int, outc: int, s) -> nn.Module:
             if num_res_units > 0:
@@ -88,6 +95,7 @@ class UNet(nn.Module):
             return nn.Sequential(down, SkipConnection(subblock), up)
 
         self.model = create_block(in_channels, out_channels, channels, strides, True)
+        self.to(device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim == 5:

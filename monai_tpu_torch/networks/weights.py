@@ -3,7 +3,8 @@
 
 The input is keyed by the flattened nnx variable paths of ``monai_tpu``'s network, e.g.
 ``model.down.convs.0.conv.kernel``, ``model.down.convs.0.adn.2.alpha`` or
-``model.up.mods.0.conv.kernel``; the output by torch MONAI's names, which the port's
+``model.up.mods.0.conv.kernel`` (and ``model.down.convs.0.adn.0.mean`` for a batch
+norm's statistics); the output by torch MONAI's names, which the port's
 networks use (``model.0.conv.unit0.conv.weight``, ``model.0.conv.unit0.adn.A.weight``,
 ``model.2.0.conv.weight``). Layouts: a conv kernel goes from (*K, I, O) to (O, I, *K);
 a transposed-conv kernel from (*K, I, O) to (I, O, *K), spatially flipped, which
@@ -20,7 +21,8 @@ import torch
 
 __all__ = ["swin_state_dict_from_jax", "unet_state_dict_from_jax"]
 
-_ADN_LEAVES = {"alpha": "A.weight", "scale": "N.weight", "bias": "N.bias"}
+_ADN_LEAVES = {"alpha": "A.weight", "scale": "N.weight", "bias": "N.bias", "mean": "N.running_mean",
+               "var": "N.running_var"}
 
 
 def _torch_key(toks: list[str]) -> str:
@@ -69,15 +71,20 @@ def _conv_weight(arr: np.ndarray, transposed: bool) -> np.ndarray:
 
 
 def unet_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Map ``{nnx param path: array}`` of a monai_tpu UNet to the port's ``state_dict``
-    (CPU float tensors, loadable with ``UNet.load_state_dict``)."""
+    """Map ``{nnx variable path: array}`` of a monai_tpu UNet (its ``Param``s and, with a
+    batch norm, its ``BatchStat``s) to the port's ``state_dict`` (CPU tensors, loadable
+    with ``UNet.load_state_dict(strict=True)``). A batch norm's ``mean`` and ``var``
+    become ``running_mean`` and ``running_var``, and it gains ``num_batches_tracked``."""
     out: dict[str, torch.Tensor] = {}
     for path, value in params.items():
         toks = path.split(".")
         arr = np.asarray(value)
         if toks[-1] == "kernel":
             arr = _conv_weight(arr, toks[-2] == "conv" and _is_transposed(toks))
-        out[_torch_key(toks)] = torch.tensor(np.ascontiguousarray(arr))
+        key = _torch_key(toks)
+        out[key] = torch.tensor(np.ascontiguousarray(arr))
+        if key.endswith(".N.running_mean"):
+            out[key[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return out
 
 

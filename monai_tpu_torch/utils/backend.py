@@ -23,8 +23,15 @@ def get_torch_dtype(dtype: Any) -> torch.dtype:
 
 
 def resolve_device(device: Any = None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means the CPU."""
-    return torch.device("cpu") if device is None else torch.device(device)
+    """``device`` as a ``torch.device``; ``None`` means the CUDA card, and raises where
+    there is none: the port's entry points run on the card unless the caller asks for
+    the CPU (``device="cpu"``)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: monai_tpu_torch runs on the card by default; "
+                           "pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
 
 
 def to_torch(x: Any, device: Any = None, dtype: Any = None) -> torch.Tensor:

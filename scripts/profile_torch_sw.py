@@ -1,8 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the port's sliding-window eval goes, on one NVIDIA GPU.
 
-Runs a chip_smoke.py path (``--net unet`` or ``swinunetr``: the same network, inferer,
-volume and bfloat16 weights) and reports, per 224x224x112 volume:
+Runs a chip_smoke.py sliding-window path and reports, per volume:
+
+- ``--net unet`` or ``swinunetr``: the same network, inferer, 224x224x112 volume and
+  bfloat16 weights as chip_smoke.py;
+- ``--net spleen``: the Spleen bundle's batch-norm UNet in float32 under
+  SlidingWindowInferer(96, sw_batch_size=4, overlap=0.25) on a (1, 1, 270, 270, 224)
+  volume, the preprocessed shape of a 512x512x90 CT (48 windows), with TF32 off as in
+  chip_smoke.py;
+
+and for each:
 
 - wall time with the profiler off (synchronised), and the host's enqueue time (the
   inferer call returning, before the device finishes);
@@ -34,18 +42,23 @@ def build(net_name: str, dev):
     from monai_tpu_torch.networks.nets import SwinUNETR, UNet
 
     g = torch.Generator().manual_seed(0)
+    if net_name == "spleen":
+        net = UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2), num_res_units=2, norm="batch",
+                   generator=g)
+        return net.eval().to(dev), SlidingWindowInferer(96, sw_batch_size=4, overlap=0.25), (270, 270, 224), \
+            torch.float32
     if net_name == "unet":
         net = UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2), num_res_units=2, generator=g)
         inferer = SlidingWindowInferer(96, sw_batch_size=18, overlap=0.25, mode="gaussian")
     else:
         net = SwinUNETR(1, 14, feature_size=24, generator=g)
         inferer = SlidingWindowInfererAdapt(96, sw_batch_size=6, overlap=0.25, mode="gaussian")
-    return net.eval().to(dev, torch.bfloat16), inferer
+    return net.eval().to(dev, torch.bfloat16), inferer, (224, 224, 112), torch.bfloat16
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--net", choices=("unet", "swinunetr"), default="swinunetr")
+    ap.add_argument("--net", choices=("unet", "swinunetr", "spleen"), default="swinunetr")
     ap.add_argument("--volumes", type=int, default=5, help="volumes profiled, after 3 warm-ups")
     ap.add_argument("--top", type=int, default=25, help="kernels listed")
     ap.add_argument("--trace", help="write a chrome trace here")
@@ -55,9 +68,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    net, inferer = build(args.net, dev)
-    vol = torch.rand((1, 1, 224, 224, 112), generator=torch.Generator(device=dev).manual_seed(4),
-                     device=dev).to(torch.bfloat16)
+    torch.backends.cudnn.allow_tf32 = False
+    net, inferer, shape, dtype = build(args.net, dev)
+    vol = torch.rand((1, 1, *shape), generator=torch.Generator(device=dev).manual_seed(4), device=dev).to(dtype)
     n = args.volumes
     with torch.inference_mode():
         for _ in range(3):

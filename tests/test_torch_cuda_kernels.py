@@ -7,14 +7,18 @@ so it runs where only PyTorch is installed:
 
 Tolerances, relative to max|plain output|: float32 1e-4 (sums in another order);
 bfloat16 1e-2 (both versions round an f32 sum to bf16, so they may differ by one bf16
-step, at most 2^-7 of the value).
+step, at most 2^-7 of the value). The separable resample: 1e-5 at orders 1 and 3 (2 or 4
+taps a row, summed in another order than the dense product), bit-identical at order 0.
 """
 import pytest
 import torch
 
+import numpy as np
+
 from monai_tpu_torch.networks.layers.fast_norm import instance_norm_prelu, instance_norm_prelu_plain
 from monai_tpu_torch.networks.nets import SwinUNETR, UNet
 from monai_tpu_torch.ops.conv3d import conv3d_3x3_same, conv3d_3x3_same_plain
+from monai_tpu_torch.ops.separable_resample import separable_resample_3d, separable_resample_3d_plain
 from monai_tpu_torch.ops.window_attention import fused_window_attention, fused_window_attention_plain
 
 pytestmark = pytest.mark.cuda
@@ -110,7 +114,8 @@ def test_norm_kernel_rejects_channel_first_memory(cuda):
 
 
 def test_small_unet_on_card_matches_cpu(cuda):
-    net = UNet(3, 1, 2, (4, 8, 16), (2, 2), num_res_units=2, generator=torch.Generator().manual_seed(0)).eval()
+    net = UNet(3, 1, 2, (4, 8, 16), (2, 2), num_res_units=2, generator=torch.Generator().manual_seed(0),
+               device="cpu").eval()
     x = torch.rand((2, 1, 16, 16, 16), generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
         ref = net(x)
@@ -143,9 +148,103 @@ def test_window_attention_kernel_rejects_other_head_dims(cuda):
 
 
 def test_small_swin_unetr_on_card_matches_cpu(cuda):
-    net = SwinUNETR(1, 3, feature_size=24, generator=torch.Generator().manual_seed(0)).eval()
+    net = SwinUNETR(1, 3, feature_size=24, generator=torch.Generator().manual_seed(0), device="cpu").eval()
     x = torch.rand((2, 1, 32, 32, 32), generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
         ref = net(x)
         got = net.to(cuda)(x.to(cuda)).cpu()
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def _diag(scales, offsets):
+    m = np.diag([*scales, 1.0])
+    m[:3, 3] = offsets
+    return m
+
+
+RESAMPLE_CASES = [
+    ((2, 13, 17, 11), _diag([0.45, 0.7, 0.38], [0.3, -0.6, 0.1]), (29, 24, 27)),   # upsampling
+    ((1, 31, 27, 33), _diag([2.9, 2.3, 1.9], [-0.4, 0.5, 0.2]), (11, 13, 17)),     # downsampling
+    ((3, 1, 19, 21), _diag([1.0, 0.55, 1.7], [0.0, 0.25, -1.5]), (1, 35, 13)),     # a 2-D image as depth 1
+    ((1, 9, 10, 11), _diag([1.0, 1.0, 1.0], [0.0, 0.0, 0.0]), (9, 10, 11)),        # every axis the identity
+    ((1, 12, 14, 16), _diag([1.25, 1.0, -1.0], [-2.0, 0.0, 15.0]), (9, 14, 16)),   # one axis resampled, one flipped
+]
+
+
+@pytest.mark.parametrize("order", [0, 1, 3])
+@pytest.mark.parametrize("bound", ["zeros", "border", "reflection"])
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("case", range(len(RESAMPLE_CASES)))
+def test_separable_resample_kernel_matches_plain(cuda, order, bound, align_corners, case):
+    shape, m, out_shape = RESAMPLE_CASES[case]
+    x = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(case), device=cuda)
+    with torch.inference_mode():
+        before = separable_resample_3d.launches
+        got = separable_resample_3d(x, m, out_shape, order, bound, align_corners)
+        assert separable_resample_3d.launches == before + 1
+        ref = separable_resample_3d_plain(x, m, out_shape, order, bound, align_corners)
+    assert got.shape == ref.shape == (shape[0], *out_shape) and got.dtype == torch.float32
+    if order == 0:
+        assert torch.equal(got, ref)
+    else:
+        assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("site", ["spacing", "inverse"])
+def test_separable_resample_kernel_at_the_spleen_sites(cuda, site):
+    m = _diag([1.5 / 0.79, 1.5 / 0.79, 0.4], [0.0, 0.0, 0.0])
+    g = torch.Generator(device=cuda).manual_seed(7)
+    if site == "spacing":
+        x, mat, out, order = torch.randn((1, 512, 512, 90), generator=g, device=cuda) * 300, m, (270, 270, 224), 1
+    else:
+        x = (torch.rand((1, 270, 270, 224), generator=g, device=cuda) > 0.5).float()
+        mat, out, order = np.linalg.inv(m), (512, 512, 90), 0
+    with torch.inference_mode():
+        got = separable_resample_3d(x, mat, out, order, "border")
+        ref = separable_resample_3d_plain(x, mat, out, order, "border")
+    if order == 0:
+        assert torch.equal(got, ref)
+    else:
+        assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_separable_resample_kernel_rejects_other_types(cuda):
+    with torch.inference_mode(), pytest.raises(TypeError):
+        separable_resample_3d(torch.zeros((1, 4, 4, 4), device=cuda, dtype=torch.bfloat16), np.eye(4), (4, 4, 4))
+
+
+def test_spleen_pipeline_on_card_matches_cpu(cuda, tmp_path):
+    """The bundle's preprocessing on the card equals the CPU's (to 1e-5), the batch-norm
+    UNet's logits agree (1e-4 of max), and the inverse of one label map is identical."""
+    from monai_tpu_torch.data import write_nifti
+    from monai_tpu_torch.inferers import SlidingWindowInferer
+    from monai_tpu_torch.transforms import (Compose, EnsureChannelFirstd, Invertd, LoadImaged, Orientationd,
+                                            ScaleIntensityRanged, Spacingd)
+
+    vol = (np.random.RandomState(0).rand(64, 64, 20) * 1200 - 1000).astype(np.int16)
+    path = str(tmp_path / "ct.nii.gz")
+    write_nifti(vol, path, affine=np.diag([-0.79, -0.79, 5.0, 1.0]))
+
+    def pre(device):
+        return Compose([LoadImaged("image", device=device), EnsureChannelFirstd("image"),
+                        Orientationd("image", axcodes="RAS"), Spacingd("image", pixdim=[1.5, 1.5, 2.0]),
+                        ScaleIntensityRanged("image", a_min=-57, a_max=164, b_min=0.0, b_max=1.0, clip=True)])
+
+    card, cpu = pre(None), pre("cpu")
+    with torch.inference_mode():
+        before = separable_resample_3d.launches
+        d = card({"image": path})
+        assert separable_resample_3d.launches == before + 1 and d["image"].data.is_cuda
+        d_cpu = cpu({"image": path})
+        assert (d["image"].data.cpu() - d_cpu["image"].data).abs().max().item() <= 1e-5
+        net = UNet(3, 1, 2, (4, 8, 16), (2, 2), num_res_units=2, norm="batch",
+                   generator=torch.Generator().manual_seed(0), device="cpu").eval()
+        ref = SlidingWindowInferer(32, 4, 0.25)(d_cpu["image"].data[None], net)
+        got = SlidingWindowInferer(32, 4, 0.25)(d["image"].data[None], net.to(cuda)).cpu()
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+        labels = got[0].argmax(0, keepdim=True).float()
+        inv = Invertd("pred", transform=card, orig_keys="image")
+        on_card = inv({"image": d["image"], "pred": labels.to(cuda)})["pred"]
+        on_cpu = inv({"image": d["image"], "pred": labels})["pred"]
+    assert on_card.data.is_cuda and on_card.shape == (1, 64, 64, 20)
+    assert torch.equal(on_card.data.cpu(), on_cpu.data)

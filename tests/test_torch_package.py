@@ -27,6 +27,10 @@ def test_port_imports_no_jax():
             "from monai_tpu_torch.ops.conv3d import conv3d_3x3_same\n"
             "from monai_tpu_torch.ops.window_attention import fused_window_attention\n"
             "from monai_tpu_torch.networks.layers.fast_norm import instance_norm_prelu\n"
+            "from monai_tpu_torch.ops.separable_resample import separable_resample_3d\n"
+            "from monai_tpu_torch.transforms import Compose, Invertd, LoadImaged, Spacingd\n"
+            "from monai_tpu_torch.data import MetaImage, NiftiReader, read_nifti, write_nifti\n"
+            "import monai_tpu_torch.transforms.dictionary, monai_tpu_torch.transforms.lazy_executor\n"
             "import monai_tpu_torch.data, monai_tpu_torch.utils, monai_tpu_torch.ops._build\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'monai_tpu', 'triton'))\n"
             "print(bad)\n"
@@ -36,7 +40,7 @@ def test_port_imports_no_jax():
 
 
 def test_lazy_subpackages():
-    assert set(monai_tpu_torch.__all__) == {"data", "inferers", "networks", "ops", "utils"}
+    assert set(monai_tpu_torch.__all__) == {"data", "inferers", "networks", "ops", "transforms", "utils"}
     assert monai_tpu_torch.inferers.SlidingWindowInferer is not None
     with pytest.raises(AttributeError):
         monai_tpu_torch.not_a_subpackage
@@ -111,7 +115,7 @@ def test_unet_feeds_the_norm_channels_last(monkeypatch):
         return instance_norm_prelu(x, *args, **kwargs)
 
     monkeypatch.setattr(conv_mod, "instance_norm_prelu", spy)
-    net = UNet(3, 1, 2, (4, 4, 4, 4, 4), (2, 2, 2, 2), num_res_units=2).eval()
+    net = UNet(3, 1, 2, (4, 4, 4, 4, 4), (2, 2, 2, 2), num_res_units=2, device="cpu").eval()
     with torch.inference_mode():
         net(torch.rand(1, 1, 16, 16, 16))
     assert len(seen) == 17 and all(seen)

@@ -69,7 +69,7 @@ def test_whole_slice_matches_jax():
     jax_net = JaxUNet(*args, num_res_units=2, rngs=nnx.Rngs(0))
     params = {".".join(map(str, p)): np.asarray(v.get_value())
               for p, v in nnx.state(jax_net, nnx.Param).flat_state()}
-    port = UNet(*args, num_res_units=2).eval()
+    port = UNet(*args, num_res_units=2, device="cpu").eval()
     port.load_state_dict(unet_state_dict_from_jax(params))
     vol = np.random.RandomState(0).rand(1, 1, 40, 36, 20).astype(np.float32)
     with torch.inference_mode():

@@ -237,7 +237,7 @@ def nets():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pwa, "use_pallas_window_attention", lambda: True)
         jax_net = _jax_swin()
-        port = _carry(jax_net, swin_unetr.SwinUNETR(1, 14, feature_size=24), seed=11)
+        port = _carry(jax_net, swin_unetr.SwinUNETR(1, 14, feature_size=24, device="cpu"), seed=11)
         graphdef, state = nnx.split(jax_net)
         forward = jax.jit(lambda s, x: nnx.merge(graphdef, s)(x))
         x = np.random.RandomState(12).rand(1, 1, 32, 32, 32).astype(np.float32)
@@ -341,8 +341,8 @@ def test_slope_buffer_is_not_in_the_state_dict_and_follows_dtype():
 
 
 def test_generator_init_is_reproducible():
-    a = swin_unetr.SwinUNETR(1, 2, feature_size=12, generator=torch.Generator().manual_seed(3))
-    b = swin_unetr.SwinUNETR(1, 2, feature_size=12, generator=torch.Generator().manual_seed(3))
+    a = swin_unetr.SwinUNETR(1, 2, feature_size=12, generator=torch.Generator().manual_seed(3), device="cpu")
+    b = swin_unetr.SwinUNETR(1, 2, feature_size=12, generator=torch.Generator().manual_seed(3), device="cpu")
     assert all(torch.equal(p, q) for p, q in zip(a.state_dict().values(), b.state_dict().values()))
     table = a.swinViT.layers1[0].blocks[0].attn.relative_position_bias_table
     assert table.abs().max() <= 0.04 and table.std() > 0.01  # 0.02 x N(0, 1) truncated at 2
@@ -350,9 +350,9 @@ def test_generator_init_is_reproducible():
 
 def test_rejects_bad_feature_size_and_attention_dropout():
     with pytest.raises(ValueError):
-        swin_unetr.SwinUNETR(1, 2, feature_size=20)
+        swin_unetr.SwinUNETR(1, 2, feature_size=20, device="cpu")
     with pytest.raises(NotImplementedError):
-        swin_unetr.SwinUNETR(1, 2, feature_size=12, attn_drop_rate=0.1)
+        swin_unetr.SwinUNETR(1, 2, feature_size=12, attn_drop_rate=0.1, device="cpu")
 
 
 # --- sliding-window inference ------------------------------------------------------------

@@ -58,7 +58,7 @@ def nets():
     for path, var in nnx.state(jax_net, nnx.Param).flat_state():
         if path[-1] in ("bias", "alpha"):
             var.set_value(jnp.asarray(rng.uniform(0.05, 0.5, var.get_value().shape).astype(np.float32)))
-    port = UNet(*ARGS, num_res_units=2).eval()
+    port = UNet(*ARGS, num_res_units=2, device="cpu").eval()
     port.load_state_dict(unet_state_dict_from_jax(_jax_params(jax_net)))
     return jax_net, port
 
@@ -114,7 +114,7 @@ def test_fused_sites_and_cpu_routing(nets):
 def test_plain_unet_without_res_units_matches_jax():
     """num_res_units=0: Convolution layers only, the top up layer conv-only."""
     jax_net = JaxUNet(*ARGS, num_res_units=0, rngs=nnx.Rngs(2))
-    port = UNet(*ARGS, num_res_units=0).eval()
+    port = UNet(*ARGS, num_res_units=0, device="cpu").eval()
     port.load_state_dict(unet_state_dict_from_jax(_jax_params(jax_net)))
     x = _x(3, (1, 1, 8, 8, 8))
     with torch.inference_mode():
