@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port, monai_tpu_torch, on one NVIDIA GPU.
 
-Drives the port's three paths, each at full width with random weights from a seed:
+Drives the port's four paths, each at full width with random weights from a seed:
 
 - UNet: the Spleen-CT 3-D UNet (channels 16-32-64-128-256, strides 2, two residual
   units, instance norm, PReLU) under ``SlidingWindowInferer``, one window batch of 18,
@@ -16,6 +16,12 @@ Drives the port's three paths, each at full width with random weights from a see
   under SlidingWindowInferer(96, sw_batch_size=4, overlap=0.25), 48 windows; Activationsd
   softmax, AsDiscreted argmax, and Invertd at nearest interpolation (the resample kernel
   again), back to a (1, 512, 512, 90) label map on the input's affine.
+- Filtering: the bilateral entry points on the spleen path's own data, float32: the
+  brute-force ``BilateralFilter`` on the preprocessed (1, 1, 270, 270, 224) image (the
+  3-D bilateral kernel) and on the CT's 90 axial 512x512 slices after the bundle's
+  ScaleIntensityRange (the 2-D kernel); the bilateral grid (``BilateralFilter``'s
+  default) on the image; and ``CRF()`` over the spleen UNet's (1, 2, 270, 270, 224)
+  logits with the image as reference.
 
   1. the card's name and power limit; the CUDA kernels built from the checkout's sources
   2. each kernel against its plain PyTorch version at every shape each path gives it
@@ -34,6 +40,12 @@ Drives the port's three paths, each at full width with random weights from a see
      counts, and the output's shape and affine; then its preprocessed image against the
      port's CPU preprocessing of the same file, its inverse against the CPU's inverse of
      the card's own label map, and one 96³ float32 forward of its UNet against the CPU
+  6. the filtering path, stage by stage: the median of 5 synchronised calls after a
+     warm-up, the launch counts of those calls and the peak memory; at the full sizes the
+     bilateral kernel against its plain version, with both times and the bound (bytes,
+     float32 operations or the special-function unit's exp, one a symmetric pair of
+     voxels); then each stage on the card
+     against the port's CPU run of the same call on a crop
 
 It prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0; so it is without a CUDA device.
@@ -60,13 +72,14 @@ VOLUME = (224, 224, 112)
 N_WINDOWS = 18  # per volume
 UNET_BATCH, SWIN_BATCH = N_WINDOWS, 6
 UNET_TIMING, SWIN_TIMING = (10, 30), (5, 10)  # (latency runs, throughput volumes)
-# launches per forward: (3x3x3 conv, instance norm, window attention, separable resample)
-UNET_PER_FORWARD, SWIN_PER_FORWARD = (10, 17, 0, 0), (20, 26, 8, 0)
+# launches per forward: (3x3x3 conv, instance norm, window attention, separable resample,
+# bilateral stencil)
+UNET_PER_FORWARD, SWIN_PER_FORWARD = (10, 17, 0, 0, 0), (20, 26, 8, 0, 0)
 # the Spleen inference path: a Task09-shaped CT, the bundle's Spacing, its inferer
 CT_SHAPE, CT_SPACING, PIXDIM = (512, 512, 90), (0.79, 0.79, 5.0), (1.5, 1.5, 2.0)
 SPLEEN_PRE = (1, 270, 270, 224)  # the preprocessed image
 SPLEEN_BATCH, SPLEEN_WINDOWS = 4, 48
-SPLEEN_PER_VOLUME = (120, 0, 0, 2)  # 12 forwards of 10 convs; Spacing and its inverse
+SPLEEN_PER_VOLUME = (120, 0, 0, 2, 0)  # 12 forwards of 10 convs; Spacing and its inverse
 SPLEEN_TIMED = 5  # volumes timed end to end, after one warm-up
 CT_PATH = Path(__file__).resolve().parent / "build" / "spleen_ct" / "ct_512x512x90.nii.gz"
 
@@ -87,6 +100,13 @@ TOL_FWD_F32_MAX, TOL_FWD_BF16_MEAN, MIN_ARGMAX_AGREE = 1e-3, 5e-2, 0.95
 # The Spleen preprocessing on the card against the CPU's (values in [0, 1]; float32 sums
 # in another order), absolute.
 TOL_PRE = 1e-5
+# The filtering path: the bilateral kernel against its plain version and the card's
+# stencil against the CPU's, relative to max|ref| (float32 sums of 121-125 taps in another
+# order, exp on the card); the bilateral grid and the CRF against the CPU, absolute (the
+# splat's scatter-add sums in another order on the card).
+TOL_BILATERAL, TOL_GRID = 1e-5, 1e-4
+FILTER_TIMED = 5  # calls timed per stage, after one warm-up
+CROP_3D, CROP_SLICES, CROP_CRF = (64, 64, 48), (8, 128, 128), (48, 48, 40)  # centre crops for the CPU
 
 # The card's peaks (NVIDIA H100 SXM data sheet): memory 3.35 TB/s; dense bf16 989 TFLOP/s
 # on the tensor cores, float32 67 TFLOP/s outside them.
@@ -129,14 +149,15 @@ def bound(nbytes: float, flops: float, dtype: torch.dtype) -> tuple[float, float
 
 def _wrappers():
     from monai_tpu_torch.networks.layers.fast_norm import instance_norm_prelu
+    from monai_tpu_torch.ops.bilateral import bilateral_stencil
     from monai_tpu_torch.ops.conv3d import conv3d_3x3_same
     from monai_tpu_torch.ops.separable_resample import separable_resample_3d
     from monai_tpu_torch.ops.window_attention import fused_window_attention
 
-    return conv3d_3x3_same, instance_norm_prelu, fused_window_attention, separable_resample_3d
+    return conv3d_3x3_same, instance_norm_prelu, fused_window_attention, separable_resample_3d, bilateral_stencil
 
 
-def launch_counts() -> tuple[int, int, int, int]:
+def launch_counts() -> tuple[int, ...]:
     return tuple(w.launches for w in _wrappers())
 
 
@@ -440,7 +461,8 @@ def sliding_window(name: str, inferer, net, per_forward: tuple[int, ...], timing
     print(f"{name} sliding window {VOLUME}: out {tuple(out.shape)} {out.dtype}; {vols_per_s:.3f} vols/s "
           f"({n_throughput} volumes back to back); latency median {statistics.median(lat) * 1e3:.2f} ms "
           f"(min {min(lat) * 1e3:.2f}, {n_latency} runs); peak memory {peak_gb:.2f} GB; {calls} forwards, "
-          f"launches conv {counts[0]}, norm {counts[1]}, attention {counts[2]}, resample {counts[3]}", flush=True)
+          f"launches conv {counts[0]}, norm {counts[1]}, attention {counts[2]}, resample {counts[3]}, bilateral "
+          f"{counts[4]}", flush=True)
     require(tuple(out.shape) == (1, out_channels, *VOLUME) and bool(torch.isfinite(out).all()),
             f"{name} sliding-window output is not finite (1, {out_channels}, 224, 224, 112)")
     n_volumes = 1 + n_latency + n_throughput
@@ -567,8 +589,10 @@ def spleen_volume(pre, post, inferer, net) -> tuple[dict, dict, torch.Tensor, fl
     return stages, d, labels, wall
 
 
-def spleen_path(dev) -> tuple[tuple[int, ...], dict]:
-    """Phase 5: the Spleen inference path on the card, then its checks against the CPU."""
+def spleen_path(dev) -> tuple[tuple[int, ...], dict, torch.Tensor, torch.Tensor]:
+    """Phase 5: the Spleen inference path on the card, then its checks against the CPU.
+    Returns the launch counts, the kernels' summaries, and the last volume's preprocessed
+    image (1, 1, 270, 270, 224) and logits (1, 2, 270, 270, 224) for phase 6."""
     from monai_tpu_torch.data import read_nifti
     from monai_tpu_torch.data.utils import dense_patch_slices
     from monai_tpu_torch.inferers import SlidingWindowInferer, compute_scan_interval
@@ -620,7 +644,8 @@ def spleen_path(dev) -> tuple[tuple[int, ...], dict]:
           f"{med['activations_argmax']:.2f}, invert {med['invert']:.2f}); per volume {statistics.median(walls):.2f} "
           f"(min {min(walls):.2f}, max {max(walls):.2f}); peak memory {peak_gb:.2f} GB; label 1 on "
           f"{out.data.mean().item() * 100:.2f}% of the voxels; launches over {1 + SPLEEN_TIMED} volumes: conv "
-          f"{counts[0]}, norm {counts[1]}, attention {counts[2]}, resample {counts[3]}", flush=True)
+          f"{counts[0]}, norm {counts[1]}, attention {counts[2]}, resample {counts[3]}, bilateral {counts[4]}",
+          flush=True)
     n_volumes = 1 + SPLEEN_TIMED
     require(counts == tuple(n * n_volumes for n in SPLEEN_PER_VOLUME),
             f"spleen: {n_volumes} volumes launched {counts} kernels, not {SPLEEN_PER_VOLUME} each")
@@ -641,8 +666,126 @@ def spleen_path(dev) -> tuple[tuple[int, ...], dict]:
           f"{aff_err:.3g}; inverse of the card's label map identical to the CPU's: {same}", flush=True)
     require(pre_err <= TOL_PRE and aff_err <= 1e-9, "the spleen preprocessing on the card disagrees with the CPU")
     require(same, "the spleen inverse on the card disagrees with the CPU's")
-    forward_check("spleen", net_cpu, net, None, (10, 0, 0, 0), dev)
-    return counts, {"conv": conv, "resample": resample}
+    forward_check("spleen", net_cpu, net, None, (10, 0, 0, 0, 0), dev)
+    logits = inferer(image.data[None], net)  # the last volume's, for phase 6
+    return counts, {"conv": conv, "resample": resample}, image.data[None], logits
+
+
+def exp_per_s() -> float:
+    """The card's exp rate: its SMs x 16 special-function results a clock (Hopper's
+    throughput for ex2) x the SM clock's maximum that nvidia-smi reads (clocks.max.sm)."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()[0]
+    return torch.cuda.get_device_properties(0).multi_processor_count * 16 * float(mhz) * 1e6
+
+
+def centre_crop(x: torch.Tensor, size) -> torch.Tensor:
+    """The centre ``size`` of the trailing axes of ``x``."""
+    starts = [(n - s) // 2 for n, s in zip(x.shape[-len(size):], size)]
+    return x[(...,) + tuple(slice(a, a + s) for a, s in zip(starts, size))]
+
+
+def filter_stage(name: str, fn, per_call: int, dev) -> int:
+    """One stage of the filtering path: a warm-up, then ``FILTER_TIMED`` synchronised calls;
+    the median, the launch counts of all those calls (the bilateral kernel ``per_call``
+    times a call, nothing else) and the peak memory. Returns the bilateral launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    out = fn()
+    times = []
+    for _ in range(FILTER_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    calls = 1 + FILTER_TIMED
+    print(f"filtering {name}: out {tuple(out.shape)} {out.dtype}; median {statistics.median(times):.3f} ms of "
+          f"{FILTER_TIMED} (min {min(times):.3f}); launches over {calls} calls: bilateral {counts[4]}, others "
+          f"{counts[:4]}; peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB", flush=True)
+    require(counts == (0, 0, 0, 0, per_call * calls), f"filtering {name}: {calls} calls launched {counts}")
+    require(bool(torch.isfinite(out).all()), f"filtering {name}: the output is not finite")
+    return counts[4]
+
+
+def check_bilateral(name: str, x: torch.Tensor, ss: float, cs: float, rate: float) -> dict:
+    """The bilateral kernel against its plain version at a stage's full size: max error,
+    both times and the bound, the larger of the bytes (the input read once, the output
+    written once), the float32 operations and the exps, counted as the least the function
+    needs. A tap's weight ws(o) wc(o, v) is symmetric in the pair (v, v + o), so a voxel's
+    T taps need one weight per pair, (T - 1) / 2 of them, and none for the centre (weight
+    1): an exp and 4 operations each (difference, square, scale, spatial factor); every
+    tap off the centre adds w x and w to the sums, 3 operations (edge voxels are counted
+    as interior ones)."""
+    from monai_tpu_torch.ops.bilateral import bilateral_stencil, bilateral_stencil_plain, filter_radius
+
+    got, ref = bilateral_stencil(x, ss, cs), bilateral_stencil_plain(x, ss, cs)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    require(rel <= TOL_BILATERAL, f"bilateral {name}: max err {err:.3g} = {rel:.3g} x max|ref| > {TOL_BILATERAL}")
+    k_ms, p_ms = paired_ms(lambda: bilateral_stencil(x, ss, cs), lambda: bilateral_stencil_plain(x, ss, cs), iters=5)
+    taps = (2 * filter_radius(ss) + 1) ** (x.ndim - 2)
+    pairs = (taps - 1) // 2 * x.numel()
+    b_ms, f_ms = bound(2 * x.numel() * 4, 4.0 * pairs + 3.0 * (taps - 1) * x.numel(), torch.float32)
+    e_ms = pairs / rate * 1e3
+    sides = {"bytes": b_ms, "FLOP": f_ms, "exp": e_ms}
+    side = max(sides, key=sides.get)
+    print(f"bilateral {name} {tuple(x.shape)} radius {filter_radius(ss)}: max_abs_err {err:.4g} ({rel:.3g} of "
+          f"max|ref|, tol {TOL_BILATERAL})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  library none  bound "
+          f"{sides[side]:.4f} ms ({side}; bytes {b_ms:.4f}, FLOP {f_ms:.4f}, exp {e_ms:.4f} at {rate:.4g}/s)",
+          flush=True)
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": sides[side],
+            "bound_by": "bytes" if side == "bytes" else "operations", "library_ms": None,
+            "bytes_ms": b_ms, "ops_ms": max(f_ms, e_ms)}
+
+
+def filtering_path(dev, image: torch.Tensor, logits: torch.Tensor) -> dict:
+    """Phase 6: the filtering entry points on the spleen path's data, then the kernel at
+    the full sizes and each stage against the CPU on a crop. Returns the kernels-line
+    entries of the 3-D (stage A) and 2-D (stage B) bilateral kernel."""
+    from monai_tpu_torch.data import read_nifti
+    from monai_tpu_torch.networks.blocks import CRF
+    from monai_tpu_torch.networks.layers import BilateralFilter
+    from monai_tpu_torch.transforms import ScaleIntensityRange
+
+    raw, _ = read_nifti(CT_PATH)  # (512, 512, 90) int16, x fastest
+    hu = torch.from_numpy(np.ascontiguousarray(raw.transpose(2, 1, 0))).to(dev)  # (90, 512, 512), axial slices
+    slices = ScaleIntensityRange(a_min=-57, a_max=164, b_min=0.0, b_max=1.0, clip=True)(hu)[:, None].contiguous()
+    del hu
+    rate = exp_per_s()
+    stages = {  # name: (call, its input, launches a call)
+        "A": (lambda x: BilateralFilter.apply(x, 1.0, 0.1, fast_approx=False), image, 1),
+        "B": (lambda x: BilateralFilter.apply(x, 2.5, 0.1, fast_approx=False), slices, 1),
+        "C": (lambda x: BilateralFilter.apply(x), image, 0),
+    }
+    crf = CRF()
+    launches = {name: filter_stage(f"{name} {'bilateral grid' if name == 'C' else 'stencil'}", lambda: call(x),
+                                   per_call, dev)
+                for name, (call, x, per_call) in stages.items()}
+    filter_stage("D CRF", lambda: crf(logits, image), 0, dev)
+    out = {"A": check_bilateral("3-D (stage A)", image, 1.0, 0.1, rate),
+           "B": check_bilateral("2-D (stage B)", slices, 2.5, 0.1, rate)}
+
+    # each stage on the card against the port's CPU run of the same call on a centre crop
+    crops = {"A": centre_crop(image, CROP_3D), "B": centre_crop(slices[:, 0], CROP_SLICES)[:, None],
+             "C": centre_crop(image, CROP_3D)}
+    for name, (call, _, _) in stages.items():
+        x = crops[name].contiguous()
+        card, cpu = call(x).cpu(), call(x.cpu())
+        err, rel = rel_err(card, cpu)
+        tol, ok = (TOL_GRID, err <= TOL_GRID) if name == "C" else (TOL_BILATERAL, rel <= TOL_BILATERAL)
+        print(f"filtering {name} on {tuple(x.shape)}, card against CPU: max abs err {err:.4g} ({rel:.3g} of "
+              f"max|ref|; tol {tol} {'absolute' if name == 'C' else 'of max|ref|'})", flush=True)
+        require(ok, f"filtering {name}: the card disagrees with the CPU on a crop")
+    lc, ic = centre_crop(logits, CROP_CRF).contiguous(), centre_crop(image, CROP_CRF).contiguous()
+    card, cpu = crf(lc, ic).cpu(), crf(lc.cpu(), ic.cpu())
+    err, _ = rel_err(card, cpu)
+    print(f"filtering D CRF on {tuple(lc.shape)}, card against CPU: max abs err {err:.4g} (tol {TOL_GRID} absolute); "
+          f"probabilities sum to 1 within {(card.sum(1) - 1).abs().max().item():.3g}", flush=True)
+    require(err <= TOL_GRID, "filtering D: the CRF on the card disagrees with the CPU on a crop")
+    return {name: {"launches": launches[name], **out[name]} for name in out}
 
 
 def main() -> None:
@@ -707,7 +850,11 @@ def main() -> None:
         torch.cuda.empty_cache()
 
         # 5. the Spleen inference path, its kernels at its shapes, and its checks against the CPU
-        spleen_counts, spleen = spleen_path(dev)
+        spleen_counts, spleen, image, logits = spleen_path(dev)
+
+        # 6. the filtering path on the spleen path's data, and its checks
+        filtering = filtering_path(dev, image, logits)
+        del image, logits
 
     def merged(i: int) -> dict:
         """The per-forward sums of kernel i over the UNet and SwinUNETR paths (bfloat16)."""
@@ -729,6 +876,10 @@ def main() -> None:
          **summaries["swinunetr"][2]},
         {"name": "separable_resample_3d", "route": "cuda", "source": "monai_tpu_torch/csrc/separable_resample_3d.cu",
          "replaces": "monai_tpu/ops/pallas_resample.py:117", "launches": spleen_counts[3], **spleen["resample"]},
+        {"name": "bilateral_filter_2d", "route": "cuda", "source": "monai_tpu_torch/csrc/bilateral_filter.cu",
+         "replaces": "monai_tpu/ops/pallas_filtering.py:99", **filtering["B"]},
+        {"name": "bilateral_filter_3d", "route": "cuda", "source": "monai_tpu_torch/csrc/bilateral_filter.cu",
+         "replaces": "monai_tpu/ops/pallas_filtering.py:126", **filtering["A"]},
     ]
     summaries["spleen"] = (spleen["conv"], None, None, spleen["resample"])
 
@@ -739,7 +890,7 @@ def main() -> None:
     print("per forward, the resample per volume (ms, kernel / plain / library / bound): " + "; ".join(
         f"{name} {k} {line(s)}" for name, ss in summaries.items()
         for k, s in zip(("conv", "norm", "attention", "resample"), ss) if s is not None), flush=True)
-    for k in kernels:  # the bound's two sides were for bound_by only
+    for k in kernels:  # the bound's sides were for bound_by only
         del k["bytes_ms"], k["ops_ms"]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-"""Weight bridge: a monai_tpu UNet's or SwinUNETR's parameters as a monai_tpu_torch
-``state_dict``.
+"""Weight bridge: a monai_tpu UNet's, SwinUNETR's or trainable bilateral filter's
+parameters as a monai_tpu_torch ``state_dict``.
 
 The input is keyed by the flattened nnx variable paths of ``monai_tpu``'s network, e.g.
 ``model.down.convs.0.conv.kernel``, ``model.down.convs.0.adn.2.alpha`` or
@@ -19,7 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["swin_state_dict_from_jax", "unet_state_dict_from_jax"]
+__all__ = ["filter_state_dict_from_jax", "swin_state_dict_from_jax", "unet_state_dict_from_jax"]
 
 _ADN_LEAVES = {"alpha": "A.weight", "scale": "N.weight", "bias": "N.bias", "mean": "N.running_mean",
                "var": "N.running_var"}
@@ -130,3 +130,13 @@ def swin_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tenso
             arr = arr.astype(np.int64)
         out[".".join(key + [leaf])] = torch.tensor(np.ascontiguousarray(arr))
     return out
+
+
+def filter_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Map ``{nnx variable path: array}`` of a monai_tpu ``TrainableBilateralFilter`` or
+    ``TrainableJointBilateralFilter`` (``sigma_spatial``, ``sigma_color``) to the port's
+    ``state_dict``: a float32 vector of 1 or one per spatial axis and a float32 scalar."""
+    shapes = {"sigma_spatial": (-1,), "sigma_color": ()}
+    if set(params) != set(shapes):
+        raise KeyError(f"a trainable filter has the parameters {sorted(shapes)}; got {sorted(params)}")
+    return {k: torch.tensor(np.asarray(v, dtype=np.float32).reshape(shapes[k])) for k, v in params.items()}

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of the port's sliding-window eval goes, on one NVIDIA GPU.
+"""Where the time of the port's sliding-window eval and filtering goes, on one NVIDIA GPU.
 
-Runs a chip_smoke.py sliding-window path and reports, per volume:
+Runs a chip_smoke.py sliding-window path or filtering stage and reports, per volume:
 
 - ``--net unet`` or ``swinunetr``: the same network, inferer, 224x224x112 volume and
   bfloat16 weights as chip_smoke.py;
@@ -9,14 +9,18 @@ Runs a chip_smoke.py sliding-window path and reports, per volume:
   SlidingWindowInferer(96, sw_batch_size=4, overlap=0.25) on a (1, 1, 270, 270, 224)
   volume, the preprocessed shape of a 512x512x90 CT (48 windows), with TF32 off as in
   chip_smoke.py;
+- ``--net grid``: ``BilateralFilter.apply`` at its defaults (the bilateral grid) on a
+  (1, 1, 270, 270, 224) float32 volume of uniform noise in [0, 1);
+- ``--net crf``: ``CRF()`` over (1, 2, 270, 270, 224) float32 logits of standard normal
+  noise with that volume as reference;
 
 and for each:
 
 - wall time with the profiler off (synchronised), and the host's enqueue time (the
-  inferer call returning, before the device finishes);
+  call returning, before the device finishes);
 - under ``torch.profiler``: wall time, the device's kernel time (the sum of its kernels'
   durations; one stream, so they do not overlap) and its idle share of the wall;
-- the kernels by device time, the port's own three first.
+- the kernels by device time, the port's own first.
 
 Run from the repository root: ``python3 scripts/profile_torch_sw.py --net swinunetr``
 """
@@ -34,31 +38,44 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 OWN = {"window_attention_kernel": "window attention (CUDA)", "conv3d_3x3_same": "3x3x3 conv (CUDA)",
-       "_partial_sums_kernel": "instance norm (Triton)", "_normalize_kernel": "instance norm (Triton)"}
+       "_partial_sums_kernel": "instance norm (Triton)", "_normalize_kernel": "instance norm (Triton)",
+       "bilateral_2d_kernel": "bilateral 2-D (CUDA)", "bilateral_3d_kernel": "bilateral 3-D (CUDA)"}
 
 
 def build(net_name: str, dev):
+    """A call that runs one volume of the path."""
     from monai_tpu_torch.inferers import SlidingWindowInferer, SlidingWindowInfererAdapt
+    from monai_tpu_torch.networks.blocks import CRF
+    from monai_tpu_torch.networks.layers import BilateralFilter
     from monai_tpu_torch.networks.nets import SwinUNETR, UNet
 
     g = torch.Generator().manual_seed(0)
+    gd = torch.Generator(device=dev).manual_seed(4)
+    if net_name in ("grid", "crf"):
+        img = torch.rand((1, 1, 270, 270, 224), generator=gd, device=dev)
+        if net_name == "grid":
+            return lambda: BilateralFilter.apply(img)
+        logits, crf = torch.randn((1, 2, 270, 270, 224), generator=gd, device=dev), CRF()
+        return lambda: crf(logits, img)
     if net_name == "spleen":
         net = UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2), num_res_units=2, norm="batch",
-                   generator=g)
-        return net.eval().to(dev), SlidingWindowInferer(96, sw_batch_size=4, overlap=0.25), (270, 270, 224), \
-            torch.float32
-    if net_name == "unet":
-        net = UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2), num_res_units=2, generator=g)
-        inferer = SlidingWindowInferer(96, sw_batch_size=18, overlap=0.25, mode="gaussian")
+                   generator=g).eval().to(dev)
+        inferer, shape, dtype = SlidingWindowInferer(96, sw_batch_size=4, overlap=0.25), (270, 270, 224), torch.float32
     else:
-        net = SwinUNETR(1, 14, feature_size=24, generator=g)
-        inferer = SlidingWindowInfererAdapt(96, sw_batch_size=6, overlap=0.25, mode="gaussian")
-    return net.eval().to(dev, torch.bfloat16), inferer, (224, 224, 112), torch.bfloat16
+        if net_name == "unet":
+            net = UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2), num_res_units=2, generator=g)
+            inferer = SlidingWindowInferer(96, sw_batch_size=18, overlap=0.25, mode="gaussian")
+        else:
+            net = SwinUNETR(1, 14, feature_size=24, generator=g)
+            inferer = SlidingWindowInfererAdapt(96, sw_batch_size=6, overlap=0.25, mode="gaussian")
+        net, shape, dtype = net.eval().to(dev, torch.bfloat16), (224, 224, 112), torch.bfloat16
+    vol = torch.rand((1, 1, *shape), generator=gd, device=dev).to(dtype)
+    return lambda: inferer(vol, net)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--net", choices=("unet", "swinunetr", "spleen"), default="swinunetr")
+    ap.add_argument("--net", choices=("unet", "swinunetr", "spleen", "grid", "crf"), default="swinunetr")
     ap.add_argument("--volumes", type=int, default=5, help="volumes profiled, after 3 warm-ups")
     ap.add_argument("--top", type=int, default=25, help="kernels listed")
     ap.add_argument("--trace", help="write a chrome trace here")
@@ -69,17 +86,16 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     torch.backends.cudnn.allow_tf32 = False
-    net, inferer, shape, dtype = build(args.net, dev)
-    vol = torch.rand((1, 1, *shape), generator=torch.Generator(device=dev).manual_seed(4), device=dev).to(dtype)
     n = args.volumes
     with torch.inference_mode():
+        run = build(args.net, dev)
         for _ in range(3):
-            inferer(vol, net)
+            run()
         torch.cuda.synchronize()
         enqueue, wall = [], []
         for _ in range(n):
             t0 = time.perf_counter()
-            inferer(vol, net)
+            run()
             t1 = time.perf_counter()
             torch.cuda.synchronize()
             enqueue.append(t1 - t0)
@@ -88,7 +104,7 @@ def main() -> None:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
-                inferer(vol, net)
+                run()
             torch.cuda.synchronize()
             prof_wall = (time.perf_counter() - t0) / n
     by_name: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])

@@ -9,6 +9,9 @@ Tolerances, relative to max|plain output|: float32 1e-4 (sums in another order);
 bfloat16 1e-2 (both versions round an f32 sum to bf16, so they may differ by one bf16
 step, at most 2^-7 of the value). The separable resample: 1e-5 at orders 1 and 3 (2 or 4
 taps a row, summed in another order than the dense product), bit-identical at order 0.
+The bilateral stencil: 1e-5 (float32 sums of up to (2r+1)^sd taps in another order and
+exp on the card); a bfloat16 or float16 input is cast to float32 and its output back, so
+it may differ from the float32 result by one rounding of the output type.
 """
 import pytest
 import torch
@@ -17,7 +20,9 @@ import numpy as np
 
 from monai_tpu_torch.networks.layers.fast_norm import instance_norm_prelu, instance_norm_prelu_plain
 from monai_tpu_torch.networks.nets import SwinUNETR, UNet
+from monai_tpu_torch.ops.bilateral import bilateral_stencil, bilateral_stencil_plain
 from monai_tpu_torch.ops.conv3d import conv3d_3x3_same, conv3d_3x3_same_plain
+from monai_tpu_torch.ops.filtering import bilateral_filter
 from monai_tpu_torch.ops.separable_resample import separable_resample_3d, separable_resample_3d_plain
 from monai_tpu_torch.ops.window_attention import fused_window_attention, fused_window_attention_plain
 
@@ -248,3 +253,81 @@ def test_spleen_pipeline_on_card_matches_cpu(cuda, tmp_path):
         on_cpu = inv({"image": d["image"], "pred": labels})["pred"]
     assert on_card.data.is_cuda and on_card.shape == (1, 64, 64, 20)
     assert torch.equal(on_card.data.cpu(), on_cpu.data)
+
+
+def _bilateral_check(x, ss, cs, tol=1e-5):
+    with torch.inference_mode():
+        before = bilateral_stencil.launches
+        got = bilateral_stencil(x, ss, cs)
+        assert bilateral_stencil.launches == before + 1
+        ref = bilateral_stencil_plain(x, ss, cs)
+    assert got.shape == x.shape and got.dtype == x.dtype
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+# spatial sigma r / 2 gives radius r at truncate 2
+@pytest.mark.parametrize("radius", range(1, 9))
+@pytest.mark.parametrize("shape", [(1, 1, 37, 100), (3, 1, 5, 7), (1, 3, 61, 33), (90, 1, 24, 40)])
+def test_bilateral_2d_kernel_matches_plain(cuda, radius, shape):
+    x = torch.rand(shape, generator=torch.Generator(device=cuda).manual_seed(radius), device=cuda)
+    _bilateral_check(x, radius / 2, 0.3)
+
+
+@pytest.mark.parametrize("radius", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(1, 1, 9, 20, 100), (1, 3, 7, 5, 9), (2, 1, 3, 2, 4), (3, 30, 5, 6, 7)])
+def test_bilateral_3d_kernel_matches_plain(cuda, radius, shape):
+    x = torch.rand(shape, generator=torch.Generator(device=cuda).manual_seed(radius), device=cuda)
+    _bilateral_check(x, radius / 2, 0.3)
+
+
+@pytest.mark.parametrize("shape,radius", [((1, 1, 30, 70), 46), ((1, 1, 9, 11, 13), 6)])
+def test_bilateral_kernel_reads_global_memory_beyond_the_shared_budget(cuda, shape, radius):
+    """A halo tile above 48 KB: the taps come from global memory."""
+    x = torch.rand(shape, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda)
+    _bilateral_check(x, radius / 2, 0.3)
+
+
+@pytest.mark.parametrize("dtype,step", [(torch.bfloat16, 2.0 ** -8), (torch.float16, 2.0 ** -11)])
+@pytest.mark.parametrize("shape", [(2, 1, 33, 47), (1, 2, 6, 17, 21)])
+def test_bilateral_kernel_casts_other_types(cuda, dtype, step, shape):
+    x = torch.rand(shape, generator=torch.Generator(device=cuda).manual_seed(6), device=cuda).to(dtype)
+    with torch.inference_mode():
+        got = bilateral_stencil(x, 1.0, 0.2)
+        ref = bilateral_stencil_plain(x.float(), 1.0, 0.2)
+    assert got.dtype == dtype
+    assert (got.float() - ref).abs().max().item() <= step * ref.abs().max().item()
+
+
+def test_bilateral_kernel_takes_a_non_contiguous_input(cuda):
+    base = torch.rand((2, 1, 5, 40, 33), generator=torch.Generator(device=cuda).manual_seed(7), device=cuda)
+    x = base.transpose(-1, -2)
+    assert not x.is_contiguous()
+    _bilateral_check(x, 1.0, 0.3)
+    _bilateral_check(base[:, :, ::2, :, 1:], 1.0, 0.3)
+
+
+@pytest.mark.parametrize("cs", [0.01, 10.0])
+@pytest.mark.parametrize("shape", [(2, 1, 33, 47), (1, 1, 6, 17, 21)])
+def test_bilateral_kernel_color_sigma_extremes(cuda, cs, shape):
+    x = torch.rand(shape, generator=torch.Generator(device=cuda).manual_seed(8), device=cuda)
+    _bilateral_check(x, 1.5 if len(shape) == 4 else 1.0, cs)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 30, 31), (1, 1, 7, 9, 11)])
+def test_bilateral_kernel_keeps_a_constant_image(cuda, shape):
+    x = torch.full(shape, 3.7, device=cuda)
+    with torch.inference_mode():
+        got = bilateral_stencil(x, 1.0, 0.3)
+    assert (got - 3.7).abs().max().item() <= 1e-6 * 3.7
+
+
+def test_bilateral_filter_reaches_the_kernel(cuda):
+    for shape in [(1, 1, 20, 30), (1, 1, 6, 20, 30)]:
+        x = torch.rand(shape, device=cuda)
+        with torch.inference_mode():
+            before = bilateral_stencil.launches
+            got = bilateral_filter(x, 1.0, 0.3)
+            assert bilateral_stencil.launches == before + 1
+            ref = bilateral_stencil_plain(x, 1.0, 0.3)
+        assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()

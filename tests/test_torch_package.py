@@ -11,8 +11,12 @@ import torch
 import monai_tpu_torch
 from monai_tpu_torch.networks.layers.fast_norm import _split, instance_norm_prelu, instance_norm_prelu_plain
 from monai_tpu_torch.networks.nets import UNet
+from monai_tpu_torch.networks.layers import filtering as filtering_layers
+from monai_tpu_torch.networks.layers import TrainableBilateralFilter, TrainableJointBilateralFilter
 from monai_tpu_torch.ops import _build
+from monai_tpu_torch.ops.bilateral import bilateral_stencil, bilateral_stencil_plain
 from monai_tpu_torch.ops.conv3d import conv3d_3x3_same, conv3d_3x3_same_plain
+from monai_tpu_torch.ops.filtering import bilateral_filter
 from monai_tpu_torch.utils import ensure_tuple_rep, fall_back_tuple, get_torch_dtype, to_numpy, to_torch
 
 REPO = Path(__file__).resolve().parents[1]
@@ -32,6 +36,13 @@ def test_port_imports_no_jax():
             "from monai_tpu_torch.data import MetaImage, NiftiReader, read_nifti, write_nifti\n"
             "import monai_tpu_torch.transforms.dictionary, monai_tpu_torch.transforms.lazy_executor\n"
             "import monai_tpu_torch.data, monai_tpu_torch.utils, monai_tpu_torch.ops._build\n"
+            "from monai_tpu_torch.ops.bilateral import bilateral_stencil\n"
+            "from monai_tpu_torch.ops.filtering import bilateral_filter, bilateral_grid_filter, phl_filter\n"
+            "import monai_tpu_torch.ops.gaussian, monai_tpu_torch.ops.resample, monai_tpu_torch.ops.permutohedral\n"
+            "from monai_tpu_torch.networks.layers import (BilateralFilter, PHLFilter, TrainableBilateralFilter,\n"
+            "                                             TrainableJointBilateralFilter)\n"
+            "from monai_tpu_torch.networks.blocks import CRF\n"
+            "from monai_tpu_torch.networks import filter_state_dict_from_jax\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'monai_tpu', 'triton'))\n"
             "print(bad)\n"
             "assert not bad, bad\n")
@@ -51,11 +62,13 @@ def test_cpu_tensors_take_the_plain_path():
     x = torch.from_numpy(rng.randn(1, 3, 4, 5, 6).astype(np.float32))
     w = torch.from_numpy(rng.randn(3, 3, 3, 6, 4).astype(np.float32))
     xn = torch.from_numpy(rng.randn(2, 4, 3, 3, 3).astype(np.float32)).contiguous(memory_format=torch.channels_last_3d)
-    before = (conv3d_3x3_same.launches, instance_norm_prelu.launches)
+    before = (conv3d_3x3_same.launches, instance_norm_prelu.launches, bilateral_stencil.launches)
     with torch.inference_mode():
         assert torch.equal(conv3d_3x3_same(x, w), conv3d_3x3_same_plain(x, w))
         assert torch.equal(instance_norm_prelu(xn), instance_norm_prelu_plain(xn))
-    assert (conv3d_3x3_same.launches, instance_norm_prelu.launches) == before
+        for img in (x[:, :1], x[:, :2, 0]):  # 3-D and 2-D
+            assert torch.equal(bilateral_filter(img, 1.0, 0.5), bilateral_stencil_plain(img, 1.0, 0.5))
+    assert (conv3d_3x3_same.launches, instance_norm_prelu.launches, bilateral_stencil.launches) == before
 
 
 @pytest.mark.parametrize("x_shape,w_shape,dtype,error", [
@@ -101,6 +114,22 @@ def test_wrappers_refuse_grad():
         conv3d_3x3_same(torch.zeros(1, 2, 2, 2, 2), w)
     with pytest.raises(RuntimeError, match="forward-only"):
         instance_norm_prelu(torch.zeros(1, 2, 3, 3, 3, requires_grad=True))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        bilateral_stencil(torch.zeros(1, 1, 4, 4, 4, requires_grad=True))
+
+
+def test_trainable_filters_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls in (TrainableBilateralFilter, TrainableJointBilateralFilter):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(1.0)
+        f = cls((1.0, 2.0), device="cpu")
+        assert {p.device.type for p in f.parameters()} == {"cpu"}
+    seen = []
+    monkeypatch.setattr(filtering_layers, "resolve_device", lambda d: seen.append(d) or torch.device("cpu"))
+    TrainableBilateralFilter(1.0)
+    TrainableJointBilateralFilter(1.0)
+    assert seen == [None, None]
 
 
 def test_unet_feeds_the_norm_channels_last(monkeypatch):
