@@ -24,16 +24,20 @@ Drives the port's four paths, each at full width with random weights from a seed
   logits with the image as reference.
 
   1. the card's name and power limit; the CUDA kernels built from the checkout's sources
-  2. each kernel against its plain PyTorch version at every shape each path gives it
-     (read off one forward by hooks; the resample at its two sites and over an order x
-     bound grid at odd extents): max error under a stated tolerance, and the kernel's,
+  2. each kernel against its plain PyTorch version at every shape each path gives it, the
+     conv, norm and attention in bfloat16, float32 and float16 (read off one forward by
+     hooks; the attention also at head dim 16 and at a 9^3 window of head dim 12; the
+     resample at its two sites and over an order x bound grid at odd extents): max error
+     under a stated tolerance, and the kernel's,
      the plain version's and the one PyTorch library call's times, with the least time
      the card could take (bytes over 3.35 TB/s or operations over the type's peak)
   3. per sliding-window path, the inferer over 224x224x112 volumes: output shape and
      finiteness, single-volume latency, vols/s and peak memory, with the launch counts of
      that run (every count set to 0 just before it and read just after)
-  4. per sliding-window path, one forward on a 96³ window, on the card in float32 and in
-     bfloat16, against the port's own CPU float32 forward of the same weights and input
+  4. per sliding-window path, one forward on a 96³ window, on the card in float32,
+     bfloat16 and float16, against the port's own CPU float32 forward of the same weights
+     and input, with each forward's launch counts; and the same for
+     ``SwinUNETR(1, 14, feature_size=12)`` (head dim 4) in float32 and bfloat16
   5. the Spleen inference path, volume after volume: the time of each stage (NIfTI load,
      preprocessing on the card, the Spacing resample within it, sliding window,
      postprocessing with the inverse), the per-volume latency and peak memory, the launch
@@ -84,9 +88,11 @@ SPLEEN_TIMED = 5  # volumes timed end to end, after one warm-up
 CT_PATH = Path(__file__).resolve().parent / "build" / "spleen_ct" / "ct_512x512x90.nii.gz"
 
 # Tolerances, relative to max|plain output|. bfloat16: both versions round an f32 sum to
-# bf16 (8-bit significand), so they may differ by one bf16 step, <= 2^-7 of the value.
-# float32: the sums differ only in order.
-TOL_BF16, TOL_F32 = 1e-2, 1e-4
+# bf16 (8-bit significand), so they may differ by one bf16 step, <= 2^-7 of the value;
+# float16 likewise by one step of its 11-bit significand, <= 2^-10. float32: the sums
+# differ only in order.
+TOL_BF16, TOL_F16, TOL_F32 = 1e-2, 2e-3, 1e-4
+CHECKED = ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32), (torch.float16, TOL_F16))
 # The resample: orders 1 and 3 sum 2 or 4 taps per axis in float32 in another order than
 # the dense product (1e-5 of max|ref|); order 0 has one tap of weight 1 and is bit-identical.
 TOL_RESAMPLE = 1e-5
@@ -95,8 +101,11 @@ TOL_RESAMPLE = 1e-5
 # each rounding to bf16), and the share of voxels whose argmax class agrees. For the
 # SwinUNETR's 14 classes with random weights, 5% of the voxels have a top-two margin
 # below 0.026 std (the port's CPU float32 forward), so bf16 noise of ~0.01 std flips
-# about 1% of them (0.9887 agreement between the CPU's bf16 and f32 forwards).
-TOL_FWD_F32_MAX, TOL_FWD_BF16_MEAN, MIN_ARGMAX_AGREE = 1e-3, 5e-2, 0.95
+# about 1% of them (0.9887 agreement between the CPU's bf16 and f32 forwards). float16
+# rounds 8x finer than bfloat16: its forwards measured ~0.0011 std on the H100, so its
+# limit, 5e-3 std, fails a float16 net that ran in bfloat16 (0.0087-0.0093 std).
+TOL_FWD_F32_MAX, MIN_ARGMAX_AGREE = 1e-3, 0.95
+TOL_FWD_MEAN = {torch.bfloat16: 5e-2, torch.float16: 5e-3}
 # The Spleen preprocessing on the card against the CPU's (values in [0, 1]; float32 sums
 # in another order), absolute.
 TOL_PRE = 1e-5
@@ -228,14 +237,14 @@ def _bound_by(summary: dict) -> dict:
 
 
 def check_conv(sites: Counter, batch: int, dev, timed: torch.dtype = torch.bfloat16) -> dict:
-    """Every site in bfloat16 and float32; the ``timed`` type also timed against the plain
-    version and cuDNN's ``F.conv3d`` on channel-first tensors (the library call)."""
+    """Every site in bfloat16, float32 and float16; the ``timed`` type also timed against the
+    plain version and cuDNN's ``F.conv3d`` on channel-first tensors (the library call)."""
     from monai_tpu_torch.ops.conv3d import conv3d_3x3_same, conv3d_3x3_same_plain
 
     g = torch.Generator(device=dev).manual_seed(2)
     rows = []
     for (ci, co, sp), count in sorted(sites.items()):
-        for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        for dtype, tol in CHECKED:
             x = torch.randn((batch, *sp, ci), generator=g, device=dev).to(dtype)
             w = (torch.randn((3, 3, 3, ci, co), generator=g, device=dev) / (27 * ci) ** 0.5).to(dtype)
             b = torch.randn((co,), generator=g, device=dev).to(dtype)
@@ -264,7 +273,7 @@ def check_norm(sites: Counter, batch: int, dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(3)
     rows = []
     for (c, sp, affine, slope), count in sorted(sites.items(), key=str):
-        for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        for dtype, tol in CHECKED:
             x = (torch.randn((batch, c, *sp), generator=g, device=dev) * 3 + 1).to(dtype)
             x = x.contiguous(memory_format=torch.channels_last_3d)
             w = (torch.rand((c,), generator=g, device=dev) + 0.5).to(dtype) if affine else None
@@ -291,21 +300,24 @@ def check_norm(sites: Counter, batch: int, dev) -> dict:
 
 
 def check_attention(sites: Counter, masks: dict, dev) -> dict:
-    """Every site, plus the first stage's masked site at head dim 16 (feature size 48),
-    which is not counted in the per-forward sums. The library call is
-    ``F.scaled_dot_product_attention`` with bias + mask as one additive mask in the
-    input's type (built before the timing)."""
+    """Every site, plus two that are not counted in the per-forward sums: the first
+    stage's masked site at head dim 16 (feature size 48), and a 9^3 window (N = 729) at
+    head dim 12 (feature size 36) under a random mask of 8 rows, which the kernel's
+    generic instance runs. The library call is ``F.scaled_dot_product_attention`` with
+    bias + mask as one additive mask in the input's type (built before the timing)."""
     from monai_tpu_torch.ops.window_attention import fused_window_attention, fused_window_attention_plain
 
     g = torch.Generator(device=dev).manual_seed(5)
     first = max(s for s in sites if s[4] is not None)
-    extra = {(first[0], first[1], first[2], 16, first[4]): 0}
+    extra = {(first[0], first[1], first[2], 16, first[4]): 0, (96, 3, 729, 12, 8): 0}
+    masks = {(nw, m.shape[1]): m for nw, m in masks.items()}  # by (rows, tokens)
+    masks[8, 729] = (torch.rand((8, 729, 729), generator=g, device=dev) > 0.5).float() * -100.0
     rows = []
     for (b, h, n, d, nw), count in sorted(sites.items(), key=str) + list(extra.items()):
-        for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        for dtype, tol in CHECKED:
             q, k, v = (torch.randn((b, h, n, d), generator=g, device=dev).to(dtype) for _ in range(3))
             bias = torch.randn((h, n, n), generator=g, device=dev) * 0.5
-            mask = None if nw is None else masks[nw]
+            mask = None if nw is None else masks[nw, n]
             got = fused_window_attention(q, k, v, bias, mask)
             torch.cuda.synchronize()
             ref = fused_window_attention_plain(q, k, v, bias, mask)
@@ -472,35 +484,40 @@ def sliding_window(name: str, inferer, net, per_forward: tuple[int, ...], timing
     return counts, calls
 
 
-def forward_check(name: str, net_cpu, net_f32, net_bf16, per_forward: tuple[int, ...], dev) -> None:
-    """One forward on a 96³ window on the card, float32 and (where ``net_bf16`` is given)
-    bfloat16, against the CPU; the launch counts of the last forward."""
+def forward_check(name: str, net_cpu, net_f32, low: dict, per_forward: tuple[int, ...], dev) -> None:
+    """One forward on a 96³ window on the card, float32 and each of ``low``'s types
+    ({dtype: net}, bfloat16 and float16), against the CPU; the launch counts of each
+    forward (every kernel of the path launches its instance of the type)."""
     window = torch.rand((1, 1, *ROI), generator=torch.Generator().manual_seed(1))
     ref = net_cpu(window)
     std = ref.std().item()
     reset_launch_counts()
     out_f32 = net_f32(window.to(dev)).cpu()
+    counts = launch_counts()
     d32 = (out_f32 - ref).abs()
     msg = (f"{name} forward 96^3: logit std {std:.4g}; f32 card max err {d32.max().item():.4g} "
            f"({d32.max().item() / std:.3g} std, tol {TOL_FWD_F32_MAX})")
     require(tuple(out_f32.shape) == tuple(ref.shape) and bool(torch.isfinite(out_f32).all()),
             f"{name} f32 forward output is not finite {tuple(ref.shape)}")
     require(d32.max().item() / std <= TOL_FWD_F32_MAX, f"{name} f32 card forward disagrees with the CPU")
-    if net_bf16 is not None:
+    require(counts == per_forward, f"{name}: one f32 forward launched {counts}, not {per_forward} kernels")
+    for dtype, net in low.items():
         reset_launch_counts()
-        out_bf16 = net_bf16(window.to(dev, torch.bfloat16)).float().cpu()
-        d16 = (out_bf16 - ref).abs()
-        agree = (out_bf16.argmax(1) == ref.argmax(1)).float().mean().item()
-        msg += (f"; bf16 card mean err {d16.mean().item():.4g} ({d16.mean().item() / std:.3g} std, tol "
-                f"{TOL_FWD_BF16_MEAN}), max {d16.max().item():.4g}; argmax agreement {agree:.5f} "
+        out = net(window.to(dev, dtype)).float().cpu()
+        counts = launch_counts()
+        d16 = (out - ref).abs()
+        agree = (out.argmax(1) == ref.argmax(1)).float().mean().item()
+        tag = str(dtype)[6:]
+        msg += (f"; {tag} card mean err {d16.mean().item():.4g} ({d16.mean().item() / std:.3g} std, tol "
+                f"{TOL_FWD_MEAN[dtype]}), max {d16.max().item():.4g}; argmax agreement {agree:.5f} "
                 f"(min {MIN_ARGMAX_AGREE})")
-        require(tuple(out_bf16.shape) == tuple(ref.shape) and bool(torch.isfinite(out_bf16).all()),
-                f"{name} bf16 forward output is not finite {tuple(ref.shape)}")
-        require(d16.mean().item() / std <= TOL_FWD_BF16_MEAN, f"{name} bf16 card forward disagrees with the CPU")
-        require(agree >= MIN_ARGMAX_AGREE, f"{name} bf16 argmax disagrees with the CPU")
-    counts = launch_counts()
-    print(msg + f"; launches per forward: conv {counts[0]}, norm {counts[1]}, attention {counts[2]}", flush=True)
-    require(counts == per_forward, f"{name}: one forward launched {counts}, not {per_forward} kernels")
+        require(tuple(out.shape) == tuple(ref.shape) and bool(torch.isfinite(out).all()),
+                f"{name} {tag} forward output is not finite {tuple(ref.shape)}")
+        require(d16.mean().item() / std <= TOL_FWD_MEAN[dtype], f"{name} {tag} card forward disagrees with the CPU")
+        require(agree >= MIN_ARGMAX_AGREE, f"{name} {tag} argmax disagrees with the CPU")
+        require(counts == per_forward, f"{name}: one {tag} forward launched {counts}, not {per_forward} kernels")
+    print(msg + f"; launches per forward (each type): conv {counts[0]}, norm {counts[1]}, attention {counts[2]}",
+          flush=True)
 
 
 def write_ct(path: Path) -> None:
@@ -666,7 +683,7 @@ def spleen_path(dev) -> tuple[tuple[int, ...], dict, torch.Tensor, torch.Tensor]
           f"{aff_err:.3g}; inverse of the card's label map identical to the CPU's: {same}", flush=True)
     require(pre_err <= TOL_PRE and aff_err <= 1e-9, "the spleen preprocessing on the card disagrees with the CPU")
     require(same, "the spleen inverse on the card disagrees with the CPU's")
-    forward_check("spleen", net_cpu, net, None, (10, 0, 0, 0, 0), dev)
+    forward_check("spleen", net_cpu, net, {}, (10, 0, 0, 0, 0), dev)
     logits = inferer(image.data[None], net)  # the last volume's, for phase 6
     return counts, {"conv": conv, "resample": resample}, image.data[None], logits
 
@@ -843,10 +860,18 @@ def main() -> None:
                                         dev, 14)
         require(adapt.sw_batch_size == SWIN_BATCH, f"the inferer adapted sw_batch_size to {adapt.sw_batch_size}")
 
-        # 4. one forward per path against the CPU float32 forward
-        forward_check("unet", *nets["unet"], UNET_PER_FORWARD, dev)
-        forward_check("swinunetr", *nets["swinunetr"], SWIN_PER_FORWARD, dev)
-        del nets
+        # 4. one forward per path against the CPU float32 forward, in float32, bfloat16 and
+        # float16; and SwinUNETR at feature size 12 (head dim 4: window attention's generic
+        # instance)
+        for name, per_forward in (("unet", UNET_PER_FORWARD), ("swinunetr", SWIN_PER_FORWARD)):
+            cpu, f32, bf16 = nets.pop(name)
+            forward_check(name, cpu, f32, {torch.bfloat16: bf16, torch.float16: copy.deepcopy(cpu).to(dev, torch.float16)},
+                          per_forward, dev)
+            del cpu, f32, bf16
+        cpu = SwinUNETR(1, 14, feature_size=12, generator=torch.Generator().manual_seed(0), device="cpu").eval()
+        forward_check("swinunetr feature_size 12", cpu, copy.deepcopy(cpu).to(dev),
+                      {torch.bfloat16: copy.deepcopy(cpu).to(dev, torch.bfloat16)}, SWIN_PER_FORWARD, dev)
+        del nets, cpu
         torch.cuda.empty_cache()
 
         # 5. the Spleen inference path, its kernels at its shapes, and its checks against the CPU

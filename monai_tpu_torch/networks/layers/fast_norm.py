@@ -154,8 +154,8 @@ def instance_norm_prelu_plain(x: torch.Tensor, weight: torch.Tensor | None = Non
 def _check(x, weight, bias, slope) -> None:
     if x.ndim < 3:
         raise ValueError(f"instance_norm_prelu takes (B, C, *spatial); got {tuple(x.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"instance_norm_prelu takes float32 or bfloat16; got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f"instance_norm_prelu takes float32, bfloat16 or float16; got {x.dtype}")
     c = x.shape[1]
     if (weight is None) != (bias is None):
         raise ValueError("give both weight and bias, or neither")

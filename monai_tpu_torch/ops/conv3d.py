@@ -19,7 +19,7 @@ from ._build import library
 
 __all__ = ["conv3d_3x3_same", "conv3d_3x3_same_plain"]
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def conv3d_3x3_same_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -33,7 +33,7 @@ def _check(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> None:
         raise ValueError(f"conv3d_3x3_same takes x (N,D,H,W,CI) and w (3,3,3,CI,CO); got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
-        raise TypeError(f"conv3d_3x3_same takes float32 or bfloat16 x and w of one dtype; got "
+        raise TypeError(f"conv3d_3x3_same takes float32, bfloat16 or float16 x and w of one dtype; got "
                         f"{x.dtype} and {w.dtype}")
     if bias is not None and (tuple(bias.shape) != (w.shape[4],) or bias.dtype != x.dtype):
         raise ValueError(f"bias must be ({w.shape[4]},) {x.dtype}; got {tuple(bias.shape)} {bias.dtype}")

@@ -20,9 +20,7 @@ from ._build import library
 
 __all__ = ["fused_window_attention", "fused_window_attention_plain"]
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (8, 16, 32)  # the kernel's template instances
-_MAX_TOKENS = 512         # tokens per window the kernel's registers hold
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def fused_window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
@@ -45,7 +43,7 @@ def _check(q, k, v, bias, mask) -> None:
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, n, _ = q.shape
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"fused_window_attention takes float32 or bfloat16 q, k, v of one dtype; got "
+        raise TypeError(f"fused_window_attention takes float32, bfloat16 or float16 q, k, v of one dtype; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if tuple(bias.shape) != (h, n, n) or bias.dtype != torch.float32:
         raise ValueError(f"bias must be ({h}, {n}, {n}) float32; got {tuple(bias.shape)} {bias.dtype}")
@@ -77,17 +75,15 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bi
     by D^-0.5; bias (H, N, N) float32; mask optional (nW, N, N) float32 with B a multiple
     of nW. Output (B, H, N, D) in q's dtype.
 
-    CPU tensors run the plain version; CUDA tensors run the CUDA kernel (D in 8, 16, 32;
-    N up to 512) and add one to ``fused_window_attention.launches``."""
+    CPU tensors run the plain version; CUDA tensors run the CUDA kernel (any N and any
+    head dim whose key chunks fit the card's shared memory; past that the kernel refuses
+    and this raises) and add one to ``fused_window_attention.launches``."""
     _check(q, k, v, bias, mask)
     if q.device.type == "cpu":
         return fused_window_attention_plain(q, k, v, bias, mask)
     if q.device.type != "cuda":
         raise ValueError(f"fused_window_attention runs on CPU or CUDA tensors, not {q.device}")
     b, h, n, d = q.shape
-    if d not in _HEAD_DIMS or n > _MAX_TOKENS:
-        raise ValueError(f"the window-attention kernel takes head dims {_HEAD_DIMS} and at most "
-                         f"{_MAX_TOKENS} tokens per window; got D={d}, N={n}")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),

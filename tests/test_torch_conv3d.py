@@ -81,3 +81,16 @@ def test_generator_init_is_reproducible_and_torch_scaled():
     assert torch.equal(a.weight, b.weight) and torch.equal(a.bias, b.bias)
     bound = 1 / np.sqrt(4 * 27)  # torch's default conv init: U(±1/sqrt(fan_in))
     assert a.weight.abs().max() <= bound and a.bias.abs().max() <= bound
+
+
+@pytest.mark.parametrize("shape,ci,co", [((1, 3, 5, 7), 16, 24), ((2, 4, 4, 4), 1, 24)])
+def test_conv_float16_matches_xla_on_the_rounded_inputs(shape, ci, co):
+    """float16 in, float16 out: the XLA conv of the same float16 values in float32,
+    rounded once to float16 (2^-11 of the value), so 2e-3 of max|ref|."""
+    x, w = _inputs(3, shape, ci, co)
+    x16, w16 = x.astype(np.float16), w.astype(np.float16)
+    with torch.inference_mode():
+        got = conv3d_3x3_same(torch.from_numpy(x16), torch.from_numpy(w16))
+    assert got.dtype == torch.float16
+    ref = np.asarray(_xla_conv(jnp.asarray(x16.astype(np.float32)), jnp.asarray(w16.astype(np.float32))))
+    assert np.abs(got.float().numpy() - ref).max() <= 2e-3 * np.abs(ref).max()

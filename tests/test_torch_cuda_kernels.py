@@ -7,7 +7,7 @@ so it runs where only PyTorch is installed:
 
 Tolerances, relative to max|plain output|: float32 1e-4 (sums in another order);
 bfloat16 1e-2 (both versions round an f32 sum to bf16, so they may differ by one bf16
-step, at most 2^-7 of the value). The separable resample: 1e-5 at orders 1 and 3 (2 or 4
+step, at most 2^-7 of the value); float16 2e-3 (one float16 step, 2^-10 of the value). The separable resample: 1e-5 at orders 1 and 3 (2 or 4
 taps a row, summed in another order than the dense product), bit-identical at order 0.
 The bilateral stencil: 1e-5 (float32 sums of up to (2r+1)^sd taps in another order and
 exp on the card); a bfloat16 or float16 input is cast to float32 and its output back, so
@@ -28,7 +28,8 @@ from monai_tpu_torch.ops.window_attention import fused_window_attention, fused_w
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
 @pytest.fixture
@@ -45,7 +46,7 @@ def _assert_close(got, ref, dtype):
     assert err <= TOL[dtype] * ref.float().abs().max().item(), err
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape,ci,co", [
     ((2, 4, 8, 8), 32, 32),
     ((1, 3, 5, 7), 16, 24),
@@ -73,18 +74,61 @@ def test_conv_kernel_matches_plain(cuda, dtype, shape, ci, co, with_bias):
         _assert_close(got, conv3d_3x3_same_plain(x, w, b), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_conv_kernel_unaligned_input(cuda, dtype):
-    """A contiguous view that is not 16-byte aligned takes the element-wise loads."""
-    g = torch.Generator(device=cuda).manual_seed(1)
-    shape = (1, 4, 5, 6, 16)
-    x = torch.randn(1 + torch.Size(shape).numel(), generator=g, device=cuda).to(dtype)[1:].view(shape)
-    w = (torch.randn((3, 3, 3, 16, 16), generator=g, device=cuda) / 20).to(dtype)
+# ragged spatial shapes no brick divides, N in {1, 3}, every CI and CO class of the kernel
+CONV_GRID_SHAPES = [(1, 5, 7, 9), (3, 5, 7, 9), (1, 1, 1, 1), (3, 1, 1, 1), (1, 3, 96, 5), (3, 3, 96, 5)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", CONV_GRID_SHAPES)
+@pytest.mark.parametrize("ci", [1, 2, 8, 24, 48, 384])
+@pytest.mark.parametrize("co", [2, 8, 24, 48, 192, 256])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_conv_kernel_grid(cuda, dtype, shape, ci, co, with_bias):
+    g = torch.Generator(device=cuda).manual_seed(ci * 1000 + co)
+    x = torch.randn((*shape, ci), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((3, 3, 3, ci, co), generator=g, device=cuda) / (27 * ci) ** 0.5).to(dtype)
+    b = torch.randn((co,), generator=g, device=cuda).to(dtype) if with_bias else None
     with torch.inference_mode():
-        _assert_close(conv3d_3x3_same(x, w), conv3d_3x3_same_plain(x, w), dtype)
+        before = conv3d_3x3_same.launches
+        got = conv3d_3x3_same(x, w, b)
+        assert conv3d_3x3_same.launches == before + 1
+        assert got.dtype == dtype and got.shape == (*shape, co)
+        _assert_close(got, conv3d_3x3_same_plain(x, w, b), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ci,co", [(24, 24), (64, 64), (1, 24)])
+def test_conv_kernel_at_many_bricks(cuda, dtype, ci, co):
+    """More bricks than the card holds blocks at once: resident weights at 24 -> 24,
+    streamed at 64 -> 64, and the im2col kernel at 1 -> 24, whose blocks walk over
+    several bricks and build their weight tile once."""
+    g = torch.Generator(device=cuda).manual_seed(ci + co)
+    x = torch.randn((2, 40, 48, 56, ci), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((3, 3, 3, ci, co), generator=g, device=cuda) / (27 * ci) ** 0.5).to(dtype)
+    b = torch.randn((co,), generator=g, device=cuda).to(dtype)
+    with torch.inference_mode():
+        _assert_close(conv3d_3x3_same(x, w, b), conv3d_3x3_same_plain(x, w, b), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ci,co", [(16, 16), (24, 24), (3, 24), (48, 8)])
+def test_conv_kernel_unaligned_input(cuda, dtype, ci, co):
+    """Contiguous views that are not 16-byte aligned (x, w and bias one element into their
+    storage) take the element-wise loads; each view ends where its storage ends, so a read
+    past it would fault or show."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    shape = (1, 4, 5, 6, ci)
+    x = torch.randn(1 + torch.Size(shape).numel(), generator=g, device=cuda).to(dtype)[1:].view(shape)
+    w = (torch.randn(1 + 27 * ci * co, generator=g, device=cuda) / (27 * ci) ** 0.5).to(dtype)[1:]
+    w = w.view(3, 3, 3, ci, co)
+    b = torch.randn(co + 1, generator=g, device=cuda).to(dtype)[1:]
+    with torch.inference_mode():
+        got = conv3d_3x3_same(x, w, b)
+        torch.cuda.synchronize()
+        _assert_close(got, conv3d_3x3_same_plain(x, w, b), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("c,spatial", [(1, (5, 6, 7)), (2, (9, 8, 7)), (3, (4, 4, 4)), (16, (6, 5, 4)),
                                        (100, (3, 4, 5)), (256, (6, 6, 6))])
 @pytest.mark.parametrize("affine,slope", [(False, None), (False, "one"), (True, "per_channel"), (True, "leaky"),
@@ -128,7 +172,7 @@ def test_small_unet_on_card_matches_cpu(cuda):
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [8, 16, 32])
 @pytest.mark.parametrize("n", [27, 216, 343])
 @pytest.mark.parametrize("with_mask", [False, True])
@@ -146,19 +190,66 @@ def test_window_attention_kernel_matches_plain(cuda, dtype, d, n, with_mask):
         _assert_close(got, fused_window_attention_plain(q, k, v, bias, mask), dtype)
 
 
-def test_window_attention_kernel_rejects_other_head_dims(cuda):
-    q = torch.zeros((2, 1, 27, 4), device=cuda)
-    with torch.inference_mode(), pytest.raises(ValueError):
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [4, 12, 20, 64])
+@pytest.mark.parametrize("n", [27, 343, 729])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_window_attention_kernel_takes_any_head_dim(cuda, dtype, d, n, with_mask):
+    """Head dims and windows past the fast instances run the generic one."""
+    g = torch.Generator(device=cuda).manual_seed(d * 1000 + n)
+    b, h, nw = 4, 2, 2
+    q, k, v = (torch.randn((b, h, n, d), generator=g, device=cuda).to(dtype) for _ in range(3))
+    q = (q.float() * d ** -0.5).to(dtype)
+    bias = torch.randn((h, n, n), generator=g, device=cuda) * 0.5
+    mask = (torch.rand((nw, n, n), generator=g, device=cuda) > 0.5).float() * -100.0 if with_mask else None
+    with torch.inference_mode():
+        before = fused_window_attention.launches
+        got = fused_window_attention(q, k, v, bias, mask)
+        assert fused_window_attention.launches == before + 1
+        assert got.shape == q.shape and got.dtype == dtype
+        _assert_close(got, fused_window_attention_plain(q, k, v, bias, mask), dtype)
+
+
+def test_window_attention_kernel_rejects_a_head_dim_past_shared_memory(cuda):
+    """At D = 512 the generic instance's key chunks need more shared memory than a block
+    may have: the kernel refuses, the wrapper raises and counts no launch."""
+    q = torch.zeros((2, 1, 27, 512), device=cuda)
+    before = fused_window_attention.launches
+    with torch.inference_mode(), pytest.raises(RuntimeError, match="launch failed"):
         fused_window_attention(q, q, q, torch.zeros((1, 27, 27), device=cuda))
+    assert fused_window_attention.launches == before
 
 
-def test_small_swin_unetr_on_card_matches_cpu(cuda):
-    net = SwinUNETR(1, 3, feature_size=24, generator=torch.Generator().manual_seed(0), device="cpu").eval()
+@pytest.mark.parametrize("feature_size", [24, 12])
+def test_small_swin_unetr_on_card_matches_cpu(cuda, feature_size):
+    net = SwinUNETR(1, 3, feature_size=feature_size, generator=torch.Generator().manual_seed(0),
+                    device="cpu").eval()
     x = torch.rand((2, 1, 32, 32, 32), generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
         ref = net(x)
         got = net.to(cuda)(x.to(cuda)).cpu()
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("name", ["unet", "swinunetr"])
+def test_small_nets_in_float16_on_card_run_the_float16_kernels(cuda, name):
+    """``.to(torch.float16)`` on the card: every kernel of the net launches its float16
+    instance, and the logits agree with the CPU float32 forward to 2^-10 x depth of max."""
+    g = torch.Generator().manual_seed(0)
+    if name == "unet":
+        net, depth, kernels = UNet(3, 1, 2, (4, 8, 16), (2, 2), num_res_units=2, generator=g, device="cpu"), 17, 2
+        x = torch.rand((2, 1, 16, 16, 16), generator=torch.Generator().manual_seed(1))
+    else:
+        net, depth, kernels = SwinUNETR(1, 3, feature_size=12, generator=g, device="cpu"), 40, 3
+        x = torch.rand((1, 1, 32, 32, 32), generator=torch.Generator().manual_seed(1))
+    wrappers = (conv3d_3x3_same, instance_norm_prelu, fused_window_attention)[:kernels]
+    with torch.inference_mode():
+        ref = net.eval()(x)
+        before = [f.launches for f in wrappers]
+        got = net.to(cuda, torch.float16)(x.to(cuda, torch.float16))
+        assert got.dtype == torch.float16
+        assert all(f.launches > b for f, b in zip(wrappers, before))
+    assert (got.float().cpu() - ref).abs().max().item() <= 2.0 ** -10 * depth * ref.abs().max().item()
 
 
 def _diag(scales, offsets):

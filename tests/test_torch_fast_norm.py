@@ -67,3 +67,19 @@ def test_constant_channel_gives_zero_not_nan():
     got = _port(x, None, None, None)
     np.testing.assert_allclose(got, _jax_norm_prelu(x, None, None, None), **TOL)
     assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("affine", [False, True])
+def test_norm_prelu_float16_matches_jax_on_the_rounded_input(affine):
+    """float16 in, float16 out, float32 statistics: JAX on the same float16 values in
+    float32, rounded once to float16 (2^-11 of the value), so 2e-3 of max|ref|."""
+    rng = np.random.RandomState(1)
+    x = (rng.randn(2, 5, 6, 7, 8) * 2 + 0.7).astype(np.float16)
+    scale = (rng.rand(8) + 0.5).astype(np.float16) if affine else None
+    bias = rng.randn(8).astype(np.float16) if affine else None
+    alpha = np.full((1,), 0.25, np.float16)
+    got = _port(x, scale, bias, alpha)
+    assert got.dtype == np.float16
+    f32 = (lambda a: None if a is None else a.astype(np.float32))
+    ref = _jax_norm_prelu(f32(x), f32(scale), f32(bias), f32(alpha))
+    assert np.abs(got.astype(np.float32) - ref).max() <= 2e-3 * np.abs(ref).max()

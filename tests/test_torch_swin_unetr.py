@@ -8,6 +8,8 @@ whole network to 1e-4 (absolute and relative): ~40 layers of float32 sums in ano
 order. The port's ``state_dict`` keys are torch MONAI's, and loading them back into a
 JAX SwinUNETR with ``torch_compat.load_torch_swin_state`` gives identical outputs.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -252,6 +254,37 @@ def test_swin_unetr_matches_jax(nets):
     with torch.inference_mode():
         got = port(torch.from_numpy(x))
     assert got.shape == (1, 14, 32, 32, 32) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, **TOL_NET)
+
+
+def test_swin_unetr_float16_matches_float32_and_jax(nets):
+    """``.to(torch.float16)`` runs: against the port's float32 forward and the JAX net on
+    the input rounded to float16, to 2^-10 (float16's relative step) x 40 layers of
+    max|ref|. The JAX net computes a float16 input in its float32 parameters' type, so
+    it is fed the rounded input as float32 and no second program is compiled."""
+    jax_net, port, forward, x, ref32 = nets
+    x16 = x.astype(np.float16)
+    with torch.inference_mode():
+        got = copy.deepcopy(port).to(torch.float16)(torch.from_numpy(x16))
+    assert got.shape == (1, 14, 32, 32, 32) and got.dtype == torch.float16
+    ref = np.asarray(forward(nnx.split(jax_net)[1], jnp.asarray(x16.astype(np.float32))))
+    tol = 2.0 ** -10 * 40
+    for r in (ref32, ref):
+        assert np.abs(got.float().numpy() - r).max() <= tol * np.abs(r).max()
+
+
+def test_swin_unetr_feature_size_12_matches_jax():
+    """feature_size 12: head dim 4 at every stage (heads 3-6-12-24), which the card's
+    window-attention kernel runs in its generic instance."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pwa, "use_pallas_window_attention", lambda: True)
+        jax_net = _abstract(lambda r: jax_swin.SwinUNETR(1, 3, feature_size=12, rngs=r))
+        port = _carry(jax_net, swin_unetr.SwinUNETR(1, 3, feature_size=12, device="cpu"), seed=14)
+        x = np.random.RandomState(15).rand(1, 1, 32, 32, 32).astype(np.float32)
+        ref = _jax_apply(jax_net, x)
+    with torch.inference_mode():
+        got = port(torch.from_numpy(x))
+    assert got.shape == (1, 3, 32, 32, 32)
     np.testing.assert_allclose(got.numpy(), ref, **TOL_NET)
 
 

@@ -6,6 +6,8 @@ forwards agree to 1e-4 (absolute and relative; ~17 conv/norm layers of float32 s
 another order). The port's ``state_dict`` keys are torch MONAI's, and loading them back
 into a JAX net with ``torch_compat.load_torch_unet_state`` gives identical outputs.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -120,3 +122,20 @@ def test_plain_unet_without_res_units_matches_jax():
     with torch.inference_mode():
         got = port(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(jax_net(jnp.asarray(x))), atol=1e-4, rtol=1e-4)
+
+
+def test_float16_forward_matches_float32_and_jax(nets):
+    """``.to(torch.float16)`` runs on the CPU: against the port's float32 forward and the
+    JAX net given the same input as float16 (it computes in its float32 parameters and
+    returns float32), to 2^-10 (float16's relative step) x 17 conv/norm layers of
+    max|ref|."""
+    jax_net, port = nets
+    x = _x(4)
+    x16 = x.astype(np.float16)
+    with torch.inference_mode():
+        ref32 = port(torch.from_numpy(x)).numpy()
+        got = copy.deepcopy(port).to(torch.float16)(torch.from_numpy(x16))
+    assert got.dtype == torch.float16 and got.shape == (2, 2, 16, 16, 16)
+    tol = 2.0 ** -10 * 17
+    for ref in (ref32, np.asarray(jax_net(jnp.asarray(x16)), dtype=np.float32)):
+        assert np.abs(got.float().numpy() - ref).max() <= tol * np.abs(ref).max()

@@ -88,7 +88,7 @@ def test_cpu_routing_counts_no_launch():
 @pytest.mark.parametrize("change,error", [
     (dict(q=torch.zeros(4, 2, 27)), ValueError),                                # q not 4-D
     (dict(k=torch.zeros(4, 2, 27, 4)), ValueError),                             # shapes differ
-    (dict(q=torch.zeros(4, 2, 27, 8, dtype=torch.float16)), TypeError),         # dtype
+    (dict(q=torch.zeros(4, 2, 27, 8, dtype=torch.float64)), TypeError),         # dtype
     (dict(v=torch.zeros(4, 2, 27, 8, dtype=torch.bfloat16)), TypeError),        # mixed dtypes
     (dict(bias=torch.zeros(2, 27, 27, dtype=torch.bfloat16)), ValueError),      # bias not f32
     (dict(bias=torch.zeros(3, 27, 27)), ValueError),                            # bias heads
@@ -134,3 +134,27 @@ def test_window_attention_module_matches_jax_kernel_path(monkeypatch, window, n_
         got = port(torch.from_numpy(x), None if mask is None else torch.from_numpy(mask)).numpy()
     ref = jax_attn(jnp.asarray(x), None if mask is None else jnp.asarray(mask))
     np.testing.assert_allclose(got, np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("d", [4, 12, 20])
+@pytest.mark.parametrize("n", [27, 729])
+@pytest.mark.parametrize("nw", [0, 2])
+def test_any_head_dim_and_window_matches_jax_pallas_kernel(d, n, nw):
+    """Head dims and windows beyond the card kernel's fast instances (D in 8, 16, 32;
+    N <= 512): its generic instance is held to this same plain version on the card."""
+    b = 2 if n > 512 else 4
+    args = _inputs(d + n + nw, b, 2, n, d, nw)
+    got = fused_window_attention_plain(*(torch.from_numpy(a) if a is not None else None for a in args))
+    assert got.shape == (b, 2, n, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(_jax(*args)), atol=1e-5)
+
+
+@pytest.mark.parametrize("nw", [0, 4])
+def test_matches_jax_pallas_kernel_f16(nw):
+    """float16: both round p and the output to float16 (a step of 2^-11 of the value), so
+    they may differ by one float16 step: 2e-3 of max|ref|."""
+    args = _inputs(6, 8, 3, 27, 12, nw)
+    got = _port(*args, dtype=torch.float16)
+    ref = np.asarray(_jax(*args, dtype=jnp.float16).astype(jnp.float32))
+    assert got.dtype == torch.float16
+    assert np.abs(got.float().numpy() - ref).max() <= 2e-3 * np.abs(ref).max()
