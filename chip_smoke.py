@@ -30,7 +30,9 @@ Drives the port's four paths, each at full width with random weights from a seed
      resample at its two sites and over an order x bound grid at odd extents): max error
      under a stated tolerance, and the kernel's,
      the plain version's and the one PyTorch library call's times, with the least time
-     the card could take (bytes over 3.35 TB/s or operations over the type's peak)
+     the card could take (bytes over 3.35 TB/s or operations over the type's peak; for
+     the attention also its exps, one a score); each attention site names the kernel's
+     instance and the windows a block walks over
   3. per sliding-window path, the inferer over 224x224x112 volumes: output shape and
      finiteness, single-volume latency, vols/s and peak memory, with the launch counts of
      that run (every count set to 0 just before it and read just after)
@@ -303,10 +305,17 @@ def check_attention(sites: Counter, masks: dict, dev) -> dict:
     """Every site, plus two that are not counted in the per-forward sums: the first
     stage's masked site at head dim 16 (feature size 48), and a 9^3 window (N = 729) at
     head dim 12 (feature size 36) under a random mask of 8 rows, which the kernel's
-    generic instance runs. The library call is ``F.scaled_dot_product_attention`` with
-    bias + mask as one additive mask in the input's type (built before the timing)."""
-    from monai_tpu_torch.ops.window_attention import fused_window_attention, fused_window_attention_plain
+    generic instance runs. Each line names the kernel's instance (mma on the tensor
+    cores, fma, generic) and the windows a block walks over. The library call is
+    ``F.scaled_dot_product_attention`` with bias + mask as one additive mask in the input's
+    type (built before the timing). The bound is the largest of the bytes (q, k, v, out,
+    bias and mask once), the products' operations and the exps, one a score at the card's
+    exp rate; the kernels line files the exps under "operations"."""
+    from monai_tpu_torch.ops.window_attention import (fused_window_attention, fused_window_attention_plain,
+                                                      window_attention_plan)
 
+    rate = exp_per_s()
+    exp_total = 0.0
     g = torch.Generator(device=dev).manual_seed(5)
     first = max(s for s in sites if s[4] is not None)
     extra = {(first[0], first[1], first[2], 16, first[4]): 0, (96, 3, 729, 12, 8): 0}
@@ -318,13 +327,15 @@ def check_attention(sites: Counter, masks: dict, dev) -> dict:
             q, k, v = (torch.randn((b, h, n, d), generator=g, device=dev).to(dtype) for _ in range(3))
             bias = torch.randn((h, n, n), generator=g, device=dev) * 0.5
             mask = None if nw is None else masks[nw, n]
+            plan = window_attention_plan(q, k, v, bias, mask)
             got = fused_window_attention(q, k, v, bias, mask)
             torch.cuda.synchronize()
             ref = fused_window_attention_plain(q, k, v, bias, mask)
             err, rel = rel_err(got, ref)
             require(rel <= tol, f"attention {(b, h, n, d, nw)} {dtype}: max err {err:.3g} = {rel:.3g} x max|ref| > {tol}")
             msg = (f"attention windows {b} heads {h} N {n} D {d} mask rows {nw} x{count} {str(dtype)[6:]:8s} "
-                   f"max_abs_err {err:.4g} ({rel:.3g} of max|ref|, tol {tol})")
+                   f"max_abs_err {err:.4g} ({rel:.3g} of max|ref|, tol {tol})  instance {plan['instance']}, "
+                   f"{plan['windows_per_block']} windows a block, {plan['blocks']} blocks")
             if dtype == torch.bfloat16:
                 k_ms, p_ms = paired_ms(lambda: fused_window_attention(q, k, v, bias, mask),
                                        lambda: fused_window_attention_plain(q, k, v, bias, mask), iters=10)
@@ -335,13 +346,19 @@ def check_attention(sites: Counter, masks: dict, dev) -> dict:
                                  iters=10)
                 nbytes = 4 * q.numel() * q.element_size() + bias.numel() * 4 + (0 if mask is None else mask.numel() * 4)
                 b_ms, o_ms = bound(nbytes, 4.0 * b * h * n * n * d, dtype)
-                rows.append((count, err, k_ms, p_ms, lib_ms, b_ms, o_ms))
-                msg += (f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  SDPA {lib_ms:.4f} ms  "
-                        f"bound {max(b_ms, o_ms):.4f} ms")
+                e_ms = b * h * n * n / rate * 1e3
+                rows.append((count, err, k_ms, p_ms, lib_ms, b_ms, max(o_ms, e_ms)))
+                exp_total += count * e_ms
+                sides = {"bytes": b_ms, "FLOP": o_ms, "exp": e_ms}
+                side = max(sides, key=sides.get)
+                msg += (f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  SDPA {lib_ms:.4f} ms  bound {sides[side]:.4f} "
+                        f"ms ({side}; bytes {b_ms:.4f}, FLOP {o_ms:.4f}, exp {e_ms:.4f} at {rate:.4g}/s)")
                 del add, qs, ks, vs
             print(msg, flush=True)
             del q, k, v, got, ref
-    return _summary(rows)
+    out = _summary(rows)
+    out["bound_side"] = "exp" if exp_total >= out["bytes_ms"] else out["bound_by"]
+    return out
 
 
 def _diag(scales, offsets) -> np.ndarray:
@@ -910,13 +927,15 @@ def main() -> None:
 
     def line(s: dict) -> str:
         lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
-        return f"{s['ms']:.4f} / {s['plain_ms']:.4f} / {lib} / {s['bound_ms']:.4f} ({s['bound_by']})"
+        side = s.get("bound_side", s["bound_by"])
+        return f"{s['ms']:.4f} / {s['plain_ms']:.4f} / {lib} / {s['bound_ms']:.4f} ({side})"
 
     print("per forward, the resample per volume (ms, kernel / plain / library / bound): " + "; ".join(
         f"{name} {k} {line(s)}" for name, ss in summaries.items()
         for k, s in zip(("conv", "norm", "attention", "resample"), ss) if s is not None), flush=True)
     for k in kernels:  # the bound's sides were for bound_by only
         del k["bytes_ms"], k["ops_ms"]
+        k.pop("bound_side", None)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,37 +10,81 @@
 //
 // Replaces monai_tpu/ops/pallas_window_attention.py::_fwd_pallas (body _attn_kernel).
 // That kernel kept a block of WB windows' (N, N) f32 scores in VMEM for one head, so the
-// scores never went to HBM, and let WB windows share one bias tile (_pick_wb). Here the
-// scores never leave registers or shared memory. Two instances:
+// scores never went to HBM, and let the WB windows of a grid step share one bias tile and
+// one mask tile (_pick_wb). Here the scores never leave registers.
 //
-// - The fast one (D in {8, 16, 32}, N <= kMaxN): a warp owns one query row at a time,
-//   each lane holds the scores of keys lane, lane + 32, ... (up to kMaxN / 32 of them),
-//   and the max and the sum are warp shuffles. K and V of the block's (window, head) sit
-//   in shared memory as f32, rows padded to D + 1 words so that 32 lanes reading 32 rows
-//   hit 32 banks. One block per (query tile of kQTile rows, head, window); the grid is
-//   flattened with the query tile fastest, then the head, so the blocks that read one
-//   window's mask row run together and share it through L2.
+// What bounds it on the card: the exps. SwinUNETR at feature size 24 (D = 8, N = 343)
+// computes 2.1e9 scores a 6-window forward, one exp each; the special-function units
+// give 16 a clock an SM, 4.2e12/s on an H100, so 0.51 ms a forward. The bytes (q, k, v,
+// out, bias and mask read or written once) take 0.19 ms, the products 0.07 ms. Per
+// score a kernel also adds the bias and mask, takes the max, subtracts, sums, scales and
+// rounds: about as many FP32 issue slots as the exp unit's.
+//
+// Three instances, routed by launch_d:
+//
+// - The tensor-core one (bfloat16 and float16, D in {8, 16, 32}, N <= 512, q, k, v and
+//   out 16-byte aligned; every SwinUNETR site at feature sizes 24 and 48). A block owns a
+//   tile of 64 query rows (48 at D = 8 and N in (224, 352], below) of one head h and one
+//   mask row w, and walks over the windows b = w, w + nW, ... that use that row (without
+//   a mask, over a run of consecutive windows, all of which share bias[h]). It stages the
+//   addend tile bias[h] + mask[w] (tile rows x N keys, float32), every load of a row in
+//   flight at once, in shared memory once and reads it for each of its windows, so the
+//   bias and mask are read from L2 once a block, not once a window and head: at the
+//   first stage's masked site that is ~1 GB through L2 where a window a block took 5.8 GB.
+//   K and V of each window arrive in their own type by cp.async, 16 bytes a copy,
+//   double-buffered so that the next window's rows land while this one computes; key
+//   rows past N are zero-filled (a source size of 0) and never read from memory.
+//   S = Q K^T runs on mma.sync (m16n8k8 at D = 8, m16n8k16 above) and accumulates onto
+//   the addend, read from the tile as float2 pairs in the accumulator's layout; the K
+//   fragments come by ldmatrix straight from the K rows, the Q fragments from global
+//   memory once a window. The rows go in groups of 16, each split over two warps by key
+//   halves, so a warp holds at most 16 rows x 176 keys of scores (88 registers a thread
+//   at N = 343), and the pair exchanges its row max, row sum and partial output through
+//   shared memory behind a 64-thread named barrier. The max is taken over quads by
+//   shuffles, then over the pair; e = 2^(s log2 e - max log2 e) on the exp unit; p = e
+//   (1/sum) rounded to the input type, two score tiles of adjacent keys packed as one
+//   m16n8k16 A fragment; P V on mma.sync with V's fragments by ldmatrix.trans,
+//   accumulated in float32. Keys past N carry -inf in the addend tile (or in place of it
+//   past the tile), so they add nothing. No rescaled (online) softmax: p is rounded where
+//   the TPU kernel rounds it. Summing bias + mask before the product, and multiplying by
+//   1/sum instead of dividing, move the float32 scores and p by about one ulp, far inside
+//   the bfloat16 and float16 tolerances. At the Swin windows (N = 343 and 216) both
+//   halves hold the same number of key chunks, and an instance without bounds on its
+//   chunk loops runs them: its straight-line code overlaps the chunks' latencies. Two
+//   blocks an SM at D = 8 cap a thread at 128 registers with four row groups (eight
+//   warps); at N = 343 that instance needs ~142, so it takes three row groups (six
+//   warps) and ptxas spills nothing. How many windows a block walks over is chosen on the
+//   host from the shape: the fewest waves of resident blocks, counting the addend tile as
+//   one window's work, with at least two blocks an SM where the shape allows. The grid
+//   runs the query tiles, then the heads, of one mask row together, so the row stays in
+//   L2.
+// - The FMA one (float32, and a bfloat16 or float16 shape of the first kind that is not
+//   16-byte aligned): a warp owns one query row at a time, each lane holds the scores of
+//   keys lane, lane + 32, ... (up to kMaxN / 32 of them), and the max and the sum are
+//   warp shuffles. K and V of the block's (window, head) sit in shared memory as f32,
+//   rows padded to D + 1 words. One block per (query tile of kQTile rows, head, window).
+//   float32 stays on the FMA units in full precision: TF32 would miss its tolerance.
 // - The generic one (every other D and N): D is a loop bound, and the keys stream
 //   through shared memory in chunks of 32, one key a lane. A row takes two passes over
 //   the chunks: the first finds its max and its sum (per lane, merged by shuffles at
 //   the end), the second recomputes the scores, forms p = exp(s - max) / sum rounded to
 //   the input type, and accumulates p.v into a float32 tile in shared memory, each lane
-//   owning dims lane, lane + 32, ... No rescaled (online) softmax: p is rounded where
-//   the TPU kernel rounds it. This instance is for correctness, not speed.
+//   owning dims lane, lane + 32, ... This instance is for correctness, not speed.
 //
-// What bounds it on the card: with D = 8 (SwinUNETR at feature size 24) both products
-// have a depth of 8 and are tiny. Per (window, head) the kernel reads N^2 * 4 B of bias
-// and N^2 * 4 B of mask, about 0.94 MB at N = 343, against about 3.8 MFLOP of products:
-// the bias and mask reads, from L2 at best, dominate. Letting several windows of a block
-// share one bias and mask tile (the TPU kernel's WB), tensor cores (mma with the depth
-// padded to 16, or wgmma) and TMA are later work.
+// Left for later: wgmma (D = 8 is below its depth of 16), TMA for K, V and the addend
+// tile, and a persistent grid.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <array>
 #include <cmath>
 #include <cstdint>
+#include <map>
+#include <mutex>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -324,16 +368,472 @@ cudaError_t launch_generic(const void* q, const void* k, const void* v, const fl
   return cudaGetLastError();
 }
 
+
+// The tensor-core instance. A block has RG row groups of 16 query rows, two warps each
+// (one a key half). Shared memory: the addend tile (16 RG rows x lda float32), then
+// `stages` buffers of K and V (np rows of LDK elements each, np = N rounded up to 16),
+// then the pairs' exchange: row max and row sum ([2][2 halves][16 RG] float32) and the
+// second half's partial output ([RG][D / 8][4][32] float32).
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct MmaGeom {
+  int H, N, nW;          // nW = 1 without a mask
+  int n_qtiles;          // query tiles of 16 RG rows
+  int per_row;           // windows that use one mask row, B / nW
+  int splits, wb;        // blocks a mask row's windows are split over, and windows a block
+  int lda;               // the addend tile's row stride, in floats
+  int stages;            // K and V buffers: 2 (double-buffered) or 1
+};
+
+// K and V rows in shared memory: 16 bytes at D = 8 (ldmatrix's 8 rows span all 32
+// banks), else D + 8 elements, an odd number of 16-byte units, so 8 rows fall in 8
+// distinct bank groups.
+template <int D> __host__ __device__ constexpr int kv_ld() { return D == 8 ? 8 : D + 8; }
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the two warps of a row group (64 threads) wait for each other; named barrier 1 + group
+__device__ __forceinline__ void pair_sync(int id) { asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory"); }
+
+template <typename T> __device__ __forceinline__ unsigned pack2(float lo, float hi);
+template <> __device__ __forceinline__ unsigned pack2<__nv_bfloat16>(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+template <> __device__ __forceinline__ unsigned pack2<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// CH: the most k16 chunks of keys a warp holds (its half of N rounded up to 16); FULL:
+// both halves hold exactly CH chunks (N rounded up to 16 is 32 CH), so the chunk loops
+// need no bound; RG: row groups; MINB: the blocks an SM should hold, which caps the
+// registers.
+template <typename T, int D, int CH, bool FULL, int RG, int MINB>
+__global__ void __launch_bounds__(64 * RG, MINB)
+window_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                            const float* __restrict__ bias, const float* __restrict__ mask, T* __restrict__ out,
+                            MmaGeom g) {
+  constexpr int LDK = kv_ld<D>();
+  constexpr int NT = D / 8;                // n8 tiles of the output
+  constexpr int KQ = D == 8 ? 1 : D / 16;  // Q fragments (k8 at D = 8, else k16 steps)
+  constexpr int kTile = 16 * RG, kBlockWarps = 2 * RG, kBlockThreads = 64 * RG;
+  const int N = g.N, np = (N + 15) & ~15, n8 = (N + 7) & ~7;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* addend = reinterpret_cast<float*>(smem_raw);
+  T* kv = reinterpret_cast<T*>(addend + kTile * g.lda);
+  float* red = reinterpret_cast<float*>(kv + g.stages * 2 * np * LDK);
+  float* xo = red + 4 * kTile;
+
+  int blk = blockIdx.x;
+  const int qt = blk % g.n_qtiles;
+  blk /= g.n_qtiles;
+  const int h = blk % g.H;
+  blk /= g.H;
+  const int split = blk % g.splits, w = blk / g.splits;
+  const int j0 = split * g.wb, count = min(g.wb, g.per_row - j0);
+  const int q0 = qt * kTile;
+  auto window = [&](int j) -> long long { return ((long long)w + (long long)g.nW * (j0 + j)) * g.H + h; };
+
+  // K and V of the block's j-th window into buffer st; rows past N zero-filled
+  auto issue = [&](int j, int st) {
+    constexpr int P = D / 8;  // 16-byte pieces a row
+    const long long base = window(j) * N * D;
+    T* ks = kv + st * 2 * np * LDK;
+    T* vs = ks + np * LDK;
+    for (int i = threadIdx.x; i < np * P; i += kBlockThreads) {
+      const int r = i / P, c = (i % P) * 8;
+      const long long src = r < N ? base + (long long)r * D + c : 0;
+      cp_async16(ks + r * LDK + c, k + src, r < N ? 16 : 0);
+      cp_async16(vs + r * LDK + c, v + src, r < N ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  issue(0, 0);
+
+  // the addend tile: bias[h] + mask[w] for the tile's rows, 0 in rows past N, -inf in
+  // the keys from N up to n8
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  {
+    const float* brows = bias + ((long long)h * N + q0) * N;
+    const float* mrows = mask != nullptr ? mask + ((long long)w * N + q0) * N : nullptr;
+    for (int r = warp; r < kTile; r += kBlockWarps) {  // every load of a row in flight at once
+      const bool row_in = q0 + r < N;
+      const float* br = brows + (long long)r * N;
+      const float* mr = mrows != nullptr ? mrows + (long long)r * N : nullptr;
+      float a[kMaxN / 32];
+#pragma unroll
+      for (int u = 0; u < kMaxN / 32; ++u) {
+        const int j = lane + 32 * u;
+        a[u] = -INFINITY;
+        if (j < N) a[u] = row_in ? br[j] + (mr != nullptr ? mr[j] : 0.0f) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kMaxN / 32; ++u) {
+        const int j = lane + 32 * u;
+        if (j < n8) addend[r * g.lda + j] = a[u];
+      }
+    }
+  }
+
+  const int rg = warp % RG, half = warp / RG;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int r0 = rg * 16;
+  const bool live = q0 + r0 < N;  // the row group has a row in the window (warp-uniform)
+  const int nc = np / 16, nc0 = (nc + 1) / 2;
+  const int c_begin = half ? nc0 : 0, my_nc = half ? nc - nc0 : nc0;
+  const int row_a = q0 + r0 + g8, row_b = row_a + 8;
+  const float* arow_a = addend + (r0 + g8) * g.lda + 2 * t4;
+  const float* arow_b = arow_a + 8 * g.lda;
+  float* rmax = red;
+  float* rsum = red + 2 * kTile;
+  float* xw = xo + rg * (NT * 4 * 32);
+
+  // the warp's Q fragments of window j: k8 {a0, a1} at D = 8, else a k16 {a0..a3} a step
+  auto load_q = [&](int j, unsigned (&qf)[KQ][4]) {
+    const unsigned* qw = reinterpret_cast<const unsigned*>(q + window(j) * N * D);
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+      const int col = kk * 16 + 2 * t4;
+      qf[kk][0] = row_a < N ? qw[(row_a * D + col) >> 1] : 0u;
+      qf[kk][1] = row_b < N ? qw[(row_b * D + col) >> 1] : 0u;
+      if (D != 8) {
+        qf[kk][2] = row_a < N ? qw[(row_a * D + col + 8) >> 1] : 0u;
+        qf[kk][3] = row_b < N ? qw[(row_b * D + col + 8) >> 1] : 0u;
+      }
+    }
+  };
+  unsigned qf[KQ][4] = {}, qn[KQ][4] = {};
+  if (live) load_q(0, qf);
+
+  for (int j = 0; j < count; ++j) {
+    const int st = g.stages == 2 ? (j & 1) : 0;
+    cp_async_wait<0>();
+    __syncthreads();  // window j's K and V (and, the first time, the addend tile) are in
+    if (g.stages == 2 && j + 1 < count) issue(j + 1, st ^ 1);
+    if (live) {  // warp-uniform, and the same for both warps of a pair
+      const T* ks = kv + st * 2 * np * LDK;
+      const T* vs = ks + np * LDK;
+
+      // S = Q K^T + addend, this warp's key chunks
+      float s[2 * CH][4];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        if (FULL || c < my_nc) {
+          const int key0 = (c_begin + c) * 16;
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int n0 = key0 + 8 * jj;
+            if ((FULL && (c < CH - 1 || jj == 0)) || n0 < n8) {
+              const float2 a = *reinterpret_cast<const float2*>(arow_a + n0);
+              const float2 b = *reinterpret_cast<const float2*>(arow_b + n0);
+              s[2 * c + jj][0] = a.x;
+              s[2 * c + jj][1] = a.y;
+              s[2 * c + jj][2] = b.x;
+              s[2 * c + jj][3] = b.y;
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) s[2 * c + jj][e] = -INFINITY;
+            }
+          }
+          if constexpr (D == 8) {
+            unsigned b0, b1;
+            ldsm_x2(b0, b1, ks + (key0 + (lane & 15)) * LDK);
+            mma_k8<T>(s[2 * c], qf[0][0], qf[0][1], b0);
+            mma_k8<T>(s[2 * c + 1], qf[0][0], qf[0][1], b1);
+          } else if constexpr (D == 16) {
+            unsigned b[4];
+            ldsm_x4(b, ks + (key0 + (lane & 7) + ((lane >> 4) << 3)) * LDK + ((lane >> 3) & 1) * 8);
+            mma_k16<T>(s[2 * c], qf[0], b[0], b[1]);
+            mma_k16<T>(s[2 * c + 1], qf[0], b[2], b[3]);
+          } else {
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              unsigned b[4];
+              ldsm_x4(b, ks + (key0 + 8 * jj + (lane & 7)) * LDK + (lane >> 3) * 8);
+              mma_k16<T>(s[2 * c + jj], qf[0], b[0], b[1]);
+              mma_k16<T>(s[2 * c + jj], qf[1], b[2], b[3]);
+            }
+          }
+        }
+      }
+      if (j + 1 < count) load_q(j + 1, qn);  // in flight through the softmax
+
+      // the row max (rows g8 and g8 + 8 of the group): the quad, then the pair
+      float ma = -INFINITY, mb = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < 2 * CH; ++t) {
+        if (FULL || t < 2 * my_nc) {
+          ma = fmaxf(ma, fmaxf(s[t][0], s[t][1]));
+          mb = fmaxf(mb, fmaxf(s[t][2], s[t][3]));
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, o));
+        mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, o));
+      }
+      if (t4 == 0) {
+        rmax[half * kTile + r0 + g8] = ma;
+        rmax[half * kTile + r0 + g8 + 8] = mb;
+      }
+      pair_sync(1 + rg);
+      ma = fmaxf(ma, rmax[(half ^ 1) * kTile + r0 + g8]);
+      mb = fmaxf(mb, rmax[(half ^ 1) * kTile + r0 + g8 + 8]);
+
+      // e = exp(s - max) and the row sum
+      const float la = ma * kLog2e, lb = mb * kLog2e;
+      float sa = 0.0f, sb = 0.0f;
+#pragma unroll
+      for (int t = 0; t < 2 * CH; ++t) {
+        if (FULL || t < 2 * my_nc) {
+          s[t][0] = ex2(fmaf(s[t][0], kLog2e, -la));
+          s[t][1] = ex2(fmaf(s[t][1], kLog2e, -la));
+          s[t][2] = ex2(fmaf(s[t][2], kLog2e, -lb));
+          s[t][3] = ex2(fmaf(s[t][3], kLog2e, -lb));
+          sa += s[t][0] + s[t][1];
+          sb += s[t][2] + s[t][3];
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        sa += __shfl_xor_sync(0xffffffffu, sa, o);
+        sb += __shfl_xor_sync(0xffffffffu, sb, o);
+      }
+      if (t4 == 0) {
+        rsum[half * kTile + r0 + g8] = sa;
+        rsum[half * kTile + r0 + g8 + 8] = sb;
+      }
+      pair_sync(1 + rg);
+      const float ia = 1.0f / (sa + rsum[(half ^ 1) * kTile + r0 + g8]);
+      const float ib = 1.0f / (sb + rsum[(half ^ 1) * kTile + r0 + g8 + 8]);
+
+      // O = P V over this warp's keys: p rounded to T, two adjacent n8 score tiles as
+      // one k16 A fragment
+      float o[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nt][e] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        if (FULL || c < my_nc) {
+          const unsigned a[4] = {pack2<T>(s[2 * c][0] * ia, s[2 * c][1] * ia),
+                                 pack2<T>(s[2 * c][2] * ib, s[2 * c][3] * ib),
+                                 pack2<T>(s[2 * c + 1][0] * ia, s[2 * c + 1][1] * ia),
+                                 pack2<T>(s[2 * c + 1][2] * ib, s[2 * c + 1][3] * ib)};
+          const T* vrow = vs + ((c_begin + c) * 16 + (lane & 15)) * LDK;
+          if constexpr (D == 8) {
+            unsigned b0, b1;
+            ldsm_x2_t(b0, b1, vrow);
+            mma_k16<T>(o[0], a, b0, b1);
+          } else {
+#pragma unroll
+            for (int dt = 0; dt < D / 16; ++dt) {
+              unsigned b0, b1, b2, b3;
+              ldsm_x4_t(b0, b1, b2, b3, vrow + dt * 16 + (lane >> 4) * 8);
+              mma_k16<T>(o[2 * dt], a, b0, b1);
+              mma_k16<T>(o[2 * dt + 1], a, b2, b3);
+            }
+          }
+        }
+      }
+
+      // the second half hands its partial output to the first, which stores the sum
+      if (half) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xw[(nt * 4 + e) * 32 + lane] = o[nt][e];
+      }
+      pair_sync(1 + rg);
+      if (!half) {
+        T* ow = out + window(j) * N * D;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[nt][e] += xw[(nt * 4 + e) * 32 + lane];
+          const int col = nt * 8 + 2 * t4;
+          if (row_a < N) *reinterpret_cast<unsigned*>(ow + row_a * D + col) = pack2<T>(o[nt][0], o[nt][1]);
+          if (row_b < N) *reinterpret_cast<unsigned*>(ow + row_b * D + col) = pack2<T>(o[nt][2], o[nt][3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qf[kk][e] = qn[kk][e];
+    }
+    if (g.stages == 1 && j + 1 < count) {
+      __syncthreads();  // everyone is done with the one buffer
+      issue(j + 1, 0);
+    }
+  }
+}
+
+// The launch of one shape on the tensor-core instance, or which instance runs it.
+enum Instance { kMma = 0, kFma = 1, kGeneric = 2 };
+
+struct MmaPlan {
+  cudaError_t (*run)(const MmaPlan&, const void*, const void*, const void*, const float*, const float*, void*,
+                     cudaStream_t);
+  MmaGeom g;
+  unsigned blocks;
+  size_t smem;
+  int per_sm;  // blocks an SM holds
+  int rows;    // query rows a block
+};
+
+template <int D, int CH>
+constexpr int mma_min_blocks() {  // two blocks an SM where the shared memory allows it
+  return (D == 8 && CH <= 11) || (D == 16 && CH <= 7) || CH <= 4 ? 2 : 1;
+}
+
+// Three row groups where four, at two blocks an SM, would cap a thread at 128 registers
+// and ptxas would spill (88 scores a thread and the unrolled chunk loops at N = 343).
+template <int D, int CH>
+constexpr int mma_row_groups() {
+  return D == 8 && CH == 11 ? 3 : 4;
+}
+
+template <typename T, int D, int CH, bool FULL>
+cudaError_t run_mma(const MmaPlan& p, const void* q, const void* k, const void* v, const float* bias,
+                    const float* mask, void* out, cudaStream_t stream) {
+  constexpr int RG = mma_row_groups<D, CH>();
+  window_attention_mma_kernel<T, D, CH, FULL, RG, mma_min_blocks<D, CH>()><<<p.blocks, 64 * RG, p.smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias, mask,
+      static_cast<T*>(out), p.g);
+  return cudaGetLastError();
+}
+
+long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// How many windows a block walks over: the fewest waves of resident blocks, each block
+// costing its windows plus one for staging its addend tile; at least `resident` blocks
+// where the shape has that many (window, tile) pairs; of equal costs the fewer blocks.
+void split_rows(MmaGeom& g, long long resident) {
+  const long long base = (long long)g.n_qtiles * g.H * g.nW, per_row = g.per_row;
+  long long best_cost = -1, best_wb = per_row;
+  for (long long s = 1; s <= per_row; ++s) {
+    const long long wb = cdiv(per_row, s);
+    if (cdiv(per_row, wb) != s) continue;  // the same split as a smaller s
+    const long long blocks = base * s;
+    if (blocks < resident && base * per_row >= resident) continue;
+    const long long cost = cdiv(blocks, resident) * (wb + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best_wb = wb;
+    }
+  }
+  g.wb = (int)best_wb;
+  g.splits = (int)cdiv(per_row, best_wb);
+}
+
+template <typename T, int D, int CH, bool FULL>
+cudaError_t plan_mma(MmaPlan& p, long long B, int H, int N, int nW) {
+  constexpr int RG = mma_row_groups<D, CH>(), kTile = 16 * RG;
+  const auto kernel = window_attention_mma_kernel<T, D, CH, FULL, RG, mma_min_blocks<D, CH>()>;
+  p.run = run_mma<T, D, CH, FULL>;
+  const int np = (N + 15) & ~15, n8 = (N + 7) & ~7;
+  MmaGeom& g = p.g;
+  g.H = H;
+  g.N = N;
+  g.nW = nW;
+  g.n_qtiles = (N + kTile - 1) / kTile;
+  g.per_row = (int)(B / nW);
+  g.lda = n8 % 16 == 0 ? n8 + 8 : n8;  // 8 rows' float2 reads in distinct banks
+  const size_t fixed = (size_t)kTile * g.lda * 4 + (4 * kTile + 16 * RG * D) * 4;  // + red, xo
+  const size_t stage = 2 * (size_t)np * kv_ld<D>() * sizeof(T);
+  int dev = 0, optin = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (fixed + stage > (size_t)optin) return cudaErrorInvalidValue;
+  g.stages = fixed + 2 * stage <= (size_t)optin ? 2 : 1;
+  p.smem = fixed + g.stages * stage;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.per_sm, kernel, 64 * RG, p.smem);
+  if (err != cudaSuccess) return err;
+  if (p.per_sm < 1) return cudaErrorInvalidValue;
+  split_rows(g, (long long)sms * p.per_sm);
+  const long long blocks = (long long)g.n_qtiles * H * nW * g.splits;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  p.blocks = (unsigned)blocks;
+  p.rows = kTile;
+  return cudaSuccess;
+}
+
+template <typename T, int D>
+cudaError_t plan_mma_ch(MmaPlan& p, long long B, int H, int N, int nW) {
+  const int nc = (N + 15) / 16, half = (nc + 1) / 2;  // k16 chunks, and those of the first key half
+  if (half <= 4) return plan_mma<T, D, 4, false>(p, B, H, N, nW);
+  if (nc == 14) return plan_mma<T, D, 7, true>(p, B, H, N, nW);  // N in (208, 224]: the 6^3 windows
+  if (half <= 7) return plan_mma<T, D, 7, false>(p, B, H, N, nW);
+  if (nc == 22) return plan_mma<T, D, 11, true>(p, B, H, N, nW);  // N in (336, 352]: the 7^3 windows
+  if (half <= 11) return plan_mma<T, D, 11, false>(p, B, H, N, nW);
+  return plan_mma<T, D, 16, false>(p, B, H, N, nW);
+}
+
+template <typename T>
+cudaError_t plan_mma_d(MmaPlan& p, long long B, int H, int N, int D, int nW) {
+  if (D == 8) return plan_mma_ch<T, 8>(p, B, H, N, nW);
+  if (D == 16) return plan_mma_ch<T, 16>(p, B, H, N, nW);
+  return plan_mma_ch<T, 32>(p, B, H, N, nW);
+}
+
+// The plan of a shape on the current device, made at its first launch and kept.
+cudaError_t find_mma_plan(MmaPlan& p, long long B, int H, int N, int D, int nW, int dtype) {
+  static std::mutex mu;
+  static std::map<std::array<long long, 6>, MmaPlan> plans;
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::array<long long, 6> key{dev, B, H, N, D, (long long)nW * 4 + dtype};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = plans.find(key);
+  if (it != plans.end()) {
+    p = it->second;
+    return cudaSuccess;
+  }
+  const cudaError_t made = dtype == 1 ? plan_mma_d<__nv_bfloat16>(p, B, H, N, D, nW)
+                                      : plan_mma_d<__half>(p, B, H, N, D, nW);
+  if (made == cudaSuccess) plans.emplace(key, p);
+  return made;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
+
+Instance pick_instance(int N, int D, int dtype, bool aligned) {
+  if (N > kMaxN || (D != 8 && D != 16 && D != 32)) return kGeneric;
+  return dtype != 0 && aligned ? kMma : kFma;
+}
+
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const float* bias, const float* mask, void* out,
-                     long long B, int H, int N, int D, int nW, cudaStream_t stream) {
-  if (N > kMaxN) return launch_generic<T>(q, k, v, bias, mask, out, B, H, N, D, nW, stream);
+                     long long B, int H, int N, int D, int nW, int dtype, cudaStream_t stream) {
+  const Instance inst = pick_instance(N, D, dtype, aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out));
+  if (inst == kGeneric) return launch_generic<T>(q, k, v, bias, mask, out, B, H, N, D, nW, stream);
+  if (inst == kMma) {
+    MmaPlan p;
+    const cudaError_t err = find_mma_plan(p, B, H, N, D, nW, dtype);
+    if (err != cudaSuccess) return err;
+    return p.run(p, q, k, v, bias, mask, out, stream);
+  }
   switch (D) {
     case 8: return launch<T, 8>(q, k, v, bias, mask, out, B, H, N, nW, stream);
     case 16: return launch<T, 16>(q, k, v, bias, mask, out, B, H, N, nW, stream);
-    case 32: return launch<T, 32>(q, k, v, bias, mask, out, B, H, N, nW, stream);
-    default: return launch_generic<T>(q, k, v, bias, mask, out, B, H, N, D, nW, stream);
+    default: return launch<T, 32>(q, k, v, bias, mask, out, B, H, N, nW, stream);
   }
+}
+
+bool valid(long long B, int H, int N, int D, int nW, bool has_mask) {
+  return B > 0 && H > 0 && N > 0 && D > 0 && (!has_mask || (nW > 0 && B % nW == 0));
 }
 
 }  // namespace
@@ -343,14 +843,43 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const float* b
 extern "C" int monai_window_attention(const void* q, const void* k, const void* v, const void* bias,
                                       const void* mask, void* out, long long B, int H, int N, int D, int nW,
                                       int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || N <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  if (mask != nullptr && (nW <= 0 || B % nW != 0)) return (int)cudaErrorInvalidValue;
+  if (!valid(B, H, N, D, nW, mask != nullptr)) return (int)cudaErrorInvalidValue;
   if (mask == nullptr) nW = 1;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* bf = static_cast<const float*>(bias);
   const auto* mf = static_cast<const float*>(mask);
-  if (dtype == 0) return (int)launch_d<float>(q, k, v, bf, mf, out, B, H, N, D, nW, s);
-  if (dtype == 1) return (int)launch_d<__nv_bfloat16>(q, k, v, bf, mf, out, B, H, N, D, nW, s);
-  if (dtype == 2) return (int)launch_d<__half>(q, k, v, bf, mf, out, B, H, N, D, nW, s);
+  if (dtype == 0) return (int)launch_d<float>(q, k, v, bf, mf, out, B, H, N, D, nW, dtype, s);
+  if (dtype == 1) return (int)launch_d<__nv_bfloat16>(q, k, v, bf, mf, out, B, H, N, D, nW, dtype, s);
+  if (dtype == 2) return (int)launch_d<__half>(q, k, v, bf, mf, out, B, H, N, D, nW, dtype, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// What a launch of this shape runs, without launching it: info[0] the instance (0
+// tensor-core, 1 FMA, 2 generic), info[1] the windows a block walks over, info[2] the
+// blocks, info[3] the blocks an SM holds (0 where not worked out), info[4] the dynamic
+// shared memory in bytes, info[5] the query rows a block. nW = 0 means no mask. Returns a
+// cudaError_t.
+extern "C" int monai_window_attention_plan(long long B, int H, int N, int D, int nW, int dtype, int aligned,
+                                           int* info) {
+  if (!valid(B, H, N, D, nW, nW > 0) || dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
+  const Instance inst = pick_instance(N, D, dtype, aligned != 0);
+  info[0] = inst;
+  info[1] = 1;
+  info[3] = 0;
+  if (inst == kMma) {
+    MmaPlan p;
+    const cudaError_t err = find_mma_plan(p, B, H, N, D, nW > 0 ? nW : 1, dtype);
+    if (err != cudaSuccess) return (int)err;
+    info[1] = p.g.wb;
+    info[2] = (int)p.blocks;
+    info[3] = p.per_sm;
+    info[4] = (int)p.smem;
+    info[5] = p.rows;
+    return 0;
+  }
+  const int rows = inst == kFma ? kQTile : kGQTile;
+  info[2] = (int)(B * H * ((N + rows - 1) / rows));
+  info[4] = (int)(inst == kFma ? 2 * (size_t)N * (D + 1) * sizeof(float) : generic_smem_bytes(D));
+  info[5] = rows;
+  return 0;
 }

@@ -18,9 +18,10 @@ import torch
 
 from ._build import library
 
-__all__ = ["fused_window_attention", "fused_window_attention_plain"]
+__all__ = ["fused_window_attention", "fused_window_attention_plain", "window_attention_plan"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_INSTANCES = ("mma", "fma", "generic")
 
 
 def fused_window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
@@ -67,6 +68,35 @@ def _launcher():
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _planner():
+    fn = library().monai_window_attention_plan
+    fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def window_attention_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> dict:
+    """What ``fused_window_attention`` launches for these CUDA tensors, without launching
+    it: the kernel's instance ("mma" on the tensor cores, "fma" the float32 one, "generic"),
+    the windows a block walks over, the blocks, the blocks an SM holds (0 where the
+    instance does not work it out), the dynamic shared memory in bytes and the query rows
+    a block."""
+    _check(q, k, v, bias, mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention_plan describes a CUDA launch; got a tensor on {q.device}")
+    b, h, n, d = q.shape
+    info = (ctypes.c_int * 6)()
+    with torch.cuda.device(q.device):
+        err = _planner()(b, h, n, d, 0 if mask is None else mask.shape[0], _DTYPE_CODES[q.dtype],
+                         int(all(t.data_ptr() % 16 == 0 for t in (q, k, v))), ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"window_attention_plan: error {err} for q {tuple(q.shape)} {q.dtype}")
+    return {"instance": _INSTANCES[info[0]], "windows_per_block": info[1], "blocks": info[2],
+            "blocks_per_sm": info[3], "smem_bytes": info[4], "rows_per_block": info[5]}
 
 
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,

@@ -24,7 +24,8 @@ from monai_tpu_torch.ops.bilateral import bilateral_stencil, bilateral_stencil_p
 from monai_tpu_torch.ops.conv3d import conv3d_3x3_same, conv3d_3x3_same_plain
 from monai_tpu_torch.ops.filtering import bilateral_filter
 from monai_tpu_torch.ops.separable_resample import separable_resample_3d, separable_resample_3d_plain
-from monai_tpu_torch.ops.window_attention import fused_window_attention, fused_window_attention_plain
+from monai_tpu_torch.ops.window_attention import (fused_window_attention, fused_window_attention_plain,
+                                                  window_attention_plan)
 
 pytestmark = pytest.mark.cuda
 
@@ -172,16 +173,27 @@ def test_small_unet_on_card_matches_cpu(cuda):
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
+# (windows, mask rows or None): the tensor-core instance walks a block over the windows
+# of one mask row (B / nW of them: 3, 1, 2, 6, 13) or, without a mask, over a run of
+# windows (B: 12, 1, 7, 13, 96), split over blocks by the shape
+WINDOW_GROUPS = [(12, 4), (12, None), (5, 5), (6, 3), (12, 2), (26, 2), (1, None), (7, None), (13, None),
+                 (96, None)]
+
+
+def _attention_inputs(g, b, h, n, d, nw, dtype, device):
+    q, k, v = (torch.randn((b, h, n, d), generator=g, device=device).to(dtype) for _ in range(3))
+    bias = torch.randn((h, n, n), generator=g, device=device) * 0.5
+    mask = None if nw is None else (torch.rand((nw, n, n), generator=g, device=device) > 0.5).float() * -100.0
+    return q, k, v, bias, mask
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [8, 16, 32])
-@pytest.mark.parametrize("n", [27, 216, 343])
-@pytest.mark.parametrize("with_mask", [False, True])
-def test_window_attention_kernel_matches_plain(cuda, dtype, d, n, with_mask):
+@pytest.mark.parametrize("n", [27, 64, 125, 216, 343, 512])
+@pytest.mark.parametrize("b,nw", WINDOW_GROUPS)
+def test_window_attention_kernel_matches_plain(cuda, dtype, d, n, b, nw):
     g = torch.Generator(device=cuda).manual_seed(3)
-    b, h, nw = 12, 3, 4
-    q, k, v = (torch.randn((b, h, n, d), generator=g, device=cuda).to(dtype) for _ in range(3))
-    bias = torch.randn((h, n, n), generator=g, device=cuda) * 0.5
-    mask = (torch.rand((nw, n, n), generator=g, device=cuda) > 0.5).float() * -100.0 if with_mask else None
+    q, k, v, bias, mask = _attention_inputs(g, b, 3, n, d, nw, dtype, cuda)
     with torch.inference_mode():
         before = fused_window_attention.launches
         got = fused_window_attention(q, k, v, bias, mask)
@@ -208,6 +220,88 @@ def test_window_attention_kernel_takes_any_head_dim(cuda, dtype, d, n, with_mask
         assert fused_window_attention.launches == before + 1
         assert got.shape == q.shape and got.dtype == dtype
         _assert_close(got, fused_window_attention_plain(q, k, v, bias, mask), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [8, 32])
+@pytest.mark.parametrize("n", [27, 125, 343])
+@pytest.mark.parametrize("nw", [None, 2])
+def test_window_attention_kernel_reads_nothing_past_its_inputs(cuda, dtype, d, n, nw):
+    """q, k, v, bias and mask are the heads of buffers whose tails are NaN: a read past
+    the last window's rows (a key row past N, a query row of the last tile) or past the
+    bias and mask would reach the output."""
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    b, h = 6, 2
+    args = _attention_inputs(g, b, h, n, d, nw, dtype, cuda)
+    heads = []
+    for t in args:
+        if t is None:
+            heads.append(None)
+            continue
+        buf = torch.full((t.shape[0] + 2, *t.shape[1:]), float("nan"), device=cuda, dtype=t.dtype)
+        buf[:t.shape[0]] = t
+        heads.append(buf[:t.shape[0]])
+    with torch.inference_mode():
+        got = fused_window_attention(*heads)
+        assert torch.isfinite(got.float()).all()
+        _assert_close(got, fused_window_attention_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [8, 16])
+@pytest.mark.parametrize("n", [64, 343])
+def test_window_attention_kernel_rows_masked_everywhere(cuda, dtype, d, n):
+    """Rows whose every key is masked at -100 (the shifted-window masks' value): the
+    softmax of a row that is -100 everywhere plus the bias is that of the bias alone."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, bias, mask = _attention_inputs(g, 8, 2, n, d, 4, dtype, cuda)
+    mask[:, ::3] = -100.0  # every third query row of every mask row: all its keys
+    mask[1] = -100.0       # and one whole mask row
+    with torch.inference_mode():
+        got = fused_window_attention(q, k, v, bias, mask)
+        assert torch.isfinite(got.float()).all()
+        _assert_close(got, fused_window_attention_plain(q, k, v, bias, mask), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [8, 16, 32])
+def test_window_attention_kernel_unaligned_inputs_take_the_fma_instance(cuda, dtype, d):
+    """q, k and v that start 2 bytes past a 16-byte boundary cannot be copied by
+    cp.async: such a launch runs the FMA instance, and agrees with the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    args = _attention_inputs(g, 6, 3, 125, d, 3, dtype, cuda)
+    moved = []
+    for t in args[:3]:
+        flat = torch.empty(t.numel() + 1, device=cuda, dtype=dtype)
+        flat[1:] = t.flatten()
+        moved.append(flat[1:].view(t.shape))
+    with torch.inference_mode():
+        assert window_attention_plan(*moved, *args[3:])["instance"] == "fma"
+        assert window_attention_plan(*args)["instance"] == "mma"
+        _assert_close(fused_window_attention(*moved, *args[3:]), fused_window_attention_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("b,h,n,d,nw,instance", [
+    (2058, 3, 343, 8, 343, "mma"), (2058, 3, 343, 8, None, "mma"), (384, 6, 343, 8, 64, "mma"),
+    (48, 12, 343, 8, None, "mma"), (6, 24, 216, 8, None, "mma"), (2058, 6, 343, 16, 343, "mma"),
+    (96, 3, 729, 12, 8, "generic"), (12, 3, 343, 4, None, "generic"),
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_window_attention_plan_at_the_swin_sites(cuda, b, h, n, d, nw, instance, dtype):
+    """The Swin sites run the tensor-core instance in bfloat16 and float16 (float32 the FMA
+    one), with at least one block an SM and the windows of a mask row split so that every
+    window is covered once."""
+    q = torch.zeros((b, h, n, d), device=cuda, dtype=dtype)
+    bias = torch.zeros((h, n, n), device=cuda)
+    mask = None if nw is None else torch.zeros((nw, n, n), device=cuda)
+    plan = window_attention_plan(q, q, q, bias, mask)
+    expected = "fma" if dtype == torch.float32 and instance == "mma" else instance
+    assert plan["instance"] == expected
+    if expected == "mma":
+        per_row = b // (nw or 1)
+        splits = -(-per_row // plan["windows_per_block"])
+        assert plan["blocks"] == -(-n // plan["rows_per_block"]) * h * (nw or 1) * splits
+        assert plan["blocks_per_sm"] >= 1 and 0 < plan["smem_bytes"] <= 232448
 
 
 def test_window_attention_kernel_rejects_a_head_dim_past_shared_memory(cuda):

@@ -157,17 +157,19 @@ def test_norm_split_covers_every_row():
         assert block_c & (block_c - 1) == 0 and 2 <= block_c <= 64
 
 
-def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
-    """An edited source changes the library's name, so it is built anew."""
+@pytest.mark.parametrize("edited", ["conv3d_3x3_same.cu", "mma_sync.cuh"])
+def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch, edited):
+    """An edited source, or the header the sources share, changes the library's name, so
+    it is built anew."""
     path = _build.library_path()
     assert path.parent == REPO / "build" / "monai_tpu_torch" and path.suffix == ".so"
     src = tmp_path / "csrc"
     src.mkdir()
-    for f in _build.CSRC_DIR.glob("*.cu"):
+    for f in _build.CSRC_DIR.glob("*.cu*"):  # the sources and the header they share
         (src / f.name).write_text(f.read_text())
     monkeypatch.setattr(_build, "CSRC_DIR", src)
     assert _build.library_path() == path
-    (src / "conv3d_3x3_same.cu").write_text((src / "conv3d_3x3_same.cu").read_text() + "\n// edit\n")
+    (src / edited).write_text((src / edited).read_text() + "\n// edit\n")
     assert _build.library_path() != path
 
 

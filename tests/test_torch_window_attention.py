@@ -18,7 +18,8 @@ from flax import nnx
 from monai_tpu.networks.nets.swin_unetr import WindowAttention as JaxWindowAttention
 from monai_tpu.ops import pallas_window_attention as pwa
 from monai_tpu_torch.networks.nets.swin_unetr import WindowAttention
-from monai_tpu_torch.ops.window_attention import fused_window_attention, fused_window_attention_plain
+from monai_tpu_torch.ops.window_attention import (fused_window_attention, fused_window_attention_plain,
+                                                  window_attention_plan)
 
 
 def _inputs(seed, b, h, n, d, nw):
@@ -47,6 +48,7 @@ def _jax(q, k, v, bias, mask, dtype=jnp.float32):
     (4, 2, 343, 8, 2),     # a full 7^3 window, masked
     (3, 4, 216, 8, 0),     # the 6^3 window that stage 4 clamps to, no mask
     (6, 2, 64, 16, 3),     # head dim 16 (feature size 48)
+    (6, 2, 64, 32, 2),     # head dim 32, 3 windows a mask row: the card's tensor-core instance at its widest
 ])
 def test_matches_jax_pallas_kernel_f32(b, h, n, d, nw):
     args = _inputs(b + n + nw, b, h, n, d, nw)
@@ -102,6 +104,12 @@ def test_wrapper_rejects_unsupported(change, error):
     args.update(change)
     with torch.inference_mode(), pytest.raises(error):
         fused_window_attention(**args)
+
+
+def test_plan_describes_only_cuda_launches():
+    q = torch.zeros(4, 2, 27, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        window_attention_plan(q, q, q, torch.zeros(2, 27, 27))
 
 
 def test_wrapper_refuses_grad():
