@@ -29,7 +29,8 @@ Drives the port's four paths, each at full width with random weights from a seed
      hooks; the attention also at head dim 16 and at a 9^3 window of head dim 12; the
      resample at its two sites and over an order x bound grid at odd extents): max error
      under a stated tolerance, and the kernel's,
-     the plain version's and the one PyTorch library call's times, with the least time
+     the plain version's and the one PyTorch library call's times (for the norm
+     ``F.instance_norm``, without the slope), with the least time
      the card could take (bytes over 3.35 TB/s or operations over the type's peak; for
      the attention also its exps, one a score); each attention site names the kernel's
      instance and the windows a block walks over
@@ -270,7 +271,13 @@ def check_conv(sites: Counter, batch: int, dev, timed: torch.dtype = torch.bfloa
 
 
 def check_norm(sites: Counter, batch: int, dev) -> dict:
-    from monai_tpu_torch.networks.layers.fast_norm import instance_norm_prelu, instance_norm_prelu_plain
+    """Every site in bfloat16, float32 and float16; bfloat16 also timed against the plain
+    version and the library call ``F.instance_norm(x, w, b, eps=1e-5)`` on the same
+    channels-last tensor, which computes the norm and its affine but not the slope. Each
+    line names the kernel's plan (path, blocks, bytes a load, groups of units) and the
+    share of the bound the kernel reaches."""
+    from monai_tpu_torch.networks.layers.fast_norm import (_card, instance_norm_plan, instance_norm_prelu,
+                                                           instance_norm_prelu_plain)
 
     g = torch.Generator(device=dev).manual_seed(3)
     rows = []
@@ -288,15 +295,21 @@ def check_norm(sites: Counter, batch: int, dev) -> dict:
             ref = instance_norm_prelu_plain(x, w, b, a)
             err, rel = rel_err(got, ref)
             require(rel <= tol, f"norm C={c} @{sp} {dtype}: max err {err:.3g} = {rel:.3g} x max|ref| > {tol}")
+            card, occupancy = _card(dev.index or 0)
+            plan = instance_norm_plan(batch, c, int(np.prod(sp)), dtype, x.data_ptr() % 16 == 0, card, occupancy)
             msg = (f"norm C={c:3d} @{sp} affine {affine} slope {slope} x{count} {str(dtype)[6:]:8s} max_abs_err "
-                   f"{err:.4g} ({rel:.3g} of max|ref|, tol {tol})  first call {first_s:.2f} s")
+                   f"{err:.4g} ({rel:.3g} of max|ref|, tol {tol})  first call {first_s:.2f} s  plan {plan['path']}, "
+                   f"{plan['blocks']} blocks, {plan['vec_bytes']} B a load, {plan['units_per_group']} units a "
+                   f"group x {plan['unit_groups']}")
             if dtype == torch.bfloat16:
                 k_ms, p_ms = paired_ms(lambda: instance_norm_prelu(x, w, b, a),
                                        lambda: instance_norm_prelu_plain(x, w, b, a))
+                lib_ms = cuda_ms(lambda: F.instance_norm(x, weight=w, bias=b, eps=1e-5))
                 # reads x once, writes y once; ~10 operations an element are far below the peak
                 b_ms, o_ms = bound(2 * x.numel() * x.element_size(), 10.0 * x.numel(), torch.float32)
-                rows.append((count, err, k_ms, p_ms, None, b_ms, o_ms))
-                msg += f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  bound {max(b_ms, o_ms):.4f} ms"
+                rows.append((count, err, k_ms, p_ms, lib_ms, b_ms, o_ms))
+                msg += (f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  F.instance_norm (no slope) {lib_ms:.4f} ms  "
+                        f"bound {max(b_ms, o_ms):.4f} ms ({max(b_ms, o_ms) / k_ms * 100:.1f}% of it)")
             print(msg, flush=True)
     return _summary(rows)
 
@@ -910,7 +923,7 @@ def main() -> None:
         {"name": "conv3d_3x3_same", "route": "cuda", "source": "monai_tpu_torch/csrc/conv3d_3x3_same.cu",
          "replaces": "monai_tpu/ops/pallas_conv3d.py:91",
          "launches": unet_counts[0] + swin_counts[0] + spleen_counts[0], **merged(0)},
-        {"name": "instance_norm_prelu", "route": "triton", "source": "monai_tpu_torch/networks/layers/fast_norm.py",
+        {"name": "instance_norm_prelu", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
          "replaces": "monai_tpu/networks/layers/fast_norm.py:44", "launches": unet_counts[1] + swin_counts[1],
          **merged(1)},
         {"name": "fused_window_attention", "route": "cuda", "source": "monai_tpu_torch/csrc/window_attention.cu",

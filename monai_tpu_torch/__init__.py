@@ -2,7 +2,7 @@
 
 Mirrors ``monai_tpu``'s module paths and names. Plain tensor code is PyTorch; the
 TPU kernels of ``monai_tpu`` become hand-written Hopper kernels (CUDA C++ under
-``csrc/``, Triton for the norm). Imports ``torch`` and never ``jax``.
+``csrc/``). Imports ``torch`` and never ``jax``.
 """
 from __future__ import annotations
 

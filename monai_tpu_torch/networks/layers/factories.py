@@ -5,7 +5,7 @@ monai_tpu/networks/layers/factories.py, for the layers the UNet and SwinUNETR us
 stride-1 SAME convolution to the CUDA kernel (``ops/conv3d.py``); every other
 convolution (1x1, the strided patch embedding) and every transposed convolution is
 ``F.conv3d`` / ``F.conv_transpose3d``, as the JAX package leaves them to XLA.
-``Norm``: instance runs the Triton kernel of ``fast_norm.py``; batch is
+``Norm``: instance runs the CUDA kernel of ``fast_norm.py``; batch is
 ``nn.BatchNorm{n}d`` (eps 1e-5, plain PyTorch, as the JAX package has no kernel for
 it); layer is ``nn.LayerNorm`` with the JAX package's eps of 1e-6 (torch MONAI uses
 1e-5). ``Act``:

@@ -1,4 +1,4 @@
-"""Instance norm, optionally followed by PReLU, on a Triton kernel.
+"""Instance norm, optionally followed by PReLU, on a CUDA kernel.
 
 Counterpart of monai_tpu/networks/layers/fast_norm.py::_in_norm (the JAX package's
 hand-written instance norm; the PReLU that ADN applies next is fused in here). The
@@ -6,14 +6,14 @@ statistics are the two-moment f32 form of ``_in_stats``: mean ``m = Σx/n`` and
 variance ``v = max(Σx²/n − m², 0)``, then ``y = (x − m)·rsqrt(v + eps)·γ + β`` and,
 with a slope ``a`` (one value or one per channel), ``y = y if y >= 0 else a·y``.
 
-What bounds it on the card: it is pure data movement — one read of x for the sums,
-one more read of x and one write of y — and at the UNet's widest site, (18, 96³, 2) in
-bfloat16, that is 3 x 64 MB. The design reads the channels-last ``(B, S, C)`` view in
-row tiles that are contiguous in memory, splits each (batch, channel block) over
-enough spatial chunks to fill the card, and reduces in two stages (partial sums per
-chunk, then a fixed-order sum of the partials in every program of the second pass)
-rather than with atomics, so the output is the same from run to run. The PReLU rides
-in the normalize pass, so norm + activation costs one write instead of two.
+What bounds it on the card: it is pure data movement, so one read of x and one write of
+y is the least it can take; at the UNet's widest site, (18, 96³, 2) in bfloat16, that
+is 2 x 64 MB. The kernel is ``csrc/instance_norm.cu``: 16-byte loads and stores whose
+channels stay fixed per thread (no padded channel lanes at C = 24), one launch a site,
+and a single pass through shared memory where one instance's slab (or a group of its
+channels) fits a block; elsewhere one cooperative launch over the whole card, with a
+grid-wide barrier between the sums and the normalize pass. Partials combine in a fixed
+order rather than by atomics, so the output is the same from run to run. ``instance_norm_plan`` says which of these a shape takes.
 
 ``instance_norm_prelu_plain`` is the same function in plain PyTorch: the wrapper runs
 it for CPU tensors, and it is the oracle on the card. For a CUDA tensor the wrapper
@@ -21,112 +21,168 @@ launches the kernel or raises; it never falls back. Forward only.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
 import torch
 from torch import nn
 
-__all__ = ["InstanceNorm", "instance_norm_prelu", "instance_norm_prelu_plain"]
+__all__ = ["InstanceNorm", "instance_norm_plan", "instance_norm_prelu", "instance_norm_prelu_plain"]
 
-# triton.language, bound by _triton_kernels() on the first launch: this module must
-# import where triton is not installed, and the kernels below resolve `tl` through
-# the module's globals when Triton compiles them.
-tl = None
-
-
-def _partial_sums_kernel(x_ptr, psum_ptr, psq_ptr, S, C, rows_per_prog, n_split,
-                         BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
-    b = tl.program_id(0)
-    sp = tl.program_id(1)
-    cb = tl.program_id(2)
-    cols = cb * BLOCK_C + tl.arange(0, BLOCK_C)
-    cmask = cols < C
-    base = x_ptr + b.to(tl.int64) * S * C
-    row0 = sp * rows_per_prog
-    acc = tl.zeros([BLOCK_S, BLOCK_C], dtype=tl.float32)
-    acc2 = tl.zeros([BLOCK_S, BLOCK_C], dtype=tl.float32)
-    for r in range(0, rows_per_prog, BLOCK_S):
-        rows = row0 + r + tl.arange(0, BLOCK_S)
-        mask = (rows < S)[:, None] & cmask[None, :]
-        offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
-        v = tl.load(base + offs, mask=mask, other=0.0).to(tl.float32)
-        acc += v
-        acc2 += v * v
-    out = (b * n_split + sp) * C + cols
-    tl.store(psum_ptr + out, tl.sum(acc, axis=0), mask=cmask)
-    tl.store(psq_ptr + out, tl.sum(acc2, axis=0), mask=cmask)
-
-
-def _normalize_kernel(x_ptr, y_ptr, psum_ptr, psq_ptr, w_ptr, bias_ptr, slope_ptr,
-                      S, C, rows_per_prog, n_split, inv_n, eps,
-                      HAS_AFFINE: tl.constexpr, HAS_SLOPE: tl.constexpr, SLOPE_PER_C: tl.constexpr,
-                      BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr, BLOCK_P: tl.constexpr):
-    b = tl.program_id(0)
-    sp = tl.program_id(1)
-    cb = tl.program_id(2)
-    cols = cb * BLOCK_C + tl.arange(0, BLOCK_C)
-    cmask = cols < C
-    # stage two of the reduce: every program sums the partials in the same order
-    s = tl.zeros([BLOCK_C], dtype=tl.float32)
-    s2 = tl.zeros([BLOCK_C], dtype=tl.float32)
-    for p0 in range(0, n_split, BLOCK_P):
-        ps = p0 + tl.arange(0, BLOCK_P)
-        pmask = (ps < n_split)[:, None] & cmask[None, :]
-        poffs = (b * n_split + ps)[:, None] * C + cols[None, :]
-        s += tl.sum(tl.load(psum_ptr + poffs, mask=pmask, other=0.0), axis=0)
-        s2 += tl.sum(tl.load(psq_ptr + poffs, mask=pmask, other=0.0), axis=0)
-    mean = s * inv_n
-    var = tl.maximum(s2 * inv_n - mean * mean, 0.0)
-    scale = 1.0 / tl.sqrt(var + eps)
-    if HAS_AFFINE:
-        scale = scale * tl.load(w_ptr + cols, mask=cmask, other=1.0).to(tl.float32)
-        shift = tl.load(bias_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-    else:
-        shift = tl.zeros([BLOCK_C], dtype=tl.float32)
-    if HAS_SLOPE:
-        if SLOPE_PER_C:
-            slope = tl.load(slope_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        else:
-            slope = tl.zeros([BLOCK_C], dtype=tl.float32) + tl.load(slope_ptr).to(tl.float32)
-    base = b.to(tl.int64) * S * C
-    row0 = sp * rows_per_prog
-    for r in range(0, rows_per_prog, BLOCK_S):
-        rows = row0 + r + tl.arange(0, BLOCK_S)
-        mask = (rows < S)[:, None] & cmask[None, :]
-        offs = base + rows.to(tl.int64)[:, None] * C + cols[None, :]
-        v = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        yv = (v - mean[None, :]) * scale[None, :] + shift[None, :]
-        if HAS_SLOPE:
-            yv = tl.where(yv >= 0, yv, yv * slope[None, :])
-        tl.store(y_ptr + offs, yv.to(y_ptr.dtype.element_ty), mask=mask)
-
-
-@functools.cache
-def _triton_kernels():
-    global tl
-    import triton
-    import triton.language as tl
-
-    return triton.jit(_partial_sums_kernel), triton.jit(_normalize_kernel)
-
-
-_TARGET_PROGRAMS = 1024  # per pass: several programs per SM on a 132-SM card
-_BLOCK_P = 32
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_PATHS = {"onchip": 0, "persistent": 1, "general": 1}
+_CHANNELS_LAST = {4: torch.channels_last, 5: torch.channels_last_3d}
+_MAX_THREADS = 256  # a block's threads, at most (csrc/instance_norm.cu kMaxThreads)
+_MIN_ROW_BYTES = 32  # an on-chip channel group reads at least one 32-byte sector a voxel
+# The persistent path walks the instances in groups that its stash (a block's spare shared
+# memory) and this many bytes of L2 hold together, so that the normalize pass reads little
+# of x from memory again. At the two widest sites this and every instance at once ran
+# within 1.5% of each other (scripts/norm_l2_budget.py; PERF.md, PR 8); this keeps one
+# 42.5 MB SwinUNETR instance a group.
+_L2_BUDGET = 24 << 20
+# The H100's SMs and a block's shared memory (bytes), for a plan made without a card.
+H100 = (132, 232448)
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _split(batch: int, s: int, c: int) -> tuple[int, int, int, int]:
-    """Tile sizes and the spatial split of ``(batch, s, c)``:
-    (BLOCK_S, BLOCK_C, rows_per_prog, n_split), with rows_per_prog a multiple of BLOCK_S."""
-    block_c = min(max(1 << (c - 1).bit_length(), 2), 64)
-    block_s = max(2048 // block_c, 16)
-    n_split = max(1, min(_cdiv(_TARGET_PROGRAMS, batch * _cdiv(c, block_c)), _cdiv(s, block_s)))
-    rows_per_prog = _cdiv(_cdiv(s, n_split), block_s) * block_s
-    return block_s, block_c, rows_per_prog, _cdiv(s, rows_per_prog)
+def _smem_floats(threads: int, vec: int, group: int) -> int:
+    """The block's float scratch past the on-chip slab (csrc/instance_norm.cu Scratch)."""
+    return 2 * threads * vec + 2 * max(threads, group) + 6 * group
+
+
+def _layout(group: int, vec: int) -> tuple[int, int]:
+    """(phases a unit row, threads a block): the threads a multiple of the phases."""
+    gv = group // vec if group % vec == 0 else 1
+    return gv, gv * max(1, _MAX_THREADS // gv)
+
+
+def _model_occupancy(dtype: int, path: int, vec: int, threads: int, smem: int) -> int:
+    """Blocks an H100 SM holds, for a plan made without a card: 65536 registers, 128 a
+    thread for the persistent kernel's 16-byte instances and 64 for the others (ptxas
+    gives 80-128 and 40-64), and 228 KB of shared memory, 1 KB of it reserved a block."""
+    regs = 128 if path == _PATHS["persistent"] and vec > 1 else 64
+    return max(1, min(65536 // (regs * 32 * _cdiv(threads, 32)), 233472 // (smem + 1024)))
+
+
+@functools.lru_cache(maxsize=None)
+def instance_norm_plan(batch: int, channels: int, spatial: int, dtype: torch.dtype, aligned: bool = True,
+                       card: tuple[int, int] = H100, occupancy=_model_occupancy) -> dict:
+    """What ``instance_norm_prelu`` launches for x (batch, channels, *spatial) with
+    ``spatial`` voxels an instance, without launching it. ``aligned``: x's data pointer
+    is 16-byte aligned. ``card``: (SMs, a block's shared memory in bytes);
+    ``occupancy(dtype code, path code, vec, threads, smem)``: the blocks of that kernel an
+    SM holds (the wrapper asks the card; by default a model of the H100).
+
+    Returns a dict: ``path`` ("onchip": one block a unit, its slab in shared memory;
+    "persistent": one cooperative grid over the card; "general": the persistent kernel
+    with one element a load, for a C that no 16-byte vector fits or an unaligned x);
+    ``vec`` the elements a load and ``vec_bytes``; ``group`` the channels a unit
+    (``groups`` of them an instance; a unit is one instance's slab of ``group``
+    channels); ``phases`` the vectors a unit row; ``threads`` and ``blocks``; for the
+    persistent grid ``per_unit`` blocks a unit, ``units_per_group`` units at once and
+    ``unit_groups`` groups walked in turn, and ``stash`` the vectors a thread keeps in
+    shared memory from the sums to the normalize pass; ``smem`` the dynamic shared memory
+    in bytes and ``scratch`` the float32 elements of the barrier and the partial sums."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"instance_norm_plan takes float32, bfloat16 or float16; got {dtype}")
+    sms, smem_limit = card
+    elem = torch.empty((), dtype=dtype).element_size()
+    vfull = 16 // elem
+    packed = channels < vfull and vfull % channels == 0 and (spatial * channels) % vfull == 0
+    vec = vfull if aligned and (channels % vfull == 0 or packed) else 1
+    divisors = [d for d in range(1, channels + 1) if channels % d == 0]
+    if packed and vec > 1:
+        groups = [channels]
+    else:
+        groups = [g for g in divisors if g % vec == 0 and g // vec <= _MAX_THREADS]
+
+    def units(g: int) -> int:
+        return batch * (channels // g)
+
+    def plan(path: str, group: int, threads: int, blocks: int, smem: int, per_unit: int = 1, upg: int = 1,
+             scratch: int = 0, stash: int = 0) -> dict:
+        return {"path": path, "vec": vec, "vec_bytes": vec * elem, "group": group, "groups": channels // group,
+                "phases": _layout(group, vec)[0], "threads": threads, "blocks": blocks, "per_unit": per_unit,
+                "units_per_group": upg, "unit_groups": _cdiv(units(group), upg), "stash": stash, "smem": smem,
+                "scratch": scratch}
+
+    if vec > 1:  # on chip: the most channels a unit that still gives every SM a block, else the fewest
+        fits = []
+        for g in groups:
+            if g * elem < _MIN_ROW_BYTES and g != channels:
+                continue
+            gv, threads = _layout(g, vec)
+            smem = spatial * g * elem + 4 * _smem_floats(threads, vec, g)
+            if (spatial * g) % vec == 0 and smem <= smem_limit:
+                fits.append((g, threads, smem))
+        if fits:
+            wide = [f for f in fits if units(f[0]) >= sms]
+            g, threads, smem = wide[-1] if wide else fits[0]
+            return plan("onchip", g, threads, units(g), smem)
+    g = groups[-1]
+    gv, threads = _layout(g, vec)
+    base = 16 * _cdiv(_smem_floats(threads, vec, g), 4)  # the scratch, to a 16-byte boundary
+    code = _DTYPE_CODES[dtype], _PATHS["persistent"], vec, threads
+    per_sm = occupancy(*code, base)
+    # the stash: the shared memory that a block may take without lowering per_sm, 16 bytes
+    # a thread an iteration (16-byte loads only)
+    room = min((smem_limit + 1024) // per_sm - 1024, smem_limit) - base
+    stash = room // (threads * 16) if vec > 1 else 0
+    grid = sms * per_sm
+    n_units, nvec = units(g), spatial * g // vec
+    # as many units at once as the stash and the L2 budget hold, and the grid allows,
+    # spread evenly over the groups
+    hold = grid * stash * threads * 16 + _L2_BUDGET
+    upg = max(1, min(n_units, grid, hold // max(1, spatial * g * elem)))
+    upg = _cdiv(n_units, _cdiv(n_units, upg))
+    per_unit = max(1, min(grid // upg, _cdiv(nvec, threads)))
+    stash = min(stash, _cdiv(nvec, per_unit * threads))
+    smem = base + stash * threads * 16
+    if occupancy(*code, smem) < per_sm:
+        raise RuntimeError(f"instance_norm_plan: {smem} B of shared memory lowers the occupancy below {per_sm}")
+    return plan("persistent" if vec > 1 else "general", g, threads, per_unit * upg, smem, per_unit, upg,
+                2 + 2 * n_units * per_unit * g, stash)
+
+
+@functools.cache
+def _launcher():
+    from ...ops._build import library
+
+    fn = library().monai_instance_norm
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _occupancy_fn(device_index: int):
+    """occupancy(dtype code, path code, vec, threads, smem) of the card's own kernels, cached."""
+    from ...ops._build import library
+
+    fn = library().monai_instance_norm_occupancy
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    @functools.cache
+    def occupancy(dtype: int, path: int, vec: int, threads: int, smem: int) -> int:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device_index):
+            err = fn(dtype, path, vec, threads, smem, ctypes.byref(out))
+        if err != 0 or out.value < 1:
+            raise RuntimeError(f"instance_norm: no occupancy for {threads} threads and {smem} B (error {err})")
+        return out.value
+
+    return occupancy
+
+
+@functools.cache
+def _card(device_index: int) -> tuple[tuple[int, int], object]:
+    props = torch.cuda.get_device_properties(device_index)
+    smem = getattr(props, "shared_memory_per_block_optin", H100[1])
+    return (props.multi_processor_count, smem), _occupancy_fn(device_index)
 
 
 def instance_norm_prelu_plain(x: torch.Tensor, weight: torch.Tensor | None = None,
@@ -171,46 +227,79 @@ def _check(x, weight, bias, slope) -> None:
         raise RuntimeError("instance_norm_prelu is forward-only; run it under torch.inference_mode()")
 
 
+@functools.lru_cache(maxsize=1024)
+def _launch_args(shape: tuple[int, ...], dtype: torch.dtype, index: int, aligned: bool) -> tuple[dict, object]:
+    """The plan of a launch, and the C function's plan array (B, S, C, dtype code, path
+    code, vec, group, threads, blocks, per_unit, units_per_group, smem, stash)."""
+    card, occupancy = _card(index)
+    bsz, c, s = shape[0], shape[1], math.prod(shape[2:])
+    p = instance_norm_plan(bsz, c, s, dtype, aligned, card, occupancy)
+    return p, (ctypes.c_longlong * 13)(bsz, s, c, _DTYPE_CODES[dtype], _PATHS[p["path"]], p["vec"], p["group"],
+                                       p["threads"], p["blocks"], p["per_unit"], p["units_per_group"], p["smem"],
+                                       p["stash"])
+
+
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _scratch(n: int, index: int, stream: int) -> torch.Tensor:
+    """At least n float32 of the persistent path's scratch for launches in ``stream``,
+    kept from call to call: its launches run in turn, and each leaves the barrier's
+    words (the first two) as the next one needs them, so it is zeroed only when made."""
+    buf = _SCRATCH.get((index, stream))
+    if buf is None or buf.numel() < n:
+        buf = _SCRATCH[index, stream] = torch.zeros(n, dtype=torch.float32, device=torch.device("cuda", index))
+    return buf
+
+
 def instance_norm_prelu(x: torch.Tensor, weight: torch.Tensor | None = None, bias: torch.Tensor | None = None,
                         slope: torch.Tensor | None = None, eps: float = 1e-5) -> torch.Tensor:
     """Instance norm over the spatial axes of ``x`` (B, C, *spatial), with optional affine
     ``weight``/``bias`` (C,) and optional PReLU ``slope`` (1,) or (C,); output in x's dtype.
 
     A CUDA ``x`` must be channels-last in memory (``x.permute(0, 2, ..., 1)`` contiguous,
-    as ``torch.channels_last_3d`` gives); the Triton kernel runs and
-    ``instance_norm_prelu.launches`` goes up by one. A CPU ``x`` runs the plain version."""
+    as ``torch.channels_last_3d`` gives); the CUDA kernel runs (``instance_norm_plan``
+    says how) and ``instance_norm_prelu.launches`` goes up by one. A CPU ``x`` runs the
+    plain version."""
     _check(x, weight, bias, slope)
-    if x.device.type == "cpu":
+    device = x.device
+    if device.type == "cpu":
         return instance_norm_prelu_plain(x, weight, bias, slope, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"instance_norm_prelu runs on CPU or CUDA tensors, not {x.device}")
-    to_last = (0, *range(2, x.ndim), 1)
-    x3 = x.permute(to_last)
-    if not x3.is_contiguous():
+    if device.type != "cuda":
+        raise ValueError(f"instance_norm_prelu runs on CPU or CUDA tensors, not {device}")
+    last = _CHANNELS_LAST.get(x.ndim)
+    if not (x.is_contiguous(memory_format=last) if last else x.permute(0, *range(2, x.ndim), 1).is_contiguous()):
         raise ValueError("instance_norm_prelu takes a channels-last CUDA tensor "
                          "(x.contiguous(memory_format=torch.channels_last_3d))")
-    if any(not t.is_contiguous() for t in (weight, bias, slope) if t is not None):
-        raise ValueError("instance_norm_prelu takes contiguous parameters")
-    partial_sums, normalize = _triton_kernels()
-    bsz, c = x.shape[0], x.shape[1]
-    s = x3[0, ..., 0].numel()
-    block_s, block_c, rows_per_prog, n_split = _split(bsz, s, c)
-    psum = torch.empty((bsz, n_split, c), dtype=torch.float32, device=x.device)
-    psq = torch.empty_like(psum)
-    y3 = torch.empty_like(x3, memory_format=torch.contiguous_format)
-    grid = (bsz, n_split, _cdiv(c, block_c))
-    with torch.cuda.device(x.device):
-        partial_sums[grid](x3, psum, psq, s, c, rows_per_prog, n_split,
-                           BLOCK_S=block_s, BLOCK_C=block_c, num_warps=4)
-        normalize[grid](x3, y3, psum, psq,
-                        x3 if weight is None else weight, x3 if bias is None else bias,
-                        x3 if slope is None else slope,
-                        s, c, rows_per_prog, n_split, 1.0 / s, float(eps),
-                        HAS_AFFINE=weight is not None, HAS_SLOPE=slope is not None,
-                        SLOPE_PER_C=slope is not None and slope.numel() > 1,
-                        BLOCK_S=block_s, BLOCK_C=block_c, BLOCK_P=_BLOCK_P, num_warps=4)
+    for t in (weight, bias, slope):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("instance_norm_prelu takes contiguous parameters")
+        if t is not None and t.dtype not in _DTYPE_CODES:
+            raise TypeError("instance_norm_prelu takes float32, bfloat16 or float16 parameters on the card")
+    out = torch.empty_like(x)  # x's strides: channels-last, (B, *spatial, C) in memory
+    if x.numel() == 0:
+        return out
+    index = device.index
+    x_ptr = x.data_ptr()
+    p, plan = _launch_args(tuple(x.shape), x.dtype, index, x_ptr % 16 == 0)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    scratch = _scratch(p["scratch"], index, stream).data_ptr() if p["scratch"] else None
+    codes = 0 if slope is None else slope.numel() << 6 | _DTYPE_CODES[slope.dtype] << 4
+    if weight is not None:
+        codes |= _DTYPE_CODES[weight.dtype] | _DTYPE_CODES[bias.dtype] << 2
+    args = (x_ptr, out.data_ptr(), None if weight is None else weight.data_ptr(),
+            None if bias is None else bias.data_ptr(), None if slope is None else slope.data_ptr(), scratch,
+            ctypes.addressof(plan), float(eps), codes, stream)
+    if index == torch.cuda.current_device():
+        err = _launcher()(*args)
+    else:
+        with torch.cuda.device(index):
+            err = _launcher()(*args)
+    if err != 0:
+        raise RuntimeError(f"instance_norm_prelu: CUDA launch failed with error {err} "
+                           f"(x {tuple(x.shape)} {x.dtype}, plan {p})")
     instance_norm_prelu.launches += 1
-    return y3.permute(0, x.ndim - 1, *range(1, x.ndim - 1))
+    return out
 
 
 instance_norm_prelu.launches = 0

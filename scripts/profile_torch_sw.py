@@ -38,7 +38,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 OWN = {"window_attention": "window attention (CUDA)", "conv3d_3x3_same": "3x3x3 conv (CUDA)",
-       "_partial_sums_kernel": "instance norm (Triton)", "_normalize_kernel": "instance norm (Triton)",
+       "norm_persistent": "instance norm (CUDA)", "norm_onchip": "instance norm (CUDA)",
        "bilateral_2d_kernel": "bilateral 2-D (CUDA)", "bilateral_3d_kernel": "bilateral 3-D (CUDA)"}
 
 

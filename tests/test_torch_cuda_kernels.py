@@ -1,4 +1,4 @@
-"""The port's CUDA and Triton kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and skips without one. This file imports no JAX,
 so it runs where only PyTorch is installed:
@@ -18,7 +18,8 @@ import torch
 
 import numpy as np
 
-from monai_tpu_torch.networks.layers.fast_norm import instance_norm_prelu, instance_norm_prelu_plain
+from monai_tpu_torch.networks.layers.fast_norm import (_card, instance_norm_plan, instance_norm_prelu,
+                                                      instance_norm_prelu_plain)
 from monai_tpu_torch.networks.nets import SwinUNETR, UNet
 from monai_tpu_torch.ops.bilateral import bilateral_stencil, bilateral_stencil_plain
 from monai_tpu_torch.ops.conv3d import conv3d_3x3_same, conv3d_3x3_same_plain
@@ -131,7 +132,8 @@ def test_conv_kernel_unaligned_input(cuda, dtype, ci, co):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("c,spatial", [(1, (5, 6, 7)), (2, (9, 8, 7)), (3, (4, 4, 4)), (16, (6, 5, 4)),
-                                       (100, (3, 4, 5)), (256, (6, 6, 6))])
+                                       (100, (3, 4, 5)), (256, (6, 6, 6)), (8, (5, 6, 7)), (12, (6, 5, 4)),
+                                       (24, (7, 6, 5)), (48, (4, 5, 6)), (384, (3, 3, 3))])
 @pytest.mark.parametrize("affine,slope", [(False, None), (False, "one"), (True, "per_channel"), (True, "leaky"),
                                          (True, None)])
 def test_norm_kernel_matches_plain(cuda, dtype, c, spatial, affine, slope):
@@ -149,6 +151,92 @@ def test_norm_kernel_matches_plain(cuda, dtype, c, spatial, affine, slope):
         assert instance_norm_prelu.launches == before + 1
         assert got.shape == x.shape and got.dtype == dtype
         _assert_close(got, instance_norm_prelu_plain(x, w, b, a), dtype)
+
+
+def _norm_inputs(g, shape, dtype, device, affine=True, slope=True):
+    c = shape[1]
+    x = (torch.randn(shape, generator=g, device=device) * 2 + 0.5).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last_3d)
+    w = (torch.rand((c,), generator=g, device=device) + 0.5).to(dtype) if affine else None
+    b = torch.randn((c,), generator=g, device=device).to(dtype) if affine else None
+    a = torch.full((1,), 0.01, device=device, dtype=dtype) if slope else None
+    return x, w, b, a
+
+
+def _norm_plan(x):
+    """The plan the wrapper launches for x (B, C, *spatial) on its card."""
+    card, occupancy = _card(x.device.index or 0)
+    return instance_norm_plan(x.shape[0], x.shape[1], x[0, 0].numel(), x.dtype, x.data_ptr() % 16 == 0, card,
+                              occupancy)
+
+
+# (shape, path, unit groups > 1): each path of the plan, forced by the shape
+NORM_PATHS = [((2, 3, 9, 10, 11), "general", False), ((3, 7, 5, 6, 7), "general", False),
+              ((2, 64, 12, 12, 12), "onchip", False), ((3, 96, 12, 12, 12), "onchip", False),
+              ((2, 384, 3, 3, 3), "onchip", False), ((2, 24, 24, 24, 24), "persistent", False),
+              ((2, 2, 40, 40, 40), "persistent", False), ((3, 24, 40, 40, 40), "persistent", False),
+              ((4, 24, 96, 96, 96), "persistent", True), ((3, 24, 37, 41, 43), "persistent", False),
+              ((2500, 3, 5, 6, 7), "general", True), ((1200, 8, 30, 30, 30), "persistent", True)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,path,several", NORM_PATHS)
+def test_norm_kernel_paths(cuda, dtype, shape, path, several):
+    """Each path of the plan (the general one, one on-chip pass, the persistent grid with
+    one and with several groups of units), S not a multiple of a vector or a block, more
+    units than the grid has blocks; two calls give the same bits, one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x, w, b, a = _norm_inputs(g, shape, dtype, cuda)
+    p = _norm_plan(x)
+    assert p["path"] == path and (path == "onchip" or (p["unit_groups"] > 1) == several)
+    with torch.inference_mode():
+        before = instance_norm_prelu.launches
+        got = instance_norm_prelu(x, w, b, a)
+        again = instance_norm_prelu(x, w, b, a)
+        torch.cuda.synchronize()
+        assert instance_norm_prelu.launches == before + 2
+        assert torch.equal(got, again)
+        _assert_close(got, instance_norm_prelu_plain(x, w, b, a), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [2, 16, 24, 64])
+def test_norm_kernel_unaligned_input(cuda, dtype, c):
+    """A channels-last view one element into its storage (not 16-byte aligned) takes the
+    general path and still agrees; the view ends where its storage ends."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    shape = (2, 5, 6, 7, c)
+    x = (torch.randn(1 + torch.Size(shape).numel(), generator=g, device=cuda) * 2).to(dtype)[1:].view(shape)
+    x = x.permute(0, 4, 1, 2, 3)
+    assert x.data_ptr() % 16 != 0 and _norm_plan(x)["path"] == "general"
+    w = (torch.rand((c,), generator=g, device=cuda) + 0.5).to(dtype)
+    b = torch.randn((c,), generator=g, device=cuda).to(dtype)
+    with torch.inference_mode():
+        got = instance_norm_prelu(x, w, b)
+        torch.cuda.synchronize()
+        _assert_close(got, instance_norm_prelu_plain(x, w, b), dtype)
+
+
+def test_norm_kernel_at_the_widest_swin_site(cuda):
+    """One full (6, 24, 96^3) bfloat16 site with SwinUNETR's LeakyReLU, the same bits twice."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x, w, b, a = _norm_inputs(g, (6, 24, 96, 96, 96), torch.bfloat16, cuda)
+    assert _norm_plan(x)["path"] == "persistent"
+    with torch.inference_mode():
+        got = instance_norm_prelu(x, w, b, a)
+        again = instance_norm_prelu(x, w, b, a)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _assert_close(got, instance_norm_prelu_plain(x, w, b, a), torch.bfloat16)
+
+
+def test_norm_kernel_takes_float32_parameters_of_a_bfloat16_input(cuda):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x, w, b, a = _norm_inputs(g, (2, 24, 9, 9, 9), torch.bfloat16, cuda)
+    with torch.inference_mode():
+        got = instance_norm_prelu(x, w.float(), b.float(), torch.full((24,), 0.2, device=cuda))
+        ref = instance_norm_prelu_plain(x, w.float(), b.float(), torch.full((24,), 0.2, device=cuda))
+        _assert_close(got, ref, torch.bfloat16)
 
 
 def test_norm_kernel_2d_channels_last(cuda):

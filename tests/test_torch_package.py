@@ -9,7 +9,8 @@ import pytest
 import torch
 
 import monai_tpu_torch
-from monai_tpu_torch.networks.layers.fast_norm import _split, instance_norm_prelu, instance_norm_prelu_plain
+from monai_tpu_torch.networks.layers.fast_norm import (H100, instance_norm_plan, instance_norm_prelu,
+                                                      instance_norm_prelu_plain)
 from monai_tpu_torch.networks.nets import UNet
 from monai_tpu_torch.networks.layers import filtering as filtering_layers
 from monai_tpu_torch.networks.layers import TrainableBilateralFilter, TrainableJointBilateralFilter
@@ -150,11 +151,69 @@ def test_unet_feeds_the_norm_channels_last(monkeypatch):
     assert len(seen) == 17 and all(seen)
 
 
-def test_norm_split_covers_every_row():
-    for batch, s, c in [(18, 96 ** 3, 2), (18, 48 ** 3, 16), (18, 6 ** 3, 256), (1, 7, 3), (2, 1, 100)]:
-        block_s, block_c, rows, n_split = _split(batch, s, c)
-        assert rows % block_s == 0 and (n_split - 1) * rows < s <= n_split * rows
-        assert block_c & (block_c - 1) == 0 and 2 <= block_c <= 64
+# (batch, channels, voxels) of every norm site of the UNet (18 windows) and SwinUNETR (6)
+# paths, and two odd shapes
+NORM_SITES = [(18, 2, 96 ** 3), (18, 16, 48 ** 3), (18, 32, 24 ** 3), (18, 64, 12 ** 3), (18, 128, 6 ** 3),
+              (18, 256, 6 ** 3), (6, 24, 96 ** 3), (6, 24, 48 ** 3), (6, 48, 24 ** 3), (6, 96, 12 ** 3),
+              (6, 192, 6 ** 3), (6, 384, 3 ** 3), (1, 3, 7), (2, 100, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("batch,c,s", NORM_SITES)
+def test_norm_plan_covers_every_element(batch, c, s, dtype):
+    """The plan's vectors cover each element of an instance exactly once, each thread's
+    lanes keep their channels, an on-chip slab fits a block's shared memory, the
+    persistent grid's unit groups cover every unit, and the loads are 16 bytes wherever C
+    allows."""
+    p = instance_norm_plan(batch, c, s, dtype)
+    elem = torch.empty((), dtype=dtype).element_size()
+    vfull, vec, g, gv = 16 // elem, p["vec"], p["group"], p["phases"]
+    if c % vfull == 0 or (vfull % c == 0 and (s * c) % vfull == 0):
+        assert p["vec_bytes"] == 16 and p["path"] != "general"
+    assert p["vec_bytes"] == vec * elem and p["groups"] * g == c and (s * g) % vec == 0
+    # every vector of every unit of one instance: its first element, as the kernel addresses it
+    nvec = s * g // vec
+    i = np.arange(nvec, dtype=np.int64)
+    rowstride = gv * vec if g == c else c
+    starts = np.concatenate([u * g + i // gv * rowstride + i % gv * vec for u in range(p["groups"])])
+    assert np.array_equal(np.sort(starts), np.arange(0, s * c, vec))
+    # a thread's vectors all have its phase k = i % gv, and lane j holds channel u*G + (k*vec + j) % G
+    assert p["threads"] % gv == 0 and p["threads"] <= 256
+    for u in range(p["groups"]):
+        first = u * g + i[: 4 * gv] // gv * rowstride + i[: 4 * gv] % gv * vec
+        for j in range(vec):
+            assert np.array_equal((first + j) % c, u * g + ((i[: 4 * gv] % gv) * vec + j) % g)
+    units = batch * p["groups"]
+    if p["path"] == "onchip":
+        assert p["blocks"] == units and s * g * elem <= p["smem"] <= H100[1]
+        assert p["smem"] == s * g * elem + 4 * (2 * p["threads"] * vec + 2 * max(p["threads"], g) + 6 * g)
+    else:
+        upg, per_unit = p["units_per_group"], p["per_unit"]
+        assert (p["unit_groups"] - 1) * upg < units <= p["unit_groups"] * upg
+        assert p["blocks"] == per_unit * upg and (per_unit * p["threads"]) % gv == 0
+        assert per_unit * p["threads"] * _cdiv(nvec, per_unit * p["threads"]) >= nvec
+        assert p["scratch"] == 2 * units * per_unit * g + 2 and p["smem"] <= H100[1]
+        scratch = 16 * _cdiv(2 * p["threads"] * vec + 2 * max(p["threads"], g) + 6 * g, 4)
+        assert p["smem"] == scratch + 16 * p["stash"] * p["threads"]
+        assert p["stash"] <= _cdiv(nvec, per_unit * p["threads"]) and (vec > 1 or p["stash"] == 0)
+    assert p["path"] == "general" or vec == vfull
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def test_norm_plan_paths_at_the_path_sites():
+    """bfloat16: the sites that fit a block's shared memory take one on-chip pass, the
+    rest the persistent grid, one 42.5 MB instance a group at the widest Swin site."""
+    plans = {(b, c, s): instance_norm_plan(b, c, s, torch.bfloat16) for b, c, s in NORM_SITES}
+    onchip = {k for k, p in plans.items() if p["path"] == "onchip"}
+    assert onchip == {(18, 64, 12 ** 3), (18, 128, 6 ** 3), (18, 256, 6 ** 3), (6, 96, 12 ** 3), (6, 192, 6 ** 3),
+                      (6, 384, 3 ** 3)}
+    assert plans[6, 24, 96 ** 3]["units_per_group"] == 1 and plans[6, 24, 96 ** 3]["unit_groups"] == 6
+    assert all(p["stash"] > 0 for k, p in plans.items() if p["path"] == "persistent")
+    assert plans[1, 3, 7]["path"] == plans[2, 100, 1]["path"] == "general"
+    assert instance_norm_plan(18, 2, 96 ** 3, torch.bfloat16, aligned=False)["path"] == "general"
 
 
 @pytest.mark.parametrize("edited", ["conv3d_3x3_same.cu", "mma_sync.cuh"])
