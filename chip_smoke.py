@@ -49,9 +49,11 @@ Drives the port's four paths, each at full width with random weights from a seed
      the card's own label map, and one 96³ float32 forward of its UNet against the CPU
   6. the filtering path, stage by stage: the median of 5 synchronised calls after a
      warm-up, the launch counts of those calls and the peak memory; at the full sizes the
-     bilateral kernel against its plain version, with both times and the bound (bytes,
-     float32 operations or the special-function unit's exp, one a symmetric pair of
-     voxels); then each stage on the card
+     bilateral kernel against its plain version, with its instance (``bilateral_plan``),
+     the exps a voxel that its checked build counts on the card (required to equal the
+     plan's) beside the least, both times and the bound (bytes, float32 operations or the
+     special-function unit's exp, one a symmetric pair of voxels), and its time at other
+     segment lengths of the walked axis beside the plan's; then each stage on the card
      against the port's CPU run of the same call on a crop
 
 It prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -114,8 +116,8 @@ TOL_FWD_MEAN = {torch.bfloat16: 5e-2, torch.float16: 5e-3}
 TOL_PRE = 1e-5
 # The filtering path: the bilateral kernel against its plain version and the card's
 # stencil against the CPU's, relative to max|ref| (float32 sums of 121-125 taps in another
-# order, exp on the card); the bilateral grid and the CRF against the CPU, absolute (the
-# splat's scatter-add sums in another order on the card).
+# order, exp2 on the card's special-function unit); the bilateral grid and the CRF against
+# the CPU, absolute (the splat's scatter-add sums in another order on the card).
 TOL_BILATERAL, TOL_GRID = 1e-5, 1e-4
 FILTER_TIMED = 5  # calls timed per stage, after one warm-up
 CROP_3D, CROP_SLICES, CROP_CRF = (64, 64, 48), (8, 128, 128), (48, 48, 40)  # centre crops for the CPU
@@ -765,27 +767,48 @@ def check_bilateral(name: str, x: torch.Tensor, ss: float, cs: float, rate: floa
     T taps need one weight per pair, (T - 1) / 2 of them, and none for the centre (weight
     1): an exp and 4 operations each (difference, square, scale, spatial factor); every
     tap off the centre adds w x and w to the sums, 3 operations (edge voxels are counted
-    as interior ones)."""
-    from monai_tpu_torch.ops.bilateral import bilateral_stencil, bilateral_stencil_plain, filter_radius
+    as interior ones). The exps a voxel are those the kernel's checked build counts on
+    the card, which must equal the plan's, as must the blocks an SM holds. The segment sweep times the kernel at the plan's
+    segments times 1/2 to 2 (information: the plan's wave threshold is fitted to it)."""
+    from monai_tpu_torch.ops.bilateral import (bilateral_exps, bilateral_plan, bilateral_stencil,
+                                               bilateral_stencil_plain, card_resident, filter_radius)
 
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = bilateral_plan(tuple(x.shape), filter_radius(ss), sms)
     got, ref = bilateral_stencil(x, ss, cs), bilateral_stencil_plain(x, ss, cs)
+    counted, exps = bilateral_exps(x, ss, cs)
     torch.cuda.synchronize()
     err, rel = rel_err(got, ref)
     require(rel <= TOL_BILATERAL, f"bilateral {name}: max err {err:.3g} = {rel:.3g} x max|ref| > {TOL_BILATERAL}")
+    require(rel_err(counted, ref)[1] <= TOL_BILATERAL, f"bilateral {name}: the checked build disagrees")
+    require(exps == plan["exps"], f"bilateral {name}: the kernel computed {exps} exps, the plan says {plan['exps']}")
+    resident = card_resident(x.device, x.ndim - 2, filter_radius(ss), plan["warps_x"])
+    require(resident == plan["resident"], f"bilateral {name}: an SM holds {resident} blocks, the plan says "
+                                          f"{plan['resident']}")
     k_ms, p_ms = paired_ms(lambda: bilateral_stencil(x, ss, cs), lambda: bilateral_stencil_plain(x, ss, cs), iters=5)
+    stream, nseg = x.shape[2], plan["tiles"][2]
+    sweep = {}
+    for seg in sorted({-(-stream // max(1, nseg * k // 4)) for k in (2, 3, 4, 6, 8)}, reverse=True):
+        waves = bilateral_plan(tuple(x.shape), filter_radius(ss), sms, seg)["waves"]
+        sweep[seg] = (waves, cuda_ms(lambda: bilateral_stencil(x, ss, cs, seg=seg), 10))
+    print(f"bilateral {name} segments (steps: waves of resident blocks, ms; the plan's {plan['seg']}): " + ", ".join(
+        f"{seg}: {w:.3f}, {t:.4f}" for seg, (w, t) in sweep.items()), flush=True)
     taps = (2 * filter_radius(ss) + 1) ** (x.ndim - 2)
     pairs = (taps - 1) // 2 * x.numel()
     b_ms, f_ms = bound(2 * x.numel() * 4, 4.0 * pairs + 3.0 * (taps - 1) * x.numel(), torch.float32)
     e_ms = pairs / rate * 1e3
     sides = {"bytes": b_ms, "FLOP": f_ms, "exp": e_ms}
     side = max(sides, key=sides.get)
-    print(f"bilateral {name} {tuple(x.shape)} radius {filter_radius(ss)}: max_abs_err {err:.4g} ({rel:.3g} of "
-          f"max|ref|, tol {TOL_BILATERAL})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  library none  bound "
-          f"{sides[side]:.4f} ms ({side}; bytes {b_ms:.4f}, FLOP {f_ms:.4f}, exp {e_ms:.4f} at {rate:.4g}/s)",
+    print(f"bilateral {name} {tuple(x.shape)} radius {filter_radius(ss)}: instance {plan['label']} ({plan['blocks']} "
+          f"blocks of {plan['threads']}, {resident} an SM, {plan['seg']} steps a segment), exps a voxel {exps / x.numel():.2f} "
+          f"counted on the card (the plan's {plan['exps_per_voxel']:.2f}, least {plan['least_exps']:.0f}); max_abs_err {err:.4g} ({rel:.3g} of max|ref|, tol {TOL_BILATERAL})  "
+          f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  library none  bound {sides[side]:.4f} ms ({side}; bytes "
+          f"{b_ms:.4f}, FLOP {f_ms:.4f}, exp {e_ms:.4f} at {rate:.4g}/s; {sides[side] / k_ms * 100:.1f}% of it)",
           flush=True)
     return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": sides[side],
             "bound_by": "bytes" if side == "bytes" else "operations", "library_ms": None,
-            "bytes_ms": b_ms, "ops_ms": max(f_ms, e_ms)}
+            "instance": plan["label"], "exps_per_voxel": exps / x.numel(), "bytes_ms": b_ms,
+            "ops_ms": max(f_ms, e_ms)}
 
 
 def filtering_path(dev, image: torch.Tensor, logits: torch.Tensor) -> dict:

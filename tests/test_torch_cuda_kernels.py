@@ -21,7 +21,8 @@ import numpy as np
 from monai_tpu_torch.networks.layers.fast_norm import (_card, instance_norm_plan, instance_norm_prelu,
                                                       instance_norm_prelu_plain)
 from monai_tpu_torch.networks.nets import SwinUNETR, UNet
-from monai_tpu_torch.ops.bilateral import bilateral_stencil, bilateral_stencil_plain
+from monai_tpu_torch.ops.bilateral import (PAIR_RADIUS, PAIR_RESIDENT, bilateral_exps, bilateral_plan,
+                                           bilateral_stencil, bilateral_stencil_plain, card_resident)
 from monai_tpu_torch.ops.conv3d import conv3d_3x3_same, conv3d_3x3_same_plain
 from monai_tpu_torch.ops.filtering import bilateral_filter
 from monai_tpu_torch.ops.separable_resample import separable_resample_3d, separable_resample_3d_plain
@@ -604,3 +605,85 @@ def test_bilateral_filter_reaches_the_kernel(cuda):
             assert bilateral_stencil.launches == before + 1
             ref = bilateral_stencil_plain(x, 1.0, 0.3)
         assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def _pair_edge_shapes(sd, r):
+    """Shapes where a pair kernel meets its edges (pure Python, from ``bilateral_plan``):
+    sizes <= r; the columns one past a warp's and one past a block's; the rows one past a
+    block's (3-D); the walked axis cut into segments, the last one short; several planes."""
+    ox = bilateral_plan((1, 1, 1, 1, 1)[: sd + 2], r)["cols_per_warp"]
+
+    def past_a_segment(shape):  # the walked axis (D in 3-D, H in 2-D): segments, the last one short
+        for n in range(8 * r + 1, 40 * r):
+            plan = bilateral_plan(shape[:2] + (n,) + shape[3:], r)
+            if plan["tiles"][2] > 1 and n % plan["seg"]:
+                return shape[:2] + (n,) + shape[3:]
+        return shape[:2] + (8 * r + 1,) + shape[3:]
+
+    if sd == 2:
+        return [(1, 1, r, r), (2, 3, 1, r), past_a_segment((1, 1, 0, ox + 1)), (3, 1, 5, 4 * ox + 1)]
+    wy = bilateral_plan((1, 1, 1, 1, ox + 1), r)["warps_y"]
+    return [(1, 1, r, r, r), (2, 3, 1, r, 2), past_a_segment((1, 1, 0, 8 * wy + 1, ox + 1)),
+            (2, 1, 3, 9, 4 * ox + 1)]
+
+
+PAIR_EDGE_CASES = [(sd, r, shape) for sd in (2, 3) for r in range(1, PAIR_RADIUS[sd] + 1)
+                   for shape in _pair_edge_shapes(sd, r)]
+
+
+@pytest.mark.parametrize("sd,radius,shape", PAIR_EDGE_CASES)
+def test_bilateral_pair_kernel_at_its_edges(cuda, sd, radius, shape):
+    """Each radius's pair kernel where the pair sharing meets the clamped halo and the
+    threads past the image: sizes <= r, one past a warp and a block, a short last
+    segment, several planes."""
+    assert bilateral_plan(shape, radius)["instance"] == "pair"
+    x = torch.rand(shape, generator=torch.Generator(device=cuda).manual_seed(radius), device=cuda)
+    _bilateral_check(x, radius / 2, 0.3)
+
+
+@pytest.mark.parametrize("shape,radius", [((1, 1, 40, 60, 70), 2), ((3, 1, 100, 130), 5), ((1, 1, 9, 20, 30), 4),
+                                          ((2, 1, 40, 50), 9), ((1, 1, 30, 70), 46)])
+def test_bilateral_kernel_gives_the_same_bits_twice(cuda, shape, radius):
+    x = torch.rand(shape, generator=torch.Generator(device=cuda).manual_seed(11), device=cuda)
+    with torch.inference_mode():
+        first, again = bilateral_stencil(x, radius / 2, 0.2), bilateral_stencil(x, radius / 2, 0.2)
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("radius", [1, 2, 3])
+def test_bilateral_3d_pair_kernel_with_four_warps_across(cuda, radius):
+    """The 3-D pair kernel with its four warps side by side (the layout of stage A), at a
+    width of four warps' columns, two planes and a row one past a block's."""
+    shape = (2, 1, 9, 9, 4 * (32 - 2 * radius))
+    assert bilateral_plan(shape, radius)["warps_x"] == 4
+    x = torch.rand(shape, generator=torch.Generator(device=cuda).manual_seed(radius), device=cuda)
+    _bilateral_check(x, radius / 2, 0.3)
+
+
+EXPS_CASES = ([(shape, r, None) for sd, r, shape in PAIR_EDGE_CASES]
+              + [((2, 1, 9, 9, 4 * (32 - 2 * r)), r, None) for r in (1, 2, 3)]
+              + [((3, 1, 100, 130), 5, 7), ((1, 1, 40, 60, 70), 2, 100)]
+              + [((2, 1, 40, 50), 9, None), ((1, 1, 30, 70), 46, None), ((1, 1, 9, 20, 30), 4, None),
+                 ((1, 1, 7, 12, 40), 6, None)])
+
+
+@pytest.mark.parametrize("shape,radius,seg", EXPS_CASES)
+def test_bilateral_kernel_computes_the_plans_exps(cuda, shape, radius, seg):
+    """The checked build of each instance counts the exps its threads compute: exactly the
+    plan's count, on the card's SM count (and a forced segment length), with the same
+    output as the plain version."""
+    x = torch.rand(shape, generator=torch.Generator(device=cuda).manual_seed(radius), device=cuda)
+    plan = bilateral_plan(shape, radius, torch.cuda.get_device_properties(cuda).multi_processor_count, seg)
+    with torch.inference_mode():
+        got, exps = bilateral_exps(x, radius / 2, 0.3, seg=seg)
+        ref = bilateral_stencil_plain(x, radius / 2, 0.3)
+    assert exps == plan["exps"], (plan["label"], exps, plan["exps"])
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("sd,radius,warps_x", [(2, r, 1) for r in range(1, 9)]
+                         + [(3, r, wx) for r in range(1, 4) for wx in (1, 2, 4)])
+def test_bilateral_pair_residency_is_the_plans(cuda, sd, radius, warps_x):
+    """The blocks an SM holds that the plan sizes the segments with are those the CUDA
+    runtime works out for the built instance."""
+    assert card_resident(cuda, sd, radius, warps_x) == PAIR_RESIDENT[sd][radius]
