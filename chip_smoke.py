@@ -27,7 +27,9 @@ Drives the port's four paths, each at full width with random weights from a seed
   2. each kernel against its plain PyTorch version at every shape each path gives it, the
      conv, norm and attention in bfloat16, float32 and float16 (read off one forward by
      hooks; the attention also at head dim 16 and at a 9^3 window of head dim 12; the
-     resample at its two sites and over an order x bound grid at odd extents): max error
+     resample at its two sites and over an order x bound grid at odd extents, each on the
+     route and tile its plan gives, the fused route in one CUDA launch, a shape on its
+     axes route, and at the two sites other tiles timed beside the plan's): max error
      under a stated tolerance, and the kernel's,
      the plain version's and the one PyTorch library call's times (for the norm
      ``F.instance_norm``, without the slope), with the least time
@@ -101,6 +103,10 @@ CHECKED = ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32), (torch.float16,
 # The resample: orders 1 and 3 sum 2 or 4 taps per axis in float32 in another order than
 # the dense product (1e-5 of max|ref|); order 0 has one tap of weight 1 and is bit-identical.
 TOL_RESAMPLE = 1e-5
+# Tiles timed beside the plan's at the resample's two sites: shorter and longer rows of y,
+# more rows of z, shorter runs along x, and past the plan's 48 KB of shared memory.
+RESAMPLE_SWEEP = {"Spacing": ((2, 8, 224), (1, 8, 224), (2, 16, 224), (1, 32, 224), (1, 16, 128), (4, 16, 32)),
+                  "inverse": ((4, 16, 90), (16, 4, 90), (8, 16, 90), (1, 32, 90), (4, 8, 90), (16, 16, 32))}
 # A forward against the CPU float32 forward, relative to the std of the CPU logits:
 # float32 on the card (tight: sums in another order), bfloat16 (loose: ~30-40 layers
 # each rounding to bf16), and the share of voxels whose argmax class agrees. For the
@@ -178,6 +184,7 @@ def launch_counts() -> tuple[int, ...]:
 def reset_launch_counts() -> None:
     for w in _wrappers():
         w.launches = 0
+    _wrappers()[3].cuda_launches = 0  # the resample's CUDA launches, which its C function counts
 
 
 def record_sites(net, window):
@@ -405,28 +412,47 @@ def _grid_sample_fn(x: torch.Tensor, m: np.ndarray, out_shape, mode: str):
 def check_resample(dev) -> dict:
     """The separable resample at the path's two sites (a CT-like volume through Spacing at
     order 1; a label map back at order 0), timed against the plain version and
-    ``F.grid_sample``; and every order x bound, upsampling and downsampling, at odd extents.
-    Returns the kernels-line numbers of the Spacing site, with the worst error of all."""
-    from monai_tpu_torch.ops.separable_resample import (interp_taps, separable_resample_3d,
+    ``F.grid_sample``, each on the route, tile and contraction order ``resample_plan``
+    gives, in one CUDA launch; and every order x bound, upsampling and downsampling, at odd
+    extents, and a shape whose bricks do not fit (800x along x) on the axes route.
+    Returns the kernels-line numbers of the Spacing site, with the inverse site's time,
+    plain time, bound and share of it, and the worst error of all."""
+    from monai_tpu_torch.ops.separable_resample import (_launch, resample_plan, separable_resample_3d,
                                                         separable_resample_3d_plain)
+
+    def run(x, m, out, order, bnd, ac=False):
+        """One call, checked against the plan's route and CUDA launches; (output, plan)."""
+        plan = resample_plan(x.shape, out, m, order, bnd, ac)
+        before = separable_resample_3d.cuda_launches
+        got = separable_resample_3d(x, m, out, order, bnd, ac)
+        torch.cuda.synchronize()
+        require(separable_resample_3d.cuda_launches - before == plan.launches,
+                f"resample {tuple(x.shape)} -> {out}: {separable_resample_3d.cuda_launches - before} CUDA launches "
+                f"on the {plan.route} route, not {plan.launches}")
+        return got, plan
 
     g = torch.Generator(device=dev).manual_seed(6)
     worst = 0.0
-    for name, m, shape, out in (("up", _diag([0.45, 0.7, 0.38], [0.3, -0.6, 0.1]), (1, 61, 47, 53), (133, 66, 138)),
-                                ("down", _diag([1.7, 2.3, 1.9], [-0.4, 0.5, 0.2]), (2, 61, 47, 53), (35, 21, 27))):
+    for name, m, shape, out, route in (
+            ("up", _diag([0.45, 0.7, 0.38], [0.3, -0.6, 0.1]), (1, 61, 47, 53), (133, 66, 138), "fused"),
+            ("down", _diag([1.7, 2.3, 1.9], [-0.4, 0.5, 0.2]), (2, 61, 47, 53), (35, 21, 27), "fused"),
+            ("axes", _diag([2.0, 2.0, 800.0], [0.1, 0.2, 3.0]), (2, 5, 5, 16000), (2, 2, 20), "axes")):
         x = torch.randn(shape, generator=g, device=dev)
+        plans = Counter()
         for order in (0, 1, 3):
             for bnd in ("zeros", "border", "reflection"):
                 for ac in (False, True):
-                    got = separable_resample_3d(x, m, out, order, bnd, ac)
-                    torch.cuda.synchronize()
+                    got, plan = run(x, m, out, order, bnd, ac)
+                    require(plan.route == route, f"resample {name}: the {plan.route} route, not {route}")
+                    plans[plan.route, plan.tile] += 1
                     ref = separable_resample_3d_plain(x, m, out, order, bnd, ac)
                     err, rel = rel_err(got, ref)
                     worst = max(worst, err)
                     require(torch.equal(got, ref) if order == 0 else rel <= TOL_RESAMPLE,
                             f"resample {name} order {order} {bnd} align {ac}: max err {err:.3g} ({rel:.3g})")
         print(f"resample grid {name} {tuple(shape)} -> {out}: orders 0/1/3 x zeros/border/reflection x "
-              f"align_corners, order 0 bit-identical, worst max_abs_err {worst:.4g}", flush=True)
+              f"align_corners, order 0 bit-identical, worst max_abs_err {worst:.4g}; route and tile (cases): "
+              + ", ".join(f"{r} {t} ({n})" for (r, t), n in sorted(plans.items())), flush=True)
 
     m = spacing_matrix()
     inv = np.linalg.inv(m)
@@ -435,8 +461,8 @@ def check_resample(dev) -> dict:
     rows = []
     for name, x, mat, out, order, mode in (("Spacing", ct, m, SPLEEN_PRE[1:], 1, "bilinear"),
                                            ("inverse", labels, inv, CT_SHAPE, 0, "nearest")):
-        got = separable_resample_3d(x, mat, out, order, "border")
-        torch.cuda.synchronize()
+        got, plan = run(x, mat, out, order, "border")
+        require(plan.route == "fused", f"resample {name} site: the {plan.route} route, not the fused one")
         ref = separable_resample_3d_plain(x, mat, out, order, "border")
         err, rel = rel_err(got, ref)
         worst = max(worst, err)
@@ -447,18 +473,30 @@ def check_resample(dev) -> dict:
         k_ms, p_ms = paired_ms(lambda: separable_resample_3d(x, mat, out, order, "border"),
                                lambda: separable_resample_3d_plain(x, mat, out, order, "border"), iters=20)
         lib_ms = cuda_ms(lib, iters=20)
-        flops = 0.0
-        n = list(x.shape[1:])
-        for d in range(3):
-            taps = interp_taps(n[d], out[d], float(mat[d, d]), float(mat[d, 3]), order, "border")
-            n[d] = out[d]
-            flops += 0 if taps is None else 2.0 * taps[0].shape[1] * x.shape[0] * np.prod(n)
-        b_ms, o_ms = bound((x.numel() + got.numel()) * 4, flops, torch.float32)
+        flops = 2.0 * plan.taps * x.shape[0] * sum(  # each contraction's outputs, taps each
+            np.prod([out[d] if d in plan.order[:k + 1] else x.shape[1 + d] for d in range(3)])
+            for k in range(len(plan.order)))
+        b_ms, o_ms = bound(plan.bytes_bound, flops, torch.float32)
         rows.append((1, err, k_ms, p_ms, lib_ms, b_ms, o_ms))
-        print(f"resample {name} site {tuple(x.shape)} -> {tuple(out)} order {order} border: max_abs_err {err:.4g} "
-              f"({'bit-identical' if order == 0 else f'{rel:.3g} of max|ref|, tol {TOL_RESAMPLE}'})  kernel "
-              f"{k_ms:.4f} ms  plain {p_ms:.4f} ms  grid_sample {lib_ms:.4f} ms (max |diff| to plain "
-              f"{lib_err:.4g})  bound {max(b_ms, o_ms):.4f} ms", flush=True)
+        sweep = []  # the plan's tile against others, each checked and timed the same way
+        for tile in (plan.tile, *RESAMPLE_SWEEP[name]):
+            alt = resample_plan(x.shape, out, mat, order, "border", tile=tile)
+            alt_out = _launch(x, alt)
+            torch.cuda.synchronize()
+            require(torch.equal(alt_out, got) if order == 0 else rel_err(alt_out, ref)[1] <= TOL_RESAMPLE,
+                    f"resample {name} site at tile {tile}: disagrees with the plain version")
+            sweep.append(f"{tile} {cuda_ms(lambda: _launch(x, alt), iters=20):.4f} ms ({alt.smem} B, "
+                         f"{alt.bytes_fused / 1e6:.1f} MB)")
+        print(f"resample {name} site, tiles (the plan's first; launch only, without the wrapper's checks): "
+              + "; ".join(sweep), flush=True)
+        print(f"resample {name} site {tuple(x.shape)} -> {tuple(out)} order {order} border: {plan.route} route, "
+              f"tile {plan.tile}, band {plan.band}, contraction order {plan.order}, {plan.smem} B shared memory, "
+              f"{np.prod(plan.tiles)} blocks, bricks and output {plan.bytes_fused / 1e6:.1f} MB against the bound's "
+              f"{plan.bytes_bound / 1e6:.1f} MB (a pass an axis: {plan.bytes_axes / 1e6:.1f} MB); max_abs_err "
+              f"{err:.4g} ({'bit-identical' if order == 0 else f'{rel:.3g} of max|ref|, tol {TOL_RESAMPLE}'})  "
+              f"kernel {k_ms:.4f} ms ({plan.bytes_bound / k_ms / 1e6:.0f} GB/s over the bound's bytes, "
+              f"{max(b_ms, o_ms) / k_ms * 100:.1f}% of the bound)  plain {p_ms:.4f} ms  grid_sample {lib_ms:.4f} ms "
+              f"(max |diff| to plain {lib_err:.4g})  bound {max(b_ms, o_ms):.4f} ms", flush=True)
     # the kernels line holds the Spacing site, which F.grid_sample computes; at the inverse
     # site grid_sample's nearest mode rounds half-voxel ties to even, the resample up, so
     # its time there is printed but is no library time of the same function
@@ -467,6 +505,9 @@ def check_resample(dev) -> dict:
           f"bound {whole['bound_ms']:.4f} ms", flush=True)
     summary = _summary(rows[:1])
     summary["max_abs_err"] = worst
+    inv_row = rows[1]
+    summary.update(inverse_ms=inv_row[2], inverse_plain_ms=inv_row[3], inverse_bound_ms=max(inv_row[5], inv_row[6]),
+                   inverse_bound_share=max(inv_row[5], inv_row[6]) / inv_row[2])
     return summary
 
 
@@ -673,6 +714,7 @@ def spleen_path(dev) -> tuple[tuple[int, ...], dict, torch.Tensor, torch.Tensor]
     torch.cuda.reset_peak_memory_stats(dev)
     runs = [spleen_volume(pre, post, inferer, net) for _ in range(SPLEEN_TIMED)]
     counts = launch_counts()
+    resample_cuda = _wrappers()[3].cuda_launches
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     stages, d, labels, _ = runs[-1]
     med = {k: statistics.median(r[0][k] for r in runs) * 1e3 for k in stages}
@@ -693,11 +735,13 @@ def spleen_path(dev) -> tuple[tuple[int, ...], dict, torch.Tensor, torch.Tensor]
           f"{med['activations_argmax']:.2f}, invert {med['invert']:.2f}); per volume {statistics.median(walls):.2f} "
           f"(min {min(walls):.2f}, max {max(walls):.2f}); peak memory {peak_gb:.2f} GB; label 1 on "
           f"{out.data.mean().item() * 100:.2f}% of the voxels; launches over {1 + SPLEEN_TIMED} volumes: conv "
-          f"{counts[0]}, norm {counts[1]}, attention {counts[2]}, resample {counts[3]}, bilateral {counts[4]}",
-          flush=True)
+          f"{counts[0]}, norm {counts[1]}, attention {counts[2]}, resample {counts[3]} ({resample_cuda} CUDA "
+          f"launches), bilateral {counts[4]}", flush=True)
     n_volumes = 1 + SPLEEN_TIMED
     require(counts == tuple(n * n_volumes for n in SPLEEN_PER_VOLUME),
             f"spleen: {n_volumes} volumes launched {counts} kernels, not {SPLEEN_PER_VOLUME} each")
+    require(resample_cuda == SPLEEN_PER_VOLUME[3] * n_volumes,
+            f"spleen: the resample made {resample_cuda} CUDA launches, not one a site")
     file_affine = image.meta["original_affine"]
     require(tuple(image.shape) == SPLEEN_PRE, f"spleen preprocessed image {tuple(image.shape)}, not {SPLEEN_PRE}")
     require(tuple(out.shape) == (1, *CT_SHAPE) and np.abs(out.affine - file_affine).max() <= 1e-9,
@@ -717,6 +761,7 @@ def spleen_path(dev) -> tuple[tuple[int, ...], dict, torch.Tensor, torch.Tensor]
     require(same, "the spleen inverse on the card disagrees with the CPU's")
     forward_check("spleen", net_cpu, net, {}, (10, 0, 0, 0, 0), dev)
     logits = inferer(image.data[None], net)  # the last volume's, for phase 6
+    resample["cuda_launches"] = resample_cuda
     return counts, {"conv": conv, "resample": resample}, image.data[None], logits
 
 

@@ -1,6 +1,7 @@
 // Inline PTX for Hopper's asynchronous copies and warp-level tensor-core products,
 // shared by the kernels that stage tiles by cp.async and multiply them by mma.sync:
-// the 3x3x3 conv (conv3d_3x3_same.cu) and window attention (window_attention.cu).
+// the 3x3x3 conv (conv3d_3x3_same.cu) and window attention (window_attention.cu); the
+// resample (separable_resample_3d.cu) takes its cp.async helpers.
 
 #pragma once
 

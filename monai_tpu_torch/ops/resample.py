@@ -5,7 +5,7 @@ Any number of spatial axes: the bilateral grid slices a 3-D image's grid in four
 PHL grid up to five, and ``F.grid_sample`` stops at three. Nearest and multilinear
 interpolation with the bounds zeros, border and reflection, computed as the JAX package
 computes them (a gather per corner, the corners in row-major order). Other orders and
-bounds wait for the resampling ops (ROADMAP A13).
+bounds wait for the ROADMAP item 'Native ops'.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ def grid_pull(input: torch.Tensor, grid: torch.Tensor, interpolation: int = 1, b
     input's type (order 1: a floating one; sums in float32, float64 for a float64 input)."""
     if interpolation not in (0, 1) or bound not in _BOUNDS:
         raise NotImplementedError(f"grid_pull takes orders 0 and 1 and bounds {_BOUNDS}; got {interpolation!r}, "
-                                  f"{bound!r} (other orders and bounds: ROADMAP A13)")
+                                  f"{bound!r} (other orders and bounds: the ROADMAP item 'Native ops')")
     nd = grid.shape[-1]
     in_spatial = input.shape[1:]
     if len(in_spatial) != nd:

@@ -170,7 +170,7 @@ def apply_affine_to_data(data: torch.Tensor, matrix: np.ndarray, out_shape: Sequ
         bound = padding_mode if padding_mode in _BOUNDS else "zeros"
         return _separable(data, m, out_shape, resolve_mode(mode), bound, align_corners)
     raise NotImplementedError("a rotated or sheared affine needs the general resample (monai_tpu/ops/resample.py), "
-                              "which the port has not yet: ROADMAP A13")
+                              "which the port has not yet: the ROADMAP item 'Native ops'")
 
 
 def resample(data: torch.Tensor, matrix: np.ndarray, kwargs: dict | None = None) -> torch.Tensor:

@@ -25,7 +25,7 @@ from monai_tpu_torch.ops.bilateral import (PAIR_RADIUS, PAIR_RESIDENT, bilateral
                                            bilateral_stencil, bilateral_stencil_plain, card_resident)
 from monai_tpu_torch.ops.conv3d import conv3d_3x3_same, conv3d_3x3_same_plain
 from monai_tpu_torch.ops.filtering import bilateral_filter
-from monai_tpu_torch.ops.separable_resample import separable_resample_3d, separable_resample_3d_plain
+from monai_tpu_torch.ops.separable_resample import resample_plan, separable_resample_3d, separable_resample_3d_plain
 from monai_tpu_torch.ops.window_attention import (fused_window_attention, fused_window_attention_plain,
                                                   window_attention_plan)
 
@@ -447,7 +447,11 @@ RESAMPLE_CASES = [
     ((3, 1, 19, 21), _diag([1.0, 0.55, 1.7], [0.0, 0.25, -1.5]), (1, 35, 13)),     # a 2-D image as depth 1
     ((1, 9, 10, 11), _diag([1.0, 1.0, 1.0], [0.0, 0.0, 0.0]), (9, 10, 11)),        # every axis the identity
     ((1, 12, 14, 16), _diag([1.25, 1.0, -1.0], [-2.0, 0.0, 15.0]), (9, 14, 16)),   # one axis resampled, one flipped
+    ((3, 9, 23, 100), _diag([0.45, 0.7, 0.33], [0.3, -0.2, 0.1]), (19, 33, 300)),  # C = 3, tiles straddling every edge
+    ((1, 20, 21, 22), _diag([0.9, 1.1, 0.8], [-6.0, 5.0, -9.0]), (37, 45, 70)),    # rows wholly outside the input
+    ((1, 5, 5, 16000), _diag([2.0, 2.0, 800.0], [0.1, 0.2, 3.0]), (2, 2, 20)),     # 800x along x: the axes route
 ]
+RESAMPLE_ROUTES = ["fused"] * 7 + ["axes"]
 
 
 @pytest.mark.parametrize("order", [0, 1, 3])
@@ -455,12 +459,21 @@ RESAMPLE_CASES = [
 @pytest.mark.parametrize("align_corners", [False, True])
 @pytest.mark.parametrize("case", range(len(RESAMPLE_CASES)))
 def test_separable_resample_kernel_matches_plain(cuda, order, bound, align_corners, case):
+    """Every case, order, bound and align_corners on the route the plan gives: the fused
+    one in one CUDA launch (as the C function counts them), the axes one in one a
+    resampled axis; the tiles of the C = 3 case straddle the output's edge on every axis."""
     shape, m, out_shape = RESAMPLE_CASES[case]
+    plan = resample_plan(shape, out_shape, m, order, bound, align_corners)
+    assert plan.route == RESAMPLE_ROUTES[case]
+    assert plan.launches == (1 if plan.route == "fused" else sum(not i for i in plan.identity))
+    if shape == (3, 9, 23, 100):
+        assert all(n > t and n % t for n, t in zip(out_shape, plan.tile))
     x = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(case), device=cuda)
     with torch.inference_mode():
-        before = separable_resample_3d.launches
+        before, cuda_before = separable_resample_3d.launches, separable_resample_3d.cuda_launches
         got = separable_resample_3d(x, m, out_shape, order, bound, align_corners)
         assert separable_resample_3d.launches == before + 1
+        assert separable_resample_3d.cuda_launches == cuda_before + plan.launches
         ref = separable_resample_3d_plain(x, m, out_shape, order, bound, align_corners)
     assert got.shape == ref.shape == (shape[0], *out_shape) and got.dtype == torch.float32
     if order == 0:

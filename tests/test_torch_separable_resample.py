@@ -1,5 +1,5 @@
-"""monai_tpu_torch's separable resample (kernel 3's plain version, its tap tables and
-the resample tiers) against monai_tpu's, on the CPU.
+"""monai_tpu_torch's separable resample (kernel 3's plain version, its tap tables, its
+launch plan and the resample tiers) against monai_tpu's, on the CPU.
 
 The plain version is held to the JAX package's Pallas kernel (interpret mode) and to its
 numpy ``separable_affine_resample`` at the shapes of ``tests/test_pallas_resample.py``,
@@ -7,8 +7,14 @@ for orders {0, 1, 3} x bounds {zeros, border, reflection}: within 1e-5 of max|re
 (float32 sums in another order), and exactly for order 0 (weights 1 or 0). The tap
 tables that the CUDA kernel reads rebuild ``interp_matrix`` exactly, and summing them
 as the kernel does (per output row, taps in ascending index order, axis 1, 2, then 3)
-gives the plain version's result.
+gives the plain version's result. The kernel's launch plan (``resample_plan``) is held to
+what the kernel needs: its tiles cover the output once, every block fits in shared
+memory, every nonzero tap of a tile's rows lies in its brick, and a walk over the tiles in
+numpy, each tile computed from its brick alone in the plan's order, gives the plain
+version's result (exactly at order 0, within 1e-5 of max|ref| otherwise).
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +26,8 @@ from monai_tpu.ops.separable import interp_matrix as jax_interp_matrix
 from monai_tpu.ops.separable import separable_affine_resample as jax_separable
 from monai_tpu.transforms.lazy_utils import apply_affine_to_data as jax_apply_affine_to_data
 from monai_tpu_torch.ops.separable import interp_matrix, separable_affine_resample
-from monai_tpu_torch.ops.separable_resample import (interp_taps, separable_resample_3d, separable_resample_3d_plain,
+from monai_tpu_torch.ops.separable_resample import (FUSED_SMEM, SMEM_MAX, interp_taps, resample_plan,
+                                                    separable_resample_3d, separable_resample_3d_plain,
                                                     taps_from_matrix)
 from monai_tpu_torch.transforms.lazy_utils import apply_affine_to_data
 
@@ -152,7 +159,7 @@ def test_integer_tier_matches_jax(img, matrix, out_shape, padding_mode):
 def test_general_affine_is_not_ported(img):
     rot = np.eye(4)
     rot[:2, :2] = [[0.8, -0.6], [0.6, 0.8]]
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(NotImplementedError, match="Native ops"):
         apply_affine_to_data(torch.from_numpy(img), rot, OUT)
 
 
@@ -184,3 +191,123 @@ def test_wrapper_refuses_grad_and_cpu_takes_the_plain_path(img):
         assert torch.equal(separable_resample_3d(x, M, OUT, 3, "reflection"),
                            separable_resample_3d_plain(x, M, OUT, 3, "reflection"))
     assert separable_resample_3d.launches == before
+
+
+def _diag(scales, offsets):
+    m = np.diag([*scales, 1.0])
+    m[:3, 3] = offsets
+    return m
+
+
+# (input shape, affine, output shape): up- and down-sampling, a 2-D image as depth 1, every
+# axis the identity, one axis resampled and one flipped, tiles that straddle every edge
+# with C = 3, and output rows wholly outside the input (empty rows under zeros)
+PLAN_CASES = [
+    ((2, 13, 17, 11), _diag([0.45, 0.7, 0.38], [0.3, -0.6, 0.1]), (29, 24, 27)),
+    ((1, 31, 27, 33), _diag([2.9, 2.3, 1.9], [-0.4, 0.5, 0.2]), (11, 13, 17)),
+    ((3, 1, 19, 21), _diag([1.0, 0.55, 1.7], [0.0, 0.25, -1.5]), (1, 35, 13)),
+    ((1, 9, 10, 11), _diag([1.0, 1.0, 1.0], [0.0, 0.0, 0.0]), (9, 10, 11)),
+    ((1, 12, 14, 16), _diag([1.25, 1.0, -1.0], [-2.0, 0.0, 15.0]), (9, 14, 16)),
+    ((3, 9, 23, 100), _diag([0.45, 0.7, 0.33], [0.3, -0.2, 0.1]), (19, 33, 300)),
+    ((1, 20, 21, 22), _diag([0.9, 1.1, 0.8], [-6.0, 5.0, -9.0]), (37, 45, 70)),
+]
+AXES_CASE = ((1, 5, 5, 16000), _diag([2.0, 2.0, 800.0], [0.1, 0.2, 3.0]), (2, 2, 20))  # 800x along x
+
+
+def _tile_walk(x: np.ndarray, plan) -> np.ndarray:
+    """The fused kernel's arithmetic in numpy: each tile from its brick alone, contracted
+    in the plan's order with the plan's (band-relative) taps; asserts that the tiles cover
+    the output once and that every brick lies inside the input."""
+    out = plan.out_shape
+    y = np.zeros((x.shape[0], *out), np.float32)
+    cover = np.zeros(y.shape, np.int32)
+    for c, t in itertools.product(range(x.shape[0]), itertools.product(*(range(n) for n in plan.tiles))):
+        org = [t[a] * plan.tile[a] for a in range(3)]
+        ln = [min(plan.tile[a], out[a] - org[a]) for a in range(3)]
+        st = [org[a] if plan.identity[a] else int(plan.starts[a][t[a]]) for a in range(3)]
+        bl = [ln[a] if plan.identity[a] else plan.band[a] for a in range(3)]
+        b = x[c, st[0]:st[0] + bl[0], st[1]:st[1] + bl[1], st[2]:st[2] + bl[2]]
+        assert min(ln) > 0 and min(st) >= 0 and b.shape == tuple(bl)
+        for a in plan.order:
+            ri, rw = plan.idx[a][org[a]:org[a] + ln[a]], plan.w[a][org[a]:org[a] + ln[a]]
+            assert (ri >= 0).all() and (ri < bl[a]).all()  # padded taps too: the kernel reads them
+            shape = [1, 1, 1]
+            shape[a] = -1
+            acc = np.zeros(b.shape[:a] + (ln[a],) + b.shape[a + 1:], np.float32)
+            for k in range(plan.taps):
+                acc = (acc + rw[:, k].reshape(shape) * np.take(b, ri[:, k], axis=a)).astype(np.float32)
+            b = acc
+        box = (c, slice(org[0], org[0] + ln[0]), slice(org[1], org[1] + ln[1]), slice(org[2], org[2] + ln[2]))
+        y[box] = b
+        cover[box] += 1
+    assert (cover == 1).all()
+    return y
+
+
+def _check_bands(plan, matrix, order, bound, align_corners):
+    """Every nonzero of every row of interp_matrix lies in its tile's band."""
+    for a in plan.order:
+        W = interp_matrix(plan.in_shape[1 + a], plan.out_shape[a], float(matrix[a, a]), float(matrix[a, 3]), order,
+                          bound, align_corners)
+        for i, row in enumerate(W):
+            cols = np.nonzero(row)[0]
+            start = plan.starts[a][i // plan.tile[a]]
+            assert ((cols >= start) & (cols < start + plan.band[a])).all(), (a, i, cols, start, plan.band[a])
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("bound", BOUNDS)
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("case", range(len(PLAN_CASES)))
+def test_plan_tiles_bricks_and_walk_match_plain(case, order, bound, align_corners):
+    """The plan the wrapper takes and one of forced small tiles (edges straddled on every
+    axis the output allows, one float a copy along x)."""
+    shape, m, out = PLAN_CASES[case]
+    x = np.random.RandomState(case).randn(*shape).astype(np.float32)
+    ref = separable_resample_3d_plain(torch.from_numpy(x), m, out, order, bound, align_corners).numpy()
+    for plan in (resample_plan(shape, out, m, order, bound, align_corners),
+                 resample_plan(shape, out, m, order, bound, align_corners, vec=1, tile=(3, 5, 32))):
+        assert plan.route == "fused" and plan.launches == 1 and plan.smem <= SMEM_MAX
+        assert plan.identity == tuple(interp_taps(shape[1 + a], out[a], m[a, a], m[a, 3], order, bound,
+                                                  align_corners) is None for a in range(3))
+        assert sorted(plan.order) == [a for a in range(3) if not plan.identity[a]]
+        _check_bands(plan, m, order, bound, align_corners)
+        _close(_tile_walk(x, plan), ref, order)
+    assert plan.smem <= FUSED_SMEM or plan.tile == (3, 5, 32)
+    assert resample_plan(shape, out, m, order, bound, align_corners).smem <= FUSED_SMEM
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_strong_down_sampling_takes_the_axes_route(order):
+    """800x along x: no tile's brick fits, so one pass an axis, x first (it shrinks most);
+    the passes in numpy with the plan's tables give the plain version's result."""
+    shape, m, out = AXES_CASE
+    plan = resample_plan(shape, out, m, order, "border")
+    assert plan.route == "axes" and plan.order == (2, 0, 1) and plan.launches == 3
+    assert plan.bytes_fused is None and plan.tmp == (5 * 5 * 20, 2 * 5 * 20)
+    x = np.random.RandomState(1).randn(*shape).astype(np.float32)
+    y = x
+    for a in plan.order:
+        acc = 0
+        for k in range(plan.taps):
+            shp = [1, 1, 1, 1]
+            shp[1 + a] = -1
+            acc = (acc + plan.w[a][:, k].reshape(shp) * np.take(y, plan.idx[a][:, k], axis=1 + a)).astype(np.float32)
+        y = acc
+    _close(y, separable_resample_3d_plain(torch.from_numpy(x), m, out, order, "border").numpy(), order)
+
+
+def test_spleen_site_plans():
+    """The path's two sites take the fused route, one launch each, within 48 KB of shared
+    memory; the Spacing site contracts axis 1 first, the inverse axis 3 (the axes that
+    shrink the data); their bricks move little more than the bound, far less than a pass
+    an axis."""
+    inv = np.linalg.inv(SPLEEN)
+    for shape, m, out, order, first in (((1, 512, 512, 90), SPLEEN, (270, 270, 224), 1, 0),
+                                        ((1, 270, 270, 224), inv, (512, 512, 90), 0, 2)):
+        plan = resample_plan(shape, out, m, order, "border")
+        assert plan.route == "fused" and plan.launches == 1 and plan.smem <= FUSED_SMEM
+        assert plan.order[0] == first and plan.tile[2] == out[2] and not any(plan.identity)
+        assert plan.bytes_bound == 4 * (512 * 512 * 90 + 270 * 270 * 224)
+        assert plan.bytes_bound < plan.bytes_fused < 1.2 * plan.bytes_bound < plan.bytes_axes
+        _check_bands(plan, m, order, "border", False)
