@@ -22,6 +22,10 @@ Drives the port's four paths, each at full width with random weights from a seed
   ScaleIntensityRange (the 2-D kernel); the bilateral grid (``BilateralFilter``'s
   default) on the image; and ``CRF()`` over the spleen UNet's (1, 2, 270, 270, 224)
   logits with the image as reference.
+- Training: the JAX bench's ``unet_train``, the same UNet (instance norm, PReLU) trained by
+  ``SupervisedTrainer(amp=True)`` with ``DiceCELoss(to_onehot_y=True, softmax=True)`` and
+  AdamW (lr 1e-4, weight decay 1e-4) on batches of 4 96³ patches (x uniform, label
+  uniform > 0.5, from a seed), bfloat16 compute on float32 master weights.
 
   1. the card's name and power limit; the CUDA kernels built from the checkout's sources
   2. each kernel against its plain PyTorch version at every shape each path gives it, the
@@ -57,6 +61,15 @@ Drives the port's four paths, each at full width with random weights from a seed
      special-function unit's exp, one a symmetric pair of voxels), and its time at other
      segment lengths of the walked axis beside the plan's; then each stage on the card
      against the port's CPU run of the same call on a crop
+  7. the training path, outside inference mode: each backward kernel (the conv's weight
+     gradient, dx on the conv kernel, the norm's backward) against its plain version at
+     every site of the training step (read off by hooks), in bfloat16, float32 and float16,
+     with the kernel's, the plain version's and the library call's times and the bound;
+     one batch-1 step on a 96³ patch against the port's CPU float32 step (the loss and
+     every grad, in float32 and in the bfloat16 amp step) and two card steps from one state
+     bit for bit; then ``SupervisedTrainer(amp=True)`` at batch 4, 3 warm-up iterations and
+     20 timed: steps/s, patches/s, the median step, the peak memory, the launches a step
+     of each kernel against the sites, and the loss at each step
 
 It prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0; so it is without a CUDA device.
@@ -128,6 +141,23 @@ TOL_BILATERAL, TOL_GRID = 1e-5, 1e-4
 FILTER_TIMED = 5  # calls timed per stage, after one warm-up
 CROP_3D, CROP_SLICES, CROP_CRF = (64, 64, 48), (8, 128, 128), (48, 48, 40)  # centre crops for the CPU
 
+# The training path (bench.py unet_train): batch, patch, warm-up and timed iterations; the
+# launches a step of each kernel (conv forward + dx, dw, norm forward, norm backward)
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED = 4, 3, 20
+TRAIN_PER_STEP = {"conv3d_3x3_same": 20, "conv3d_3x3_wgrad": 10, "instance_norm_prelu": 17,
+                  "instance_norm_prelu_backward": 17}
+# A batch-1 step against the CPU step (train_step_check says how each is held): float32 on
+# the card (TF32 off), each grad's max error relative to its max|ref| (sums in another
+# order through ~40 layers forward and back), or STEP_FLOOR_RATIO times the CPU's own change
+# under a 1e-7 change of the input where the PReLU's kink is in the net; the bfloat16 amp
+# step, the loss relative and each grad's cosine similarity. With random weights and
+# random labels the grads are sums with much cancellation, and the port's own CPU bfloat16
+# step reaches a cosine of only 0.981-0.996 to the float32 one at the deep convs' weights
+# (96^3, batch 1, seed 11). So a grad passes at MIN_STEP_COSINE, or where its distance
+# from 1 is at most STEP_COSINE_RATIO times the CPU bfloat16 step's own.
+TOL_STEP_F32, TOL_STEP_LOSS_BF16, MIN_STEP_COSINE = 1e-3, 1e-2, 0.99
+STEP_FLOOR_RATIO, STEP_COSINE_RATIO = 10.0, 2.0
+
 # The card's peaks (NVIDIA H100 SXM data sheet): memory 3.35 TB/s; dense bf16 989 TFLOP/s
 # on the tensor cores, float32 67 TFLOP/s outside them.
 HBM_BYTES_S, PEAK_FLOPS = 3.35e12, {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -177,12 +207,19 @@ def _wrappers():
     return conv3d_3x3_same, instance_norm_prelu, fused_window_attention, separable_resample_3d, bilateral_stencil
 
 
+def _backward_wrappers():
+    from monai_tpu_torch.networks.layers.fast_norm import instance_norm_prelu_backward
+    from monai_tpu_torch.ops.conv3d import conv3d_3x3_wgrad
+
+    return conv3d_3x3_wgrad, instance_norm_prelu_backward
+
+
 def launch_counts() -> tuple[int, ...]:
     return tuple(w.launches for w in _wrappers())
 
 
 def reset_launch_counts() -> None:
-    for w in _wrappers():
+    for w in (*_wrappers(), *_backward_wrappers()):
         w.launches = 0
     _wrappers()[3].cuda_launches = 0  # the resample's CUDA launches, which its C function counts
 
@@ -903,26 +940,326 @@ def filtering_path(dev, image: torch.Tensor, logits: torch.Tensor) -> dict:
     return {name: {"launches": launches[name], **out[name]} for name in out}
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
+def _conv_backward_library(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor, mask: list[bool]):
+    """One ``aten.convolution_backward`` call (cuDNN) on the channel-first views of the
+    channels-last x and g: dx with mask (True, False, False), dw with (False, True, False)."""
+    xc, gc, wc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
+    return lambda: torch.ops.aten.convolution_backward(gc, xc, wc, None, [1, 1, 1], [1, 1, 1], [1, 1, 1], False,
+                                                       [0, 0, 0], 1, mask)
+
+
+def check_conv_backward(sites: Counter, batch: int, dev) -> tuple[dict, dict]:
+    """At every conv site of the training step, in bfloat16, float32 and float16: the weight
+    gradient kernel (dw of x and g) and dx on the conv kernel (g and the flipped, transposed
+    weights) against their plain versions; bfloat16 also timed against the plain versions
+    and cuDNN's ``aten.convolution_backward`` with dw's or dx's output mask. Returns the
+    kernels-line numbers of dw and of dx, summed over a step's sites."""
+    from monai_tpu_torch.ops.conv3d import (conv3d_3x3_same, conv3d_3x3_same_plain, conv3d_3x3_wgrad,
+                                            conv3d_3x3_wgrad_plain, conv3d_3x3_wgrad_plan)
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    dw_rows, dx_rows = [], []
+    for (ci, co, sp), count in sorted(sites.items()):
+        for dtype, tol in CHECKED:
+            x = torch.randn((batch, *sp, ci), generator=g, device=dev).to(dtype)
+            gy = torch.randn((batch, *sp, co), generator=g, device=dev).to(dtype)
+            w = (torch.randn((3, 3, 3, ci, co), generator=g, device=dev) / (27 * ci) ** 0.5).to(dtype)
+            wf = w.flip((0, 1, 2)).transpose(3, 4).contiguous()
+            dw, dx = conv3d_3x3_wgrad(x, gy), conv3d_3x3_same(gy, wf)
+            torch.cuda.synchronize()
+            err_w, rel_w = rel_err(dw, conv3d_3x3_wgrad_plain(x, gy))
+            err_x, rel_x = rel_err(dx, conv3d_3x3_same_plain(gy, wf))
+            require(rel_w <= tol, f"conv dw {ci}->{co} @{sp} {dtype}: max err {err_w:.3g} = {rel_w:.3g} x max|ref|")
+            require(rel_x <= tol, f"conv dx {ci}->{co} @{sp} {dtype}: max err {err_x:.3g} = {rel_x:.3g} x max|ref|")
+            plan = conv3d_3x3_wgrad_plan(x, gy)
+            msg = (f"conv backward {ci:3d}->{co:3d} @{sp} x{count} {str(dtype)[6:]:8s} dw max_abs_err {err_w:.4g} "
+                   f"({rel_w:.3g} of max|ref|), dx {err_x:.4g} ({rel_x:.3g}), tol {tol}; dw plan {plan['route']}, "
+                   f"{plan['chunks']} chunks, {plan['blocks']} blocks of {plan['threads']}")
+            if dtype == torch.bfloat16:
+                flops = 2.0 * batch * np.prod(sp) * 27 * ci * co
+                size = x.element_size()
+                k_ms, p_ms = paired_ms(lambda: conv3d_3x3_wgrad(x, gy), lambda: conv3d_3x3_wgrad_plain(x, gy), iters=10)
+                lib_ms = cuda_ms(_conv_backward_library(x, gy, w, [False, True, False]), iters=10)
+                b_ms, o_ms = bound((x.numel() + gy.numel() + dw.numel()) * size, flops, dtype)
+                dw_rows.append((count, err_w, k_ms, p_ms, lib_ms, b_ms, o_ms))
+                kx_ms, px_ms = paired_ms(lambda: conv3d_3x3_same(gy, wf), lambda: conv3d_3x3_same_plain(gy, wf),
+                                         iters=10)
+                lx_ms = cuda_ms(_conv_backward_library(x, gy, w, [True, False, False]), iters=10)
+                bx_ms, ox_ms = bound((gy.numel() + wf.numel() + dx.numel()) * size, flops, dtype)
+                dx_rows.append((count, err_x, kx_ms, px_ms, lx_ms, bx_ms, ox_ms))
+                msg += (f"  dw kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  cuDNN {lib_ms:.4f} ms  bound "
+                        f"{max(b_ms, o_ms):.4f} ms;  dx kernel {kx_ms:.4f} ms  plain {px_ms:.4f} ms  cuDNN "
+                        f"{lx_ms:.4f} ms  bound {max(bx_ms, ox_ms):.4f} ms")
+            print(msg, flush=True)
+    return _summary(dw_rows), _summary(dx_rows)
+
+
+def check_norm_backward(sites: Counter, batch: int, dev) -> dict:
+    """At every norm site of the training step, in bfloat16, float32 and float16: the
+    backward kernel against its plain version, from the forward kernel's statistics (dx,
+    and the three float32 sums the parameter grads come from, 1e-4 of max|ref|: sums in
+    another order); bfloat16 also timed against the plain version and autograd's backward
+    of ``F.instance_norm`` without the slope (the library call). The bound: x and g read
+    once, dx written once."""
+    from monai_tpu_torch.networks.layers.fast_norm import (_card, _forward, instance_norm_backward_plan,
+                                                           instance_norm_prelu_backward,
+                                                           instance_norm_prelu_backward_plain)
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    rows = []
+    for (c, sp, affine, slope), count in sorted(sites.items(), key=str):
+        for dtype, tol in CHECKED:
+            x = (torch.randn((batch, c, *sp), generator=g, device=dev) * 3 + 1).to(dtype)
+            x = x.contiguous(memory_format=torch.channels_last_3d)
+            gy = torch.randn((batch, c, *sp), generator=g, device=dev).to(dtype)
+            gy = gy.contiguous(memory_format=torch.channels_last_3d)
+            w = (torch.rand((c,), generator=g, device=dev) + 0.5).to(dtype) if affine else None
+            b = torch.randn((c,), generator=g, device=dev).to(dtype) if affine else None
+            a = None if slope is None else torch.full((1,), slope, device=dev, dtype=dtype)
+            _, stats = _forward(x, w, b, a, 1e-5, True)
+            dx, sums = instance_norm_prelu_backward(gy, x, stats, w, b, a)
+            torch.cuda.synchronize()
+            ref_dx, ref_sums = instance_norm_prelu_backward_plain(gy, x, stats, w, b, a)
+            err, rel = rel_err(dx, ref_dx)
+            sum_rel = max(rel_err(s_, r_)[1] for s_, r_ in zip(sums, ref_sums) if r_.abs().max().item() > 0)
+            require(rel <= tol and sum_rel <= TOL_F32, f"norm backward C={c} @{sp} {dtype}: dx max err {err:.3g} = "
+                                                       f"{rel:.3g} x max|ref|, sums {sum_rel:.3g}")
+            card, occupancy = _card(dev.index or 0)
+            plan = instance_norm_backward_plan(batch, c, int(np.prod(sp)), dtype, True, card, occupancy)
+            msg = (f"norm backward C={c:3d} @{sp} x{count} {str(dtype)[6:]:8s} dx max_abs_err {err:.4g} ({rel:.3g} of "
+                   f"max|ref|, tol {tol}), sums {sum_rel:.3g} (tol {TOL_F32}); plan {plan['path']}, {plan['blocks']} "
+                   f"blocks of {plan['threads']}, {plan['launches']} launches")
+            if dtype == torch.bfloat16:
+                k_ms, p_ms = paired_ms(lambda: instance_norm_prelu_backward(gy, x, stats, w, b, a),
+                                       lambda: instance_norm_prelu_backward_plain(gy, x, stats, w, b, a), iters=10)
+                xl = x.detach().requires_grad_()
+                with torch.enable_grad():
+                    y = F.instance_norm(xl, weight=w, bias=b, eps=1e-5)
+                lib_ms = cuda_ms(lambda: torch.autograd.grad(y, xl, gy, retain_graph=True), iters=10)
+                del y, xl
+                b_ms, o_ms = bound(3 * x.numel() * x.element_size(), 20.0 * x.numel(), torch.float32)
+                rows.append((count, err, k_ms, p_ms, lib_ms, b_ms, o_ms))
+                msg += (f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  F.instance_norm backward (no slope) "
+                        f"{lib_ms:.4f} ms  bound {max(b_ms, o_ms):.4f} ms ({max(b_ms, o_ms) / k_ms * 100:.1f}% of it)")
+            print(msg, flush=True)
+    return _summary(rows)
+
+
+def _normed_biases(net) -> set[str]:
+    """The biases of the convs whose output an instance norm takes: the norm removes each
+    channel's mean, so their exact grad is 0 and what the step computes is rounding."""
+    from monai_tpu_torch.networks.blocks.convolutions import Convolution
+    from monai_tpu_torch.networks.layers.fast_norm import InstanceNorm
+
+    return {f"{name}.conv.bias" for name, m in net.named_modules()
+            if isinstance(m, Convolution) and "adn" in m._modules and isinstance(m.adn._modules.get("N"), InstanceNorm)}
+
+
+def _step(net, x: torch.Tensor, y: torch.Tensor, loss_fn, amp: bool = False) -> tuple[float, dict]:
+    """(loss, {name: grad}) of one step of ``net`` on (x, y): float32, or the amp step (the
+    bfloat16 view of the parameters, the input in bfloat16, the logits cast to float32)."""
+    from monai_tpu_torch.networks.utils import amp_model_view
+
+    net.zero_grad(set_to_none=True)
+    model = amp_model_view(net) if amp else net
+    loss = loss_fn(model(x.to(torch.bfloat16) if amp else x).float(), y)
+    loss.backward()
+    return loss.item(), {k: p.grad.detach().clone() for k, p in net.named_parameters()}
+
+
+def _worst(got: dict, ref: dict, skip: set) -> tuple[str, float]:
+    """The grad with the largest max|got - ref| over its max|ref|, and that ratio."""
+    return max(((k, (got[k].cpu() - r).abs().max().item() / max(r.abs().max().item(), 1e-30))
+                for k, r in ref.items() if k not in skip), key=lambda t: t[1])
+
+
+def train_step_check(net_cpu, dev) -> None:
+    """One batch-1 step on a 96³ patch, on the card against the port's CPU step of the same
+    weights and data. The PReLU's kink makes the float32 grads of this net jump where an
+    activation crosses 0 within rounding: a 1e-7 relative change of the input moves the
+    CPU's own grads by ~1e-2 of their max (PERF.md §6). So float32 is held twice: the
+    same net with every PReLU slope at 1 (no kink; every kernel's backward still runs),
+    each grad within TOL_STEP_F32 of its max|ref|; and the net as it is, each grad within
+    STEP_FLOOR_RATIO times the CPU's own change under that perturbation (the worst grad).
+    The bfloat16 amp step: the loss within TOL_STEP_LOSS_BF16 and each grad's cosine
+    similarity at least MIN_STEP_COSINE, or within STEP_COSINE_RATIO of the CPU's own
+    bfloat16 step's distance from 1. The biases whose exact grad is 0 (``_normed_biases``)
+    are held instead, in float32, to TOL_STEP_F32 of their conv weight's max|grad| on both
+    sides; in bfloat16 they are rounding alone. Then two amp steps from one state, with
+    cuDNN's deterministic algorithms, bit for bit, and the float32 step's launches."""
+    from monai_tpu_torch.losses import DiceCELoss
+
+    gen = torch.Generator().manual_seed(11)
+    x = torch.rand((1, 1, *ROI), generator=gen)
+    y = (torch.rand((1, 1, *ROI), generator=gen) > 0.5).float()
+    x_moved = x * (1 + 1e-7 * torch.randn(x.shape, generator=gen))
+    loss_fn = DiceCELoss(to_onehot_y=True, softmax=True)
+    zero = _normed_biases(net_cpu)
+    net_cpu.train()
+    net_one = copy.deepcopy(net_cpu)
+    with torch.no_grad():
+        for m in net_one.modules():
+            if isinstance(m, torch.nn.PReLU):
+                m.weight.fill_(1.0)
+    t0 = time.perf_counter()
+    ref_loss, ref = _step(net_cpu, x, y, loss_fn)
+    cpu_s = time.perf_counter() - t0
+    _, moved = _step(net_cpu, x_moved, y, loss_fn)
+    _, ref_bf = _step(net_cpu, x, y, loss_fn, amp=True)
+    ref1_loss, ref1 = _step(net_one, x, y, loss_fn)
+    net_cpu.zero_grad(set_to_none=True)
+    net_one.zero_grad(set_to_none=True)
+    floor = _worst(moved, ref, zero)
+    cos_cpu = {k: F.cosine_similarity(ref_bf[k].double().flatten(), ref[k].double().flatten(), dim=0).item()
+               for k in ref}
+
+    def zero_ok(grads, k) -> float:
+        """A bias of ``zero``: its max|grad| over its conv weight's max|grad|."""
+        return grads[k].abs().max().item() / max(grads[k[:-4] + "weight"].abs().max().item(), 1e-30)
+
+    xd, yd = x.to(dev), y.to(dev)
+    net, card_one = copy.deepcopy(net_cpu).to(dev), copy.deepcopy(net_one).to(dev)
+    reset_launch_counts()
+    loss32, g32 = _step(net, xd, yd, loss_fn)
+    counts = launch_counts()[:2] + tuple(w.launches for w in _backward_wrappers())
+    loss1, g1 = _step(card_one, xd, yd, loss_fn)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    lossbf, gbf = _step(net, xd, yd, loss_fn, amp=True)
+    lossbf2, gbf2 = _step(net, xd, yd, loss_fn, amp=True)
+    torch.backends.cudnn.deterministic = prev
+    same = lossbf == lossbf2 and all(torch.equal(gbf[k], gbf2[k]) for k in gbf)
+    worst, worst1 = _worst(g32, ref, zero), _worst(g1, ref1, zero)
+    worst_zero = max(max(zero_ok(g, k), zero_ok(r, k)) for g, r in ((g32, ref), (g1, ref1)) for k in zero)
+    loss_rel32, loss_rel1 = (abs(a - b) / abs(b) for a, b in ((loss32, ref_loss), (loss1, ref1_loss)))
+    cos_min, cos_fail = ("", 1.0), []
+    for k, r in ref.items():
+        if k in zero:
+            continue
+        cos = F.cosine_similarity(gbf[k].cpu().double().flatten(), r.double().flatten(), dim=0).item()
+        cos_min = min(cos_min, (k, cos), key=lambda t: t[1])
+        if cos < MIN_STEP_COSINE and 1 - cos > STEP_COSINE_RATIO * (1 - cos_cpu[k]):
+            cos_fail.append(f"{k} {cos:.6f} (CPU bfloat16 {cos_cpu[k]:.6f})")
+    loss_relbf = abs(lossbf - ref_loss) / abs(ref_loss)
+    f32_limit = max(TOL_STEP_F32, STEP_FLOOR_RATIO * floor[1])
+    print(f"train step batch 1 @{ROI} against the CPU step ({cpu_s:.1f} s a float32 step on the CPU): loss "
+          f"{ref_loss:.6f}; float32, PReLU slopes 1: loss rel err {loss_rel1:.3g}, worst grad max err {worst1[1]:.3g} "
+          f"of max|ref| ({worst1[0]}; tol {TOL_STEP_F32}); float32 as it is: loss rel err {loss_rel32:.3g}, worst "
+          f"grad {worst[1]:.3g} ({worst[0]}; tol {f32_limit:.3g}: {STEP_FLOOR_RATIO}x the CPU's own change under a "
+          f"1e-7 input change, {floor[1]:.3g} at {floor[0]}); bfloat16 amp loss {lossbf:.6f} rel err {loss_relbf:.3g} "
+          f"(tol {TOL_STEP_LOSS_BF16}), least grad cosine {cos_min[1]:.6f} ({cos_min[0]}; the CPU's bfloat16 step "
+          f"{cos_cpu[cos_min[0]]:.6f}; min {MIN_STEP_COSINE} or within {STEP_COSINE_RATIO}x the CPU's distance from 1; "
+          f"least on the CPU {min(cos_cpu[k] for k in cos_cpu if k not in zero):.6f}); {len(zero)} biases with an "
+          f"exact grad of 0: max|grad| over their weight's, float32 {worst_zero:.3g} (tol {TOL_STEP_F32}); two amp "
+          f"steps bit-identical: {same}; float32 step launches conv {counts[0]}, norm {counts[1]}, dw {counts[2]}, "
+          f"norm backward {counts[3]}", flush=True)
+    require(np.isfinite(loss1) and loss_rel1 <= TOL_STEP_F32 and worst1[1] <= TOL_STEP_F32,
+            "the float32 train step (PReLU slopes 1) on the card disagrees with the CPU")
+    require(np.isfinite(loss32) and loss_rel32 <= TOL_STEP_F32 and worst[1] <= f32_limit,
+            "the float32 train step on the card disagrees with the CPU")
+    require(worst_zero <= TOL_STEP_F32, "a bias whose exact grad is 0 has a float32 grad that is not ~0")
+    require(np.isfinite(lossbf) and loss_relbf <= TOL_STEP_LOSS_BF16 and not cos_fail,
+            f"the bfloat16 amp train step on the card disagrees with the CPU: {cos_fail}")
+    require(same, "two amp steps from one state gave different grads")
+    per_step = tuple(TRAIN_PER_STEP[k] for k in ("conv3d_3x3_same", "instance_norm_prelu", "conv3d_3x3_wgrad",
+                                                  "instance_norm_prelu_backward"))
+    require(counts == per_step, f"the float32 step launched {counts}, not {per_step}")
+
+
+def train_path(net_cpu, sites: tuple[Counter, Counter], dev) -> dict:
+    """``SupervisedTrainer(amp=True)`` at batch 4 on one fixed batch: TRAIN_WARMUP
+    iterations, then TRAIN_TIMED timed, the launch counts and peak memory of those (set to
+    0 just before them), the step times between CUDA events recorded at each iteration's
+    end, and the loss at each step. Returns the launch counts of the timed run."""
+    from monai_tpu_torch.engines import Events, SupervisedTrainer
+    from monai_tpu_torch.losses import DiceCELoss
+    from monai_tpu_torch.networks.layers.fast_norm import _InstanceNormPReLU
+    from monai_tpu_torch.ops.conv3d import _Conv3x3Same
+
+    net = copy.deepcopy(net_cpu).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    batch = {"image": torch.rand((TRAIN_BATCH, 1, *ROI), generator=gen, device=dev),
+             "label": (torch.rand((TRAIN_BATCH, 1, *ROI), generator=gen, device=dev) > 0.5).float()}
+    optimizer = torch.optim.AdamW(net.parameters(), lr=1e-4, weight_decay=1e-4)  # optax.adamw(1e-4)'s decay
+    trainer = SupervisedTrainer(device=dev, max_epochs=1, train_data_loader=[batch] * (TRAIN_WARMUP + TRAIN_TIMED),
+                                network=net, optimizer=optimizer,
+                                loss_function=DiceCELoss(to_onehot_y=True, softmax=True), amp=True)
+    losses, ends, start = [], [], {}
+
+    @trainer.on(Events.ITERATION_COMPLETED)
+    def _record(engine):
+        losses.append(engine.state.output["loss"])
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        if engine.state.iteration == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launch_counts()
+            _Conv3x3Same.copied_bytes = _InstanceNormPReLU.copied_bytes = 0
+            start["t"] = time.perf_counter()
+
+    trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start["t"]
+    names = ("conv3d_3x3_same", "instance_norm_prelu", "conv3d_3x3_wgrad", "instance_norm_prelu_backward")
+    counts = dict(zip(names, launch_counts()[:2] + tuple(w.launches for w in _backward_wrappers())))
+    losses = [v.item() for v in losses]
+    step_ms = [ends[i].elapsed_time(ends[i + 1]) for i in range(TRAIN_WARMUP - 1, len(ends) - 1)]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    copied = (_Conv3x3Same.copied_bytes / TRAIN_TIMED, _InstanceNormPReLU.copied_bytes / TRAIN_TIMED)
+    n_conv, n_norm = sum(sites[0].values()), sum(sites[1].values())
+    expected = {"conv3d_3x3_same": 2 * n_conv, "conv3d_3x3_wgrad": n_conv, "instance_norm_prelu": n_norm,
+                "instance_norm_prelu_backward": n_norm}
+    per_step = {k: v / TRAIN_TIMED for k, v in counts.items()}
+    print(f"unet_train SupervisedTrainer(amp=True) batch {TRAIN_BATCH} @96^3: {TRAIN_TIMED / wall:.4f} steps/s, "
+          f"{TRAIN_BATCH * TRAIN_TIMED / wall:.3f} patches/s ({TRAIN_TIMED} steps after {TRAIN_WARMUP} warm-up, one "
+          f"synchronise at the end); step median {statistics.median(step_ms):.3f} ms (min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}, CUDA events at each iteration's end); peak memory {peak_gb:.2f} GB; "
+          f"grads that came back "
+          f"channel-first and were copied a step: conv {copied[0] / 1e6:.2f} MB, norm {copied[1] / 1e6:.2f} MB "
+          f"(read and written once: {2 * sum(copied) / HBM_BYTES_S * 1e3:.4f} ms at the memory rate); launches a step: "
+          f"conv forward + dx {per_step['conv3d_3x3_same']:g}, dw {per_step['conv3d_3x3_wgrad']:g}, norm forward "
+          f"{per_step['instance_norm_prelu']:g}, norm backward {per_step['instance_norm_prelu_backward']:g} (the sites "
+          f"give {expected}); loss by step: " + ", ".join(f"{v:.6f}" for v in losses), flush=True)
+    require(all(np.isfinite(v) for v in losses), "unet_train: a loss is not finite")
+    require(losses[10] < losses[0], f"unet_train: the loss after 10 steps {losses[10]:.6f} is not below the first "
+                                    f"{losses[0]:.6f}")
+    require(per_step == expected and expected == TRAIN_PER_STEP,
+            f"unet_train: launches a step {per_step}, the sites give {expected}, expected {TRAIN_PER_STEP}")
+    return counts
+
+
+def training_phase(dev) -> tuple[dict, dict]:
+    """Phase 7: the training path's kernels at its sites, the batch-1 step against the CPU,
+    and the trainer. Returns the launch counts of the trainer's timed run and the
+    kernels-line numbers of dw, dx and the norm's backward."""
+    from monai_tpu_torch.networks.nets import UNet
+
+    net_cpu = UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2), num_res_units=2,
+                   generator=torch.Generator().manual_seed(0), device="cpu")
+    window = torch.rand((TRAIN_BATCH, 1, *ROI), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    with torch.no_grad():
+        conv_sites, norm_sites, _, _ = record_sites(copy.deepcopy(net_cpu).to(dev, torch.bfloat16).train(),
+                                                    window.to(torch.bfloat16))
+    print(f"unet_train sites a step (batch {TRAIN_BATCH}): {sum(conv_sites.values())} 3x3x3 stride-1 convs (each a "
+          f"forward, a dx and a dw), {sum(norm_sites.values())} instance norms (each a forward and a backward)",
+          flush=True)
+    dw, dx = check_conv_backward(conv_sites, TRAIN_BATCH, dev)
+    norm_bwd = check_norm_backward(norm_sites, TRAIN_BATCH, dev)
+    torch.cuda.empty_cache()
+    train_step_check(net_cpu, dev)
+    torch.cuda.empty_cache()
+    counts = train_path(net_cpu, (conv_sites, norm_sites), dev)
+    return counts, {"dw": dw, "dx": dx, "norm_backward": norm_bwd}
+
+
+def inference_phases(dev) -> tuple:
+    """Phases 2 to 6, under ``torch.inference_mode()``: the forward kernels at the inference paths'
+    shapes, the sliding windows, the forwards against the CPU, the Spleen path and the filtering
+    path. Returns the per-forward summaries, the paths' launch counts and their kernels' numbers."""
     from monai_tpu_torch.data.utils import dense_patch_slices
     from monai_tpu_torch.inferers import SlidingWindowInferer, SlidingWindowInfererAdapt, compute_scan_interval
     from monai_tpu_torch.networks.nets import SwinUNETR, UNet
-    from monai_tpu_torch.ops._build import library, library_path
-
-    torch.backends.cudnn.allow_tf32 = False  # float32 references in full float32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.device_count()} device(s)", flush=True)
-
-    # 1. build the CUDA kernels from the checkout's sources
-    t0 = time.perf_counter()
-    library()
-    print(f"build: {library_path().name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the sliding-window paths' networks: full width, random weights from seed 0, built on the CPU
     nets = {}
@@ -978,6 +1315,48 @@ def main() -> None:
         # 6. the filtering path on the spleen path's data, and its checks
         filtering = filtering_path(dev, image, logits)
         del image, logits
+    return summaries, unet_counts, swin_counts, spleen_counts, spleen, filtering
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
+    from monai_tpu_torch.ops._build import library, library_path
+
+    torch.backends.cudnn.allow_tf32 = False  # float32 references in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.device_count()} device(s)", flush=True)
+
+    # 1. build the CUDA kernels from the checkout's sources
+    t0 = time.perf_counter()
+    library()
+    print(f"build: {library_path().name} in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    summaries, unet_counts, swin_counts, spleen_counts, spleen, filtering = inference_phases(dev)
+
+    # 7. the training path, outside inference mode
+    train_counts, train = training_phase(dev)
+
+    training = [
+        {"name": "conv3d_3x3_wgrad", "route": "cuda", "source": "monai_tpu_torch/csrc/conv3d_3x3_wgrad.cu",
+         "replaces": "monai_tpu/ops/pallas_conv3d.py:200", "launches": train_counts["conv3d_3x3_wgrad"],
+         **train["dw"]},
+        {"name": "instance_norm_prelu_backward", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
+         "replaces": "monai_tpu/networks/layers/fast_norm.py:74",
+         "launches": train_counts["instance_norm_prelu_backward"], **train["norm_backward"]},
+    ]
+
+    def line(s: dict) -> str:
+        lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
+        side = s.get("bound_side", s["bound_by"])
+        return f"{s['ms']:.4f} / {s['plain_ms']:.4f} / {lib} / {s['bound_ms']:.4f} ({side})"
+
+    print("per training step at batch 4 (ms, kernel / plain / library / bound): " + "; ".join(
+        f"{k} {line(train[k])}" for k in ("dw", "dx", "norm_backward")), flush=True)
 
     def merged(i: int) -> dict:
         """The per-forward sums of kernel i over the UNet and SwinUNETR paths (bfloat16)."""
@@ -987,13 +1366,15 @@ def main() -> None:
         out["max_abs_err"] = max(a["max_abs_err"], b["max_abs_err"], spleen["conv"]["max_abs_err"] if i == 0 else 0)
         return _bound_by(out)
 
+    # the forward kernels' launches: the inference paths' and the training step's (forward and dx)
     kernels = [
         {"name": "conv3d_3x3_same", "route": "cuda", "source": "monai_tpu_torch/csrc/conv3d_3x3_same.cu",
          "replaces": "monai_tpu/ops/pallas_conv3d.py:91",
-         "launches": unet_counts[0] + swin_counts[0] + spleen_counts[0], **merged(0)},
+         "launches": unet_counts[0] + swin_counts[0] + spleen_counts[0] + train_counts["conv3d_3x3_same"],
+         **merged(0)},
         {"name": "instance_norm_prelu", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
-         "replaces": "monai_tpu/networks/layers/fast_norm.py:44", "launches": unet_counts[1] + swin_counts[1],
-         **merged(1)},
+         "replaces": "monai_tpu/networks/layers/fast_norm.py:44",
+         "launches": unet_counts[1] + swin_counts[1] + train_counts["instance_norm_prelu"], **merged(1)},
         {"name": "fused_window_attention", "route": "cuda", "source": "monai_tpu_torch/csrc/window_attention.cu",
          "replaces": "monai_tpu/ops/pallas_window_attention.py:106", "launches": swin_counts[2],
          **summaries["swinunetr"][2]},
@@ -1003,14 +1384,9 @@ def main() -> None:
          "replaces": "monai_tpu/ops/pallas_filtering.py:99", **filtering["B"]},
         {"name": "bilateral_filter_3d", "route": "cuda", "source": "monai_tpu_torch/csrc/bilateral_filter.cu",
          "replaces": "monai_tpu/ops/pallas_filtering.py:126", **filtering["A"]},
+        *training,
     ]
     summaries["spleen"] = (spleen["conv"], None, None, spleen["resample"])
-
-    def line(s: dict) -> str:
-        lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
-        side = s.get("bound_side", s["bound_by"])
-        return f"{s['ms']:.4f} / {s['plain_ms']:.4f} / {lib} / {s['bound_ms']:.4f} ({side})"
-
     print("per forward, the resample per volume (ms, kernel / plain / library / bound): " + "; ".join(
         f"{name} {k} {line(s)}" for name, ss in summaries.items()
         for k, s in zip(("conv", "norm", "attention", "resample"), ss) if s is not None), flush=True)

@@ -49,6 +49,27 @@
 //
 // Left for later: thread-block clusters with distributed shared memory, which would take
 // the single on-chip pass to slabs up to ~1.5 MB.
+//
+// The backward (norm_bwd), for training. Replaces
+// monai_tpu/networks/layers/fast_norm.py::_in_norm_bwd, with the PReLU's backward fused
+// in. With the forward's saved per-(instance, channel) mean m and r = rsqrt(var + eps)
+// (the forward writes them where it is asked to), x^ = (x - m) r, z = x^ w + b the value
+// before the slope and gz = g (z >= 0 ? 1 : a), over the S voxels of an instance:
+//
+//   sums:  Sg = sum(gz),  Sgx = sum(gz x^),  Sa = sum(g z [z < 0])
+//   dx  =  w r (gz - Sg / S - x^ Sgx / S)
+//
+// and the host takes db = sum_B Sg, dw = sum_B Sgx and da = sum_B Sa (over the channels
+// too for one slope). It saves x and the statistics, not the output: with w = 0 the
+// output holds no x^ (JAX's y-based form divides by w there). What bounds it: the bytes,
+// x and g read twice and dx written once (the second read from L2 where the instance
+// fits it). The forward's plan (instance_norm_plan) gives the vectors, the channel groups
+// and the threads. Where the forward runs a unit on chip, one block a unit sums and then
+// writes dx in one launch (the sums stay in shared memory); elsewhere a sums launch of
+// several blocks a unit writes float32 partials and a second launch adds them in block
+// order and writes dx. z >= 0 takes the positive branch, as in the forward; z is
+// rounded after its product and its sum, as the plain version rounds it. Partials
+// combine in a fixed order, so dx and the sums are the same bits from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -81,6 +102,8 @@ struct NormArgs {
   int units_per_group;         // persistent: units that share the grid at once
   int unit_groups;             // persistent: groups of units, walked in turn
   int stash;                   // persistent: a thread's first vectors kept in shared memory
+  float* stats;                // optional: [2][B][C] float32, the mean, then rsqrt(var + eps)
+  long long stat_stride;       // B * C
   float inv_n, eps;
 };
 
@@ -239,14 +262,21 @@ __device__ __forceinline__ void fold_lanes(const Scratch& s, const float (&acc)[
 }
 
 // mean, scale, shift and slope of the unit's G channels (channel offset c0), from the
-// totals; then each lane's four into registers.
+// totals; then each lane's four into registers. stats, where not null, is the unit's
+// place in a.stats (instance bi: bi C + c0), and gets the mean and rsqrt(var + eps).
 template <int V>
 __device__ __forceinline__ void lane_stats(const Scratch& s, const NormArgs& a, int c0, int k, float (&mean)[V],
-                                           float (&scale)[V], float (&shift)[V], float (&slope)[V]) {
+                                           float (&scale)[V], float (&shift)[V], float (&slope)[V],
+                                           float* stats) {
   for (int c = threadIdx.x; c < a.G; c += blockDim.x) {
     const float m = s.tot_a[c] * a.inv_n;
     const float var = fmaxf(s.tot_b[c] * a.inv_n - m * m, 0.f);
-    float sc = rsqrtf(var + a.eps);
+    const float r = rsqrtf(var + a.eps);
+    if (stats != nullptr) {
+      stats[c] = m;
+      stats[a.stat_stride + c] = r;
+    }
+    float sc = r;
     if (a.w != nullptr) sc *= param(a.w, a.w_type, c0 + c);
     s.mean[c] = m;
     s.scale[c] = sc;
@@ -317,7 +347,8 @@ __global__ void __launch_bounds__(kMaxThreads) norm_onchip(NormArgs a) {
   }
   fold_lanes<V>(s, acc, acc2, a.G, a.gv);
   float mean[V], scale[V], shift[V], slope[V];
-  lane_stats<V>(s, a, g * a.G, k, mean, scale, shift, slope);
+  lane_stats<V>(s, a, g * a.G, k, mean, scale, shift, slope,
+                a.stats != nullptr ? a.stats + (long long)bi * a.C + g * a.G : nullptr);
   const bool has_slope = a.a_n != 0;
   for (long long i = t, row = t / a.gv; i < a.nvec; i += T_, row += rows) {
     float f[V];
@@ -432,7 +463,8 @@ __global__ void __launch_bounds__(kMaxThreads, 2) norm_persistent(NormArgs a) {
         return make_float2(__ldcg(part_a + in + (long long)p * a.G + c), __ldcg(part_b + in + (long long)p * a.G + c));
       });
       float mean[V], scale[V], shift[V], slope[V];
-      lane_stats<V>(s, a, g * a.G, k, mean, scale, shift, slope);
+      lane_stats<V>(s, a, g * a.G, k, mean, scale, shift, slope,
+                    a.stats != nullptr && jb == 0 ? a.stats + (long long)bi * a.C + g * a.G : nullptr);
       // the reverse of the statistics pass: its last vectors are the likeliest in L2,
       // and its first ones are in the stash
       long long it = n_it;
@@ -503,6 +535,186 @@ cudaError_t allow_smem(const void* kern, int smem) {
   return err;
 }
 
+// ---- the backward ----
+
+struct BwdArgs {
+  const void* x;
+  const void* g;
+  void* dx;
+  const float* stats;  // [2][B][C]: the forward's mean and rsqrt(var + eps)
+  const void* w;
+  const void* b;
+  const void* a;
+  int w_type, b_type, a_type, a_n;
+  float* partial;          // two launches: [3][units][per_unit][G]
+  float* sums;             // [3][B][C]: sum(gz), sum(gz x^), sum(g z [z < 0])
+  long long S, stat_stride;  // stat_stride = B C
+  int C, G, groups, gv;
+  long long rowstride, nvec;
+  int units, per_unit;
+  float inv_n;
+};
+
+// z, rounded after the product and after the sum (no fused multiply-add), as the plain
+// version rounds it, so that both take the same branch of the slope given one x and one
+// set of statistics.
+__device__ __forceinline__ float z_of(float x, float mean, float scale, float shift) {
+  return __fadd_rn(__fmul_rn(x - mean, scale), shift);
+}
+
+__host__ __device__ constexpr int bwd_scratch_floats(int T, int V, int G) { return scratch_floats(T, V, G) + 4 * G; }
+
+// mode 0: one block a unit, the sums, then dx; mode 1: the partial sums of per_unit
+// blocks a unit; mode 2: those partials added in block order, then dx.
+template <typename T, int V>
+__global__ void __launch_bounds__(kMaxThreads) norm_bwd(BwdArgs a, int mode) {
+  extern __shared__ float4 smem4[];
+  float* base = reinterpret_cast<float*>(smem4);
+  const Scratch s(base, blockDim.x, V, a.G);
+  float* rstd_c = base + scratch_floats(blockDim.x, V, a.G);
+  float* t1 = rstd_c + a.G;
+  float* t2 = t1 + a.G;
+  float* t3 = t2 + a.G;
+  const int t = threadIdx.x, T_ = blockDim.x;
+  const int P = a.per_unit, u = blockIdx.x / P, jb = blockIdx.x % P;
+  const int bi = u / a.groups, c0 = (u % a.groups) * a.G;
+  const int k = t % a.gv;
+  const long long stride = (long long)P * T_;         // vectors from one step to the next
+  const long long step = stride / a.gv * a.rowstride;  // elements from one step to the next
+  const long long i0 = (long long)jb * T_ + t;
+  const long long n_it = i0 < a.nvec ? (a.nvec - 1 - i0) / stride + 1 : 0;
+  const long long off = (long long)bi * a.S * a.C + c0 + i0 / a.gv * a.rowstride + k * V;
+  const T* x = static_cast<const T*>(a.x) + off;
+  const T* gp = static_cast<const T*>(a.g) + off;
+  T* dx = static_cast<T*>(a.dx) + off;
+
+  const float* st = a.stats + (long long)bi * a.C + c0;
+  for (int c = t; c < a.G; c += T_) {
+    const float r = st[a.stat_stride + c];
+    float sc = r;  // the forward's scale, by the same operations
+    if (a.w != nullptr) sc *= param(a.w, a.w_type, c0 + c);
+    s.mean[c] = st[c];
+    rstd_c[c] = r;
+    s.scale[c] = sc;
+    s.shift[c] = a.b != nullptr ? param(a.b, a.b_type, c0 + c) : 0.f;
+    s.slope[c] = a.a_n == 0 ? 1.f : param(a.a, a.a_type, a.a_n == 1 ? 0 : c0 + c);
+  }
+  __syncthreads();
+  float mean[V], rstd[V], scale[V], shift[V], slope[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int c = (k * V + j) % a.G;
+    mean[j] = s.mean[c];
+    rstd[j] = rstd_c[c];
+    scale[j] = s.scale[c];
+    shift[j] = s.shift[c];
+    slope[j] = s.slope[c];
+  }
+  const bool has_slope = a.a_n != 0;
+
+  if (mode != 2) {
+    float s1[V], s2[V], s3[V], zero[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) s1[j] = s2[j] = s3[j] = zero[j] = 0.f;
+#pragma unroll 2
+    for (long long it = 0; it < n_it; ++it) {
+      float xf[V], gf[V];
+      load_f<T, V>(x + it * step, xf);
+      load_f<T, V>(gp + it * step, gf);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xh = (xf[j] - mean[j]) * rstd[j];
+        const float z = z_of(xf[j], mean[j], scale[j], shift[j]);
+        const bool neg = has_slope && z < 0.f;
+        const float gz = neg ? gf[j] * slope[j] : gf[j];
+        s1[j] += gz;
+        s2[j] = fmaf(gz, xh, s2[j]);
+        if (neg) s3[j] = fmaf(gf[j], z, s3[j]);
+      }
+    }
+    fold_lanes<V>(s, s1, s2, a.G, a.gv);
+    for (int c = t; c < a.G; c += T_) {
+      t1[c] = s.tot_a[c];
+      t2[c] = s.tot_b[c];
+    }
+    fold_lanes<V>(s, s3, zero, a.G, a.gv);
+    for (int c = t; c < a.G; c += T_) t3[c] = s.tot_a[c];
+    if (mode == 1) {
+      const long long plane = (long long)a.units * P * a.G, out = ((long long)u * P + jb) * a.G;
+      for (int c = t; c < a.G; c += T_) {
+        a.partial[out + c] = t1[c];
+        a.partial[plane + out + c] = t2[c];
+        a.partial[2 * plane + out + c] = t3[c];
+      }
+      return;
+    }
+  } else {
+    const long long plane = (long long)a.units * P * a.G, in = (long long)u * P * a.G;
+    const float* p1 = a.partial + in;
+    fold(s, a.G, P, [&](int p, int c) {
+      return make_float2(__ldcg(p1 + (long long)p * a.G + c), __ldcg(p1 + plane + (long long)p * a.G + c));
+    });
+    for (int c = t; c < a.G; c += T_) {
+      t1[c] = s.tot_a[c];
+      t2[c] = s.tot_b[c];
+    }
+    fold(s, a.G, P, [&](int p, int c) { return make_float2(__ldcg(p1 + 2 * plane + (long long)p * a.G + c), 0.f); });
+    for (int c = t; c < a.G; c += T_) t3[c] = s.tot_a[c];
+  }
+  __syncthreads();
+  if (jb == 0) {
+    float* so = a.sums + (long long)bi * a.C + c0;
+    for (int c = t; c < a.G; c += T_) {
+      so[c] = t1[c];
+      so[a.stat_stride + c] = t2[c];
+      so[2 * a.stat_stride + c] = t3[c];
+    }
+  }
+  float mg[V], mgx[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int c = (k * V + j) % a.G;
+    mg[j] = t1[c] * a.inv_n;
+    mgx[j] = t2[c] * a.inv_n;
+  }
+#pragma unroll 2
+  for (long long it = 0; it < n_it; ++it) {
+    float xf[V], gf[V];
+    load_f<T, V>(x + it * step, xf);
+    load_f<T, V>(gp + it * step, gf);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float xh = (xf[j] - mean[j]) * rstd[j];
+      const float z = z_of(xf[j], mean[j], scale[j], shift[j]);
+      const float gz = has_slope && z < 0.f ? gf[j] * slope[j] : gf[j];
+      xf[j] = scale[j] * (gz - mg[j] - xh * mgx[j]);
+    }
+    store_f<T, V>(dx + it * step, xf);
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const BwdArgs& a, int vec, int blocks, int threads, int smem, int mode, cudaStream_t st) {
+  constexpr int kV = 16 / sizeof(T);
+  if (vec == kV) {
+    const cudaError_t err = allow_smem(reinterpret_cast<const void*>(&norm_bwd<T, kV>), smem);
+    if (err != cudaSuccess) return err;
+    norm_bwd<T, kV><<<blocks, threads, smem, st>>>(a, mode);
+  } else {
+    const cudaError_t err = allow_smem(reinterpret_cast<const void*>(&norm_bwd<T, 1>), smem);
+    if (err != cudaSuccess) return err;
+    norm_bwd<T, 1><<<blocks, threads, smem, st>>>(a, mode);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_any(int dtype, const BwdArgs& a, int vec, int blocks, int threads, int smem, int mode,
+                           cudaStream_t st) {
+  if (dtype == 0) return launch_bwd<float>(a, vec, blocks, threads, smem, mode, st);
+  if (dtype == 1) return launch_bwd<__nv_bfloat16>(a, vec, blocks, threads, smem, mode, st);
+  return launch_bwd<__half>(a, vec, blocks, threads, smem, mode, st);
+}
+
 }  // namespace
 
 // Blocks of the kernel of (dtype, path, vec) an SM holds at `threads` threads and `smem`
@@ -523,10 +735,12 @@ extern "C" int monai_instance_norm_occupancy(int dtype, int path, int vec, int t
 // slope's length (0, 1 or C). scratch: for the persistent path, the barrier's two words,
 // which must be 0 at the first launch that uses them, then 2 units per_unit G floats of
 // partial sums; every launch leaves the barrier's count at 0, so launches in one stream
-// may share one scratch. Returns a cudaError_t: the launch's, or cudaGetLastError() after
-// it.
+// may share one scratch. stats: null, or [2][B][C] float32 that gets each instance's
+// per-channel mean and rsqrt(var + eps), which the backward reads. Returns a
+// cudaError_t: the launch's, or cudaGetLastError() after it.
 extern "C" int monai_instance_norm(const void* x, void* y, const void* w, const void* b, const void* a,
-                                   void* scratch, const long long* plan, float eps, int params, void* stream) {
+                                   void* scratch, float* stats, const long long* plan, float eps, int params,
+                                   void* stream) {
   const long long B = plan[0], S = plan[1];
   const int C = (int)plan[2], dtype = (int)plan[3], path = (int)plan[4], vec = (int)plan[5], G = (int)plan[6];
   const int threads = (int)plan[7], blocks = (int)plan[8], per_unit = (int)plan[9];
@@ -561,6 +775,8 @@ extern "C" int monai_instance_norm(const void* x, void* y, const void* w, const 
   args.units = (int)(B * args.groups);
   args.inv_n = 1.0f / (float)S;
   args.eps = eps;
+  args.stats = stats;
+  args.stat_stride = B * C;
   if (threads % args.gv != 0) return (int)cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err = allow_smem(kern, smem);
@@ -590,4 +806,67 @@ extern "C" int monai_instance_norm(const void* x, void* y, const void* w, const 
   err = cudaLaunchCooperativeKernel(kern, dim3(blocks), dim3(threads), kargs, (size_t)smem, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The backward of monai_instance_norm (with its slope) for g on x (B, S, C) into dx, from
+// the forward's stats ([2][B][C]: mean, rsqrt(var + eps)). plan: B, S, C, the dtype (0
+// float32, 1 bfloat16, 2 float16; x, g and dx), the path (0: one launch, one block a
+// unit; 1: a sums launch and a dx launch, per_unit blocks a unit), vec, G, threads and
+// per_unit, as instance_norm_backward_plan gives them. params: as monai_instance_norm's.
+// partial: the two-launch path's 3 B (C / G) per_unit G floats. sums: [3][B][C] float32,
+// sum(gz), sum(gz x^) and sum(g z [z < 0]) of each instance and channel. Returns a
+// cudaError_t.
+extern "C" int monai_instance_norm_backward(const void* x, const void* g, void* dx, const float* stats,
+                                            const void* w, const void* b, const void* a, float* partial, float* sums,
+                                            const long long* plan, int params, void* stream) {
+  const long long B = plan[0], S = plan[1];
+  const int C = (int)plan[2], dtype = (int)plan[3], path = (int)plan[4], vec = (int)plan[5], G = (int)plan[6];
+  const int threads = (int)plan[7], per_unit = (int)plan[8];
+  const int a_n = params >> 6;
+  const int full = dtype == 0 ? 4 : 8;
+  if (B < 1 || S < 1 || C < 1 || G < 1 || C % G != 0 || dtype < 0 || dtype > 2 || (vec != 1 && vec != full) ||
+      threads < 1 || threads > kMaxThreads || per_unit < 1 || path < 0 || path > 1 || (path == 0 && per_unit != 1) ||
+      stats == nullptr || sums == nullptr || (path == 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((w == nullptr) != (b == nullptr) || (a_n != 0 && a_n != 1 && a_n != C) || (a_n != 0) != (a != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool packed = vec > 1 && G % vec != 0;
+  if (packed && (G != C || vec % C != 0 || (S * C) % vec != 0)) return (int)cudaErrorInvalidValue;
+  if (vec > 1 && (reinterpret_cast<unsigned long long>(x) % 16 != 0 ||
+                  reinterpret_cast<unsigned long long>(g) % 16 != 0 ||
+                  reinterpret_cast<unsigned long long>(dx) % 16 != 0))
+    return (int)cudaErrorMisalignedAddress;
+  BwdArgs args;
+  args.x = x;
+  args.g = g;
+  args.dx = dx;
+  args.stats = stats;
+  args.w = w;
+  args.b = b;
+  args.a = a;
+  args.w_type = params & 3;
+  args.b_type = (params >> 2) & 3;
+  args.a_type = (params >> 4) & 3;
+  args.a_n = a_n;
+  args.partial = partial;
+  args.sums = sums;
+  args.S = S;
+  args.stat_stride = B * C;
+  args.C = C;
+  args.G = G;
+  args.groups = C / G;
+  args.gv = packed ? 1 : G / vec;
+  args.rowstride = G == C ? (long long)args.gv * vec : C;
+  args.nvec = S * G / vec;
+  args.units = (int)(B * args.groups);
+  args.per_unit = per_unit;
+  args.inv_n = 1.0f / (float)S;
+  if (threads % args.gv != 0) return (int)cudaErrorInvalidValue;
+  const int smem = 4 * bwd_scratch_floats(threads, vec, G);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int blocks = args.units * per_unit;
+  if (path == 0) return (int)launch_bwd_any(dtype, args, vec, blocks, threads, smem, 0, st);
+  const cudaError_t err = launch_bwd_any(dtype, args, vec, blocks, threads, smem, 1, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_bwd_any(dtype, args, vec, blocks, threads, smem, 2, st);
 }

@@ -17,7 +17,17 @@ order rather than by atomics, so the output is the same from run to run. ``insta
 
 ``instance_norm_prelu_plain`` is the same function in plain PyTorch: the wrapper runs
 it for CPU tensors, and it is the oracle on the card. For a CUDA tensor the wrapper
-launches the kernel or raises; it never falls back. Forward only.
+launches the kernel or raises; it never falls back.
+
+Under autograd the wrapper is the counterpart of ``_in_norm`` with ``_in_norm_fwd`` and
+``_in_norm_bwd``, the PReLU's backward fused in: the forward kernel also writes the
+per-(B, C) mean and rsqrt(var + eps) in float32, and ``instance_norm_prelu_backward``
+(the backward kernel of ``csrc/instance_norm.cu``; its plain version
+``instance_norm_prelu_backward_plain``) gives dx and the sums from which the grads of the
+weight, bias and slope come. It saves x and the statistics, not the output (with a
+weight of 0 the output holds nothing of x^). A slope's grad is the sum of g z over
+z < 0, z the normalised value before the slope; z >= 0 takes the positive branch in both
+directions.
 """
 from __future__ import annotations
 
@@ -26,9 +36,11 @@ import functools
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 from torch import nn
 
-__all__ = ["InstanceNorm", "instance_norm_plan", "instance_norm_prelu", "instance_norm_prelu_plain"]
+__all__ = ["InstanceNorm", "instance_norm_backward_plan", "instance_norm_plan", "instance_norm_prelu",
+           "instance_norm_prelu_backward", "instance_norm_prelu_backward_plain", "instance_norm_prelu_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _PATHS = {"onchip": 0, "persistent": 1, "general": 1}
@@ -148,12 +160,43 @@ def instance_norm_plan(batch: int, channels: int, spatial: int, dtype: torch.dty
                 2 + 2 * n_units * per_unit * g, stash)
 
 
+@functools.lru_cache(maxsize=None)
+def instance_norm_backward_plan(batch: int, channels: int, spatial: int, dtype: torch.dtype, aligned: bool = True,
+                                card: tuple[int, int] = H100, occupancy=_model_occupancy) -> dict:
+    """What ``instance_norm_prelu_backward`` launches, from the forward's plan (its vectors,
+    channel groups and threads): ``path`` "onchip" (one launch, one block a unit, the sums
+    kept in shared memory) where the forward runs a unit on chip, else "split" (a sums
+    launch of ``per_unit`` blocks a unit, enough to give the card's SMs four blocks each,
+    then a dx launch that adds their partials in block order); ``launches``, ``blocks``,
+    ``threads``, ``vec``, ``group``, ``per_unit`` and the ``partial`` float32 values."""
+    p = instance_norm_plan(batch, channels, spatial, dtype, aligned, card, occupancy)
+    g, vec, threads = p["group"], p["vec"], p["threads"]
+    units = batch * p["groups"]
+    per_unit = 1
+    if p["path"] != "onchip":
+        per_unit = max(1, min(_cdiv(4 * card[0], units), _cdiv(spatial * g // vec, threads)))
+    return {"path": "onchip" if p["path"] == "onchip" else "split",
+            "launches": 1 if p["path"] == "onchip" else 2, "blocks": units * per_unit, "threads": threads,
+            "vec": vec, "group": g, "per_unit": per_unit,
+            "partial": 0 if p["path"] == "onchip" else 3 * units * per_unit * g}
+
+
 @functools.cache
 def _launcher():
     from ...ops._build import library
 
     fn = library().monai_instance_norm
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _backward_launcher():
+    from ...ops._build import library
+
+    fn = library().monai_instance_norm_backward
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -185,26 +228,61 @@ def _card(device_index: int) -> tuple[tuple[int, int], object]:
     return (props.multi_processor_count, smem), _occupancy_fn(device_index)
 
 
-def instance_norm_prelu_plain(x: torch.Tensor, weight: torch.Tensor | None = None,
-                              bias: torch.Tensor | None = None, slope: torch.Tensor | None = None,
-                              eps: float = 1e-5) -> torch.Tensor:
-    """Plain-PyTorch version, with the same two-moment f32 statistics."""
+def _plain_forward(x, weight, bias, slope, eps) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y, stats): the plain forward and its (2, B, C) float32 mean and rsqrt(var + eps)."""
     dims = tuple(range(2, x.ndim))
     n = math.prod(x.shape[2:])
     shape = (1, -1) + (1,) * (x.ndim - 2)
     xf = x.float()
     m = xf.sum(dims, keepdim=True) / n
     v = ((xf * xf).sum(dims, keepdim=True) / n - m * m).clamp_min(0.0)
-    scale = torch.rsqrt(v + eps)
+    r = torch.rsqrt(v + eps)
+    scale = r
     if weight is not None:
         scale = scale * weight.float().view(shape)
     y = (xf - m) * scale
     if bias is not None:
         y = y + bias.float().view(shape)
     if slope is not None:
-        a = slope.float().view(shape) if slope.numel() > 1 else slope.float().reshape(())
-        y = torch.where(y >= 0, y, y * a)
-    return y.to(x.dtype)
+        y = torch.where(y >= 0, y, y * _slope_view(slope, x.ndim))
+    return y.to(x.dtype), torch.stack((m.reshape(x.shape[:2]), r.reshape(x.shape[:2])))
+
+
+def _slope_view(slope: torch.Tensor, ndim: int) -> torch.Tensor:
+    return slope.float().view((1, -1) + (1,) * (ndim - 2)) if slope.numel() > 1 else slope.float().reshape(())
+
+
+def instance_norm_prelu_plain(x: torch.Tensor, weight: torch.Tensor | None = None,
+                              bias: torch.Tensor | None = None, slope: torch.Tensor | None = None,
+                              eps: float = 1e-5) -> torch.Tensor:
+    """Plain-PyTorch version, with the same two-moment f32 statistics."""
+    return _plain_forward(x, weight, bias, slope, eps)[0]
+
+
+def instance_norm_prelu_backward_plain(g: torch.Tensor, x: torch.Tensor, stats: torch.Tensor,
+                                       weight: torch.Tensor | None = None, bias: torch.Tensor | None = None,
+                                       slope: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain-PyTorch version of ``instance_norm_prelu_backward``: the formula written out
+    in float32."""
+    dims = tuple(range(2, x.ndim))
+    n = math.prod(x.shape[2:])
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    m, r = (t.reshape(*x.shape[:2], *(1,) * (x.ndim - 2)) for t in stats)
+    scale = r if weight is None else r * weight.float().view(shape)
+    xf, gf = x.float(), g.float()
+    z = (xf - m) * scale
+    if bias is not None:
+        z = z + bias.float().view(shape)
+    xh = (xf - m) * r
+    gz = gf
+    s3 = torch.zeros(x.shape[:2], dtype=torch.float32, device=x.device)
+    if slope is not None:
+        neg = z < 0
+        gz = torch.where(neg, gf * _slope_view(slope, x.ndim), gf)
+        s3 = torch.where(neg, gf * z, 0.0).sum(dims)
+    s1, s2 = gz.sum(dims), (gz * xh).sum(dims)
+    dx = scale * (gz - s1.view(m.shape) / n - xh * (s2.view(m.shape) / n))
+    return dx.to(x.dtype), torch.stack((s1, s2, s3))
 
 
 def _check(x, weight, bias, slope) -> None:
@@ -223,8 +301,6 @@ def _check(x, weight, bias, slope) -> None:
     params = [t for t in (weight, bias, slope) if t is not None]
     if any(t.device != x.device for t in params):
         raise ValueError("x and the norm's parameters must be on one device")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in [x, *params]):
-        raise RuntimeError("instance_norm_prelu is forward-only; run it under torch.inference_mode()")
 
 
 @functools.lru_cache(maxsize=1024)
@@ -252,6 +328,38 @@ def _scratch(n: int, index: int, stream: int) -> torch.Tensor:
     return buf
 
 
+def _is_channels_last(x: torch.Tensor) -> bool:
+    last = _CHANNELS_LAST.get(x.ndim)
+    return x.is_contiguous(memory_format=last) if last else x.permute(0, *range(2, x.ndim), 1).is_contiguous()
+
+
+def _check_card(x: torch.Tensor, weight, bias, slope, name: str = "instance_norm_prelu") -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, not {x.device}")
+    if not _is_channels_last(x):
+        raise ValueError(f"{name} takes a channels-last CUDA tensor "
+                         "(x.contiguous(memory_format=torch.channels_last_3d))")
+    for t in (weight, bias, slope):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous parameters")
+        if t is not None and t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"{name} takes float32, bfloat16 or float16 parameters on the card")
+
+
+def _param_codes(weight, bias, slope) -> int:
+    codes = 0 if slope is None else slope.numel() << 6 | _DTYPE_CODES[slope.dtype] << 4
+    if weight is not None:
+        codes |= _DTYPE_CODES[weight.dtype] | _DTYPE_CODES[bias.dtype] << 2
+    return codes
+
+
+def _call(fn, index: int, args) -> int:
+    if index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)
+
+
 def instance_norm_prelu(x: torch.Tensor, weight: torch.Tensor | None = None, bias: torch.Tensor | None = None,
                         slope: torch.Tensor | None = None, eps: float = 1e-5) -> torch.Tensor:
     """Instance norm over the spatial axes of ``x`` (B, C, *spatial), with optional affine
@@ -260,49 +368,127 @@ def instance_norm_prelu(x: torch.Tensor, weight: torch.Tensor | None = None, bia
     A CUDA ``x`` must be channels-last in memory (``x.permute(0, 2, ..., 1)`` contiguous,
     as ``torch.channels_last_3d`` gives); the CUDA kernel runs (``instance_norm_plan``
     says how) and ``instance_norm_prelu.launches`` goes up by one. A CPU ``x`` runs the
-    plain version."""
+    plain version. Under autograd the backward runs ``instance_norm_prelu_backward``."""
     _check(x, weight, bias, slope)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, weight, bias, slope)):
+        return _InstanceNormPReLU.apply(x, weight, bias, slope, eps)
+    return _forward(x, weight, bias, slope, eps, False)[0]
+
+
+def _forward(x, weight, bias, slope, eps: float, want_stats: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(y, the (2, B, C) float32 statistics where asked for, else None)."""
     device = x.device
     if device.type == "cpu":
-        return instance_norm_prelu_plain(x, weight, bias, slope, eps)
-    if device.type != "cuda":
-        raise ValueError(f"instance_norm_prelu runs on CPU or CUDA tensors, not {device}")
-    last = _CHANNELS_LAST.get(x.ndim)
-    if not (x.is_contiguous(memory_format=last) if last else x.permute(0, *range(2, x.ndim), 1).is_contiguous()):
-        raise ValueError("instance_norm_prelu takes a channels-last CUDA tensor "
-                         "(x.contiguous(memory_format=torch.channels_last_3d))")
-    for t in (weight, bias, slope):
-        if t is not None and not t.is_contiguous():
-            raise ValueError("instance_norm_prelu takes contiguous parameters")
-        if t is not None and t.dtype not in _DTYPE_CODES:
-            raise TypeError("instance_norm_prelu takes float32, bfloat16 or float16 parameters on the card")
+        y, stats = _plain_forward(x, weight, bias, slope, eps)
+        return y, stats if want_stats else None
+    _check_card(x, weight, bias, slope)
     out = torch.empty_like(x)  # x's strides: channels-last, (B, *spatial, C) in memory
+    stats = torch.empty((2, *x.shape[:2]), dtype=torch.float32, device=device) if want_stats else None
     if x.numel() == 0:
-        return out
+        return out, stats
     index = device.index
     x_ptr = x.data_ptr()
     p, plan = _launch_args(tuple(x.shape), x.dtype, index, x_ptr % 16 == 0)
     stream = torch._C._cuda_getCurrentRawStream(index)
     scratch = _scratch(p["scratch"], index, stream).data_ptr() if p["scratch"] else None
-    codes = 0 if slope is None else slope.numel() << 6 | _DTYPE_CODES[slope.dtype] << 4
-    if weight is not None:
-        codes |= _DTYPE_CODES[weight.dtype] | _DTYPE_CODES[bias.dtype] << 2
     args = (x_ptr, out.data_ptr(), None if weight is None else weight.data_ptr(),
             None if bias is None else bias.data_ptr(), None if slope is None else slope.data_ptr(), scratch,
-            ctypes.addressof(plan), float(eps), codes, stream)
-    if index == torch.cuda.current_device():
-        err = _launcher()(*args)
-    else:
-        with torch.cuda.device(index):
-            err = _launcher()(*args)
+            None if stats is None else stats.data_ptr(), ctypes.addressof(plan), float(eps),
+            _param_codes(weight, bias, slope), stream)
+    err = _call(_launcher(), index, args)
     if err != 0:
         raise RuntimeError(f"instance_norm_prelu: CUDA launch failed with error {err} "
                            f"(x {tuple(x.shape)} {x.dtype}, plan {p})")
     instance_norm_prelu.launches += 1
-    return out
+    return out, stats
 
 
 instance_norm_prelu.launches = 0
+
+
+@functools.lru_cache(maxsize=1024)
+def _backward_args(shape: tuple[int, ...], dtype: torch.dtype, index: int, aligned: bool) -> tuple[dict, object]:
+    """The backward's plan, and the C function's plan array (B, S, C, dtype code, path
+    code, vec, group, threads, per_unit)."""
+    card, occupancy = _card(index)
+    bsz, c, s = shape[0], shape[1], math.prod(shape[2:])
+    p = instance_norm_backward_plan(bsz, c, s, dtype, aligned, card, occupancy)
+    return p, (ctypes.c_longlong * 9)(bsz, s, c, _DTYPE_CODES[dtype], 0 if p["path"] == "onchip" else 1, p["vec"],
+                                      p["group"], p["threads"], p["per_unit"])
+
+
+def instance_norm_prelu_backward(g: torch.Tensor, x: torch.Tensor, stats: torch.Tensor,
+                                 weight: torch.Tensor | None = None, bias: torch.Tensor | None = None,
+                                 slope: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward of ``instance_norm_prelu`` for the grad ``g`` of its output on ``x``
+    (both (B, C, *spatial), of one type), from the forward's ``stats`` ((2, B, C) float32
+    mean and rsqrt(var + eps)): (dx in x's type, the (3, B, C) float32 sums of gz, gz x^
+    and g z [z < 0] over the space), gz = g (z >= 0 ? 1 : slope). The grads of the bias,
+    weight and slope are the sums over B (and over C for one slope) of the three.
+
+    CUDA tensors must be channels-last in memory; the kernel runs
+    (``instance_norm_backward_plan`` says how) and
+    ``instance_norm_prelu_backward.launches`` goes up by one. CPU tensors run the plain
+    version."""
+    _check(x, weight, bias, slope)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"g must match x: {tuple(g.shape)} {g.dtype} against {tuple(x.shape)} {x.dtype}")
+    if stats.shape != (2, *x.shape[:2]) or stats.dtype != torch.float32 or stats.device != x.device:
+        raise ValueError(f"stats must be (2, B, C) float32 on x's device; got {tuple(stats.shape)} {stats.dtype}")
+    if x.device.type == "cpu":
+        return instance_norm_prelu_backward_plain(g, x, stats, weight, bias, slope)
+    _check_card(x, weight, bias, slope, "instance_norm_prelu_backward")
+    if not _is_channels_last(g) or not stats.is_contiguous():
+        raise ValueError("instance_norm_prelu_backward takes a channels-last g and contiguous stats")
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx, torch.zeros((3, *x.shape[:2]), dtype=torch.float32, device=x.device)
+    sums = torch.empty((3, *x.shape[:2]), dtype=torch.float32, device=x.device)  # the kernel writes each
+    index = x.device.index
+    aligned = x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+    p, plan = _backward_args(tuple(x.shape), x.dtype, index, aligned)
+    partial = torch.empty(p["partial"], dtype=torch.float32, device=x.device) if p["partial"] else None
+    args = (x.data_ptr(), g.data_ptr(), dx.data_ptr(), stats.data_ptr(),
+            None if weight is None else weight.data_ptr(), None if bias is None else bias.data_ptr(),
+            None if slope is None else slope.data_ptr(), None if partial is None else partial.data_ptr(),
+            sums.data_ptr(), ctypes.addressof(plan), _param_codes(weight, bias, slope),
+            torch._C._cuda_getCurrentRawStream(index))
+    err = _call(_backward_launcher(), index, args)
+    if err != 0:
+        raise RuntimeError(f"instance_norm_prelu_backward: CUDA launch failed with error {err} "
+                           f"(x {tuple(x.shape)} {x.dtype}, plan {p})")
+    instance_norm_prelu_backward.launches += 1
+    return dx, sums
+
+
+instance_norm_prelu_backward.launches = 0
+
+
+class _InstanceNormPReLU(torch.autograd.Function):
+    """The forward kernel with its statistics saved beside x; the backward kernel."""
+
+    copied_bytes = 0  # grads that came back channel-first and were copied to channels-last, in bytes
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, slope, eps):
+        y, stats = _forward(x, weight, bias, slope, eps, True)
+        ctx.save_for_backward(x, weight, bias, slope, stats)
+        return y
+
+    @staticmethod
+    @once_differentiable  # the backward kernels have no backward of their own
+    def backward(ctx, g):
+        x, weight, bias, slope, stats = ctx.saved_tensors
+        if x.device.type == "cuda" and not _is_channels_last(g):
+            _InstanceNormPReLU.copied_bytes += g.numel() * g.element_size()
+            g = channels_last(g)
+        dx, sums = instance_norm_prelu_backward(g, x, stats, weight, bias, slope)
+        dw = None if weight is None else sums[1].sum(0).to(weight.dtype)
+        db = None if bias is None else sums[0].sum(0).to(bias.dtype)
+        da = None
+        if slope is not None:
+            da = (sums[2].sum() if slope.numel() == 1 else sums[2].sum(0)).reshape(slope.shape).to(slope.dtype)
+        return dx, dw, db, da, None
 
 
 def channels_last(x: torch.Tensor) -> torch.Tensor:

@@ -3,11 +3,14 @@
 Every ``monai_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` at first use, one process
 per source, all started together, and the objects are linked into one shared library
 with a plain C interface, loaded with ``ctypes``. The library lands in
-``build/monai_tpu_torch/`` at the root of the checkout, under a name that carries a
-hash of the sources and flags, so an edited source builds anew and an unchanged one is
-loaded as it is. The build works in a temporary directory and renames the library into
-place, so processes that build at the same time do not see each other's half-written
-files. A failed build raises.
+``build/monai_tpu_torch/`` at the root of the checkout; an installed copy of the package
+(no checkout around it), or a checkout whose ``build/`` cannot be written, builds into
+``monai_tpu_torch/build`` under ``$XDG_CACHE_HOME`` (else ``~/.cache``) instead, and
+raises if that cannot be written either. The name carries a hash of the sources and
+flags, so an edited source builds anew and an unchanged one is loaded as it is. The
+build works in a temporary directory and renames the library into place, so processes
+that build at the same time do not see each other's half-written files. A failed build
+raises.
 """
 from __future__ import annotations
 
@@ -20,10 +23,39 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "library", "library_path"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_dir", "find_nvcc", "library", "library_path"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "monai_tpu_torch"
+
+
+def _writable(path: Path) -> bool:
+    """``path`` can be made and written: it, or its nearest existing ancestor, is a
+    writable directory."""
+    while not path.exists():
+        if path.parent == path:
+            return False
+        path = path.parent
+    return path.is_dir() and os.access(path, os.W_OK | os.X_OK)
+
+
+def build_dir(package_root: Path | None = None) -> Path:
+    """Where the library is built: ``build/monai_tpu_torch`` beside the package in a
+    checkout (a directory that holds ``setup.py`` and the package), else, or when that
+    cannot be written, ``$XDG_CACHE_HOME/monai_tpu_torch/build`` (``~/.cache`` without
+    the variable). Raises if neither can be written."""
+    root = (package_root or Path(__file__).resolve().parents[1]).parent
+    if (root / "setup.py").is_file():
+        local = root / "build" / "monai_tpu_torch"
+        if _writable(local):
+            return local
+    cache = Path(os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache") / "monai_tpu_torch" / "build"
+    if _writable(cache):
+        return cache
+    raise RuntimeError(f"monai_tpu_torch: no writable build directory for the CUDA kernels (tried the checkout's "
+                       f"build/ and {cache}); set XDG_CACHE_HOME to a writable directory")
+
+
+BUILD_DIR = build_dir()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 

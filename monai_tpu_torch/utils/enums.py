@@ -3,8 +3,8 @@ from __future__ import annotations
 
 from enum import Enum
 
-__all__ = ["StrEnum", "BlendMode", "GridSampleMode", "GridSamplePadMode", "LazyAttr", "MetaKeys", "SpaceKeys",
-           "TraceKeys"]
+__all__ = ["StrEnum", "BlendMode", "CommonKeys", "GridSampleMode", "GridSamplePadMode", "LazyAttr", "LossReduction",
+           "MetaKeys", "MetricReduction", "SpaceKeys", "TraceKeys"]
 
 
 class StrEnum(str, Enum):
@@ -75,3 +75,29 @@ class LazyAttr(StrEnum):
     PADDING_MODE = "lazy_padding_mode"
     INTERP_MODE = "lazy_interpolation_mode"
     ALIGN_CORNERS = "lazy_align_corners"
+
+
+class CommonKeys(StrEnum):
+    """Engine batch and output keys."""
+
+    IMAGE = "image"
+    LABEL = "label"
+    PRED = "pred"
+    LOSS = "loss"
+    METADATA = "metadata"
+
+
+class LossReduction(StrEnum):
+    NONE = "none"
+    MEAN = "mean"
+    SUM = "sum"
+
+
+class MetricReduction(StrEnum):
+    NONE = "none"
+    MEAN = "mean"
+    SUM = "sum"
+    MEAN_BATCH = "mean_batch"
+    SUM_BATCH = "sum_batch"
+    MEAN_CHANNEL = "mean_channel"
+    SUM_CHANNEL = "sum_channel"

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of the port's sliding-window eval and filtering goes, on one NVIDIA GPU.
+"""Where the time of the port's sliding-window eval, filtering and training goes, on one NVIDIA GPU.
 
-Runs a chip_smoke.py sliding-window path or filtering stage and reports, per volume:
+Runs a chip_smoke.py sliding-window path, filtering stage or training step and reports,
+per volume (per step for ``--net train``):
 
 - ``--net unet`` or ``swinunetr``: the same network, inferer, 224x224x112 volume and
   bfloat16 weights as chip_smoke.py;
@@ -13,13 +14,17 @@ Runs a chip_smoke.py sliding-window path or filtering stage and reports, per vol
   (1, 1, 270, 270, 224) float32 volume of uniform noise in [0, 1);
 - ``--net crf``: ``CRF()`` over (1, 2, 270, 270, 224) float32 logits of standard normal
   noise with that volume as reference;
+- ``--net train``: one ``SupervisedTrainer(amp=True)`` iteration of the bench UNet
+  (chip_smoke.py phase 7: DiceCELoss, AdamW 1e-4 and 1e-4, a fixed batch of 4 96³
+  patches), outside inference mode;
 
 and for each:
 
 - wall time with the profiler off (synchronised), and the host's enqueue time (the
   call returning, before the device finishes);
 - under ``torch.profiler``: wall time, the device's kernel time (the sum of its kernels'
-  durations; one stream, so they do not overlap) and its idle share of the wall;
+  durations, user annotations left out; one stream, so they do not overlap) and its idle
+  share of the wall;
 - the kernels by device time, the port's own first.
 
 Run from the repository root: ``python3 scripts/profile_torch_sw.py --net swinunetr``
@@ -39,7 +44,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 OWN = {"window_attention": "window attention (CUDA)", "conv3d_3x3_same": "3x3x3 conv (CUDA)",
        "norm_persistent": "instance norm (CUDA)", "norm_onchip": "instance norm (CUDA)",
-       "bilateral_2d_kernel": "bilateral 2-D (CUDA)", "bilateral_3d_kernel": "bilateral 3-D (CUDA)"}
+       "bilateral_2d_kernel": "bilateral 2-D (CUDA)", "bilateral_3d_kernel": "bilateral 3-D (CUDA)",
+       "conv3d_wgrad": "3x3x3 conv dw (CUDA)", "norm_bwd": "instance norm backward (CUDA)"}
 
 
 def build(net_name: str, dev):
@@ -51,6 +57,23 @@ def build(net_name: str, dev):
 
     g = torch.Generator().manual_seed(0)
     gd = torch.Generator(device=dev).manual_seed(4)
+    if net_name == "train":
+        from monai_tpu_torch.engines import SupervisedTrainer
+        from monai_tpu_torch.losses import DiceCELoss
+
+        net = UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2), num_res_units=2, generator=g,
+                   device=dev)
+        batch = {"image": torch.rand((4, 1, 96, 96, 96), generator=gd, device=dev),
+                 "label": (torch.rand((4, 1, 96, 96, 96), generator=gd, device=dev) > 0.5).float()}
+        trainer = SupervisedTrainer(device=dev, train_data_loader=[batch], network=net, amp=True,
+                                    optimizer=torch.optim.AdamW(net.parameters(), lr=1e-4, weight_decay=1e-4),
+                                    loss_function=DiceCELoss(to_onehot_y=True, softmax=True))
+
+        def step():
+            trainer.state.epoch = 0  # each call runs the one-batch epoch again
+            trainer.run()
+
+        return step
     if net_name in ("grid", "crf"):
         img = torch.rand((1, 1, 270, 270, 224), generator=gd, device=dev)
         if net_name == "grid":
@@ -75,7 +98,7 @@ def build(net_name: str, dev):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--net", choices=("unet", "swinunetr", "spleen", "grid", "crf"), default="swinunetr")
+    ap.add_argument("--net", choices=("unet", "swinunetr", "spleen", "grid", "crf", "train"), default="swinunetr")
     ap.add_argument("--volumes", type=int, default=5, help="volumes profiled, after 3 warm-ups")
     ap.add_argument("--top", type=int, default=25, help="kernels listed")
     ap.add_argument("--trace", help="write a chrome trace here")
@@ -87,7 +110,7 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip()
     torch.backends.cudnn.allow_tf32 = False
     n = args.volumes
-    with torch.inference_mode():
+    with torch.inference_mode(args.net != "train"):
         run = build(args.net, dev)
         for _ in range(3):
             run()
@@ -109,7 +132,9 @@ def main() -> None:
             prof_wall = (time.perf_counter() - t0) / n
     by_name: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # a user annotation on the device's timeline (``Optimizer.step#AdamW.step``) spans
+        # kernels that are counted on their own
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
             rec = by_name[evt.name]
             rec[0] += evt.time_range.elapsed_us() / 1e3 / n
             rec[1] += 1

@@ -5,16 +5,24 @@ JAX Pallas kernel (``_conv3d_pallas_fwd`` in interpret mode, as
 tests/test_pallas_conv3d.py runs it) and to the XLA conv, in float32, tolerance 2e-4
 (absolute and relative; the sums run in another order). The kernel itself is held to
 the plain version on the card, in tests/test_torch_cuda_kernels.py.
+
+Under autograd the wrapper's backward (dx on the forward kernel, dw on the
+weight-gradient kernel; their plain versions here) is held to ``jax.vjp`` of the JAX
+``conv3d_3x3_same``, whose custom rule ``_conv3d_bwd_rule`` runs on the CPU, and to torch
+autograd of the plain forward: 1e-5 of max|ref| (float32 sums in another order).
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from monai_tpu.ops.pallas_conv3d import _conv3d_pallas_fwd, _xla_conv
+from monai_tpu.ops.pallas_conv3d import conv3d_3x3_same as jax_conv3d_3x3_same
 from monai_tpu_torch.networks.layers.factories import Conv
-from monai_tpu_torch.ops.conv3d import conv3d_3x3_same
+from monai_tpu_torch.ops.conv3d import (conv3d_3x3_same, conv3d_3x3_same_plain, conv3d_3x3_wgrad,
+                                        conv3d_3x3_wgrad_plain)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 
@@ -94,3 +102,46 @@ def test_conv_float16_matches_xla_on_the_rounded_inputs(shape, ci, co):
     assert got.dtype == torch.float16
     ref = np.asarray(_xla_conv(jnp.asarray(x16.astype(np.float32)), jnp.asarray(w16.astype(np.float32))))
     assert np.abs(got.float().numpy() - ref).max() <= 2e-3 * np.abs(ref).max()
+
+
+def _assert_rel(got, ref, tol=1e-5):
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape and np.abs(got - ref).max() <= tol * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("ci,co", [(1, 4), (4, 4), (8, 2)])
+def test_conv_vjp_matches_jax_rule_and_torch_autograd(ci, co):
+    x, w = _inputs(4, (2, 4, 5, 6), ci, co)
+    rng = np.random.RandomState(5)
+    g = rng.randn(2, 4, 5, 6, co).astype(np.float32)
+    b = rng.randn(co).astype(np.float32)
+    _, vjp = jax.vjp(jax_conv3d_3x3_same, jnp.asarray(x), jnp.asarray(w))
+    ref_dx, ref_dw = vjp(jnp.asarray(g))
+    xt, wt, bt = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    dx, dw, db = torch.autograd.grad(conv3d_3x3_same(xt, wt, bt), (xt, wt, bt), torch.from_numpy(g))
+    _assert_rel(dx.numpy(), ref_dx)
+    _assert_rel(dw.numpy(), ref_dw)
+    np.testing.assert_allclose(db.numpy(), g.sum((0, 1, 2, 3)), rtol=1e-5, atol=1e-5)
+    plain = torch.autograd.grad(conv3d_3x3_same_plain(xt, wt, bt), (xt, wt, bt), torch.from_numpy(g))
+    for a, r in zip((dx, dw, db), plain):
+        _assert_rel(a.numpy(), r.numpy())
+
+
+def test_wgrad_plain_is_the_correlation():
+    """The weight gradient's plain version against the XLA correlation the JAX rule runs."""
+    x, _ = _inputs(6, (1, 3, 4, 5), 3, 2)
+    g = np.random.RandomState(7).randn(1, 3, 4, 5, 2).astype(np.float32)
+    ref = jax.lax.conv_general_dilated(jnp.asarray(x).transpose(4, 1, 2, 3, 0), jnp.asarray(g).transpose(1, 2, 3, 0, 4),
+                                       (1, 1, 1), [(1, 1)] * 3,
+                                       dimension_numbers=("NDHWC", "DHWIO", "NDHWC")).transpose(1, 2, 3, 0, 4)
+    got = conv3d_3x3_wgrad(torch.from_numpy(x), torch.from_numpy(g))
+    assert torch.equal(got, conv3d_3x3_wgrad_plain(torch.from_numpy(x), torch.from_numpy(g)))
+    _assert_rel(got.numpy(), ref)
+
+
+def test_conv_backward_keeps_the_input_types():
+    """bfloat16 x and w give bfloat16 dx and dw, as the JAX rule casts them."""
+    x = torch.randn(1, 3, 4, 5, 4, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.randn(3, 3, 3, 4, 2, dtype=torch.bfloat16, requires_grad=True)
+    dx, dw = torch.autograd.grad(conv3d_3x3_same(x, w).float().sum(), (x, w))
+    assert dx.dtype == dw.dtype == torch.bfloat16 and dx.shape == x.shape and dw.shape == w.shape

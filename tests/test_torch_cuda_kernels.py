@@ -9,21 +9,28 @@ Tolerances, relative to max|plain output|: float32 1e-4 (sums in another order);
 bfloat16 1e-2 (both versions round an f32 sum to bf16, so they may differ by one bf16
 step, at most 2^-7 of the value); float16 2e-3 (one float16 step, 2^-10 of the value). The separable resample: 1e-5 at orders 1 and 3 (2 or 4
 taps a row, summed in another order than the dense product), bit-identical at order 0.
+The backward kernels (the conv's weight gradient, dx on the conv kernel, the norm's
+backward) take the same tolerances as the forward ones: sums in another order, rounded
+once to the output type.
 The bilateral stencil: 1e-5 (float32 sums of up to (2r+1)^sd taps in another order and
 exp on the card); a bfloat16 or float16 input is cast to float32 and its output back, so
 it may differ from the float32 result by one rounding of the output type.
 """
+import math
+
 import pytest
 import torch
 
 import numpy as np
 
-from monai_tpu_torch.networks.layers.fast_norm import (_card, instance_norm_plan, instance_norm_prelu,
-                                                      instance_norm_prelu_plain)
+from monai_tpu_torch.networks.layers.fast_norm import (_card, _forward, instance_norm_backward_plan, instance_norm_plan,
+                                                      instance_norm_prelu, instance_norm_prelu_backward,
+                                                      instance_norm_prelu_backward_plain, instance_norm_prelu_plain)
 from monai_tpu_torch.networks.nets import SwinUNETR, UNet
 from monai_tpu_torch.ops.bilateral import (PAIR_RADIUS, PAIR_RESIDENT, bilateral_exps, bilateral_plan,
                                            bilateral_stencil, bilateral_stencil_plain, card_resident)
-from monai_tpu_torch.ops.conv3d import conv3d_3x3_same, conv3d_3x3_same_plain
+from monai_tpu_torch.ops.conv3d import (conv3d_3x3_same, conv3d_3x3_same_plain, conv3d_3x3_wgrad,
+                                        conv3d_3x3_wgrad_plain, conv3d_3x3_wgrad_plan)
 from monai_tpu_torch.ops.filtering import bilateral_filter
 from monai_tpu_torch.ops.separable_resample import resample_plan, separable_resample_3d, separable_resample_3d_plain
 from monai_tpu_torch.ops.window_attention import (fused_window_attention, fused_window_attention_plain,
@@ -700,3 +707,227 @@ def test_bilateral_pair_residency_is_the_plans(cuda, sd, radius, warps_x):
     """The blocks an SM holds that the plan sizes the segments with are those the CUDA
     runtime works out for the built instance."""
     assert card_resident(cuda, sd, radius, warps_x) == PAIR_RESIDENT[sd][radius]
+
+
+# ---- the backward kernels: the conv's dw and dx, the norm's backward ----
+
+# ragged spatial shapes that no brick divides, N in {1, 2}
+WGRAD_SHAPES = [(1, 5, 6, 7), (2, 3, 9, 4)]
+
+
+def _wgrad_inputs(g, shape, ci, co, dtype, device):
+    x = torch.randn((*shape, ci), generator=g, device=device).to(dtype)
+    gy = torch.randn((*shape, co), generator=g, device=device).to(dtype)
+    return x, gy
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", WGRAD_SHAPES)
+@pytest.mark.parametrize("ci", [1, 2, 8, 16, 48, 256])
+@pytest.mark.parametrize("co", [2, 8, 16, 256])
+def test_conv_wgrad_kernel_grid(cuda, dtype, shape, ci, co):
+    """Every CI and CO class of the weight-gradient kernel: the tensor-core route where
+    both are multiples of 8 in bfloat16 and float16, the FMA route (no padded lanes at 1
+    and 2 channels) elsewhere."""
+    g = torch.Generator(device=cuda).manual_seed(ci * 1000 + co)
+    x, gy = _wgrad_inputs(g, shape, ci, co, dtype, cuda)
+    plan = conv3d_3x3_wgrad_plan(x, gy)
+    assert plan["route"] == ("mma" if dtype != torch.float32 and ci % 8 == 0 and co % 8 == 0 else "fma")
+    before = conv3d_3x3_wgrad.launches
+    got = conv3d_3x3_wgrad(x, gy)
+    assert conv3d_3x3_wgrad.launches == before + 1
+    assert got.dtype == dtype and got.shape == (3, 3, 3, ci, co)
+    _assert_close(got, conv3d_3x3_wgrad_plain(x, gy), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ci,co", [(16, 16), (2, 2), (32, 32)])
+def test_conv_wgrad_kernel_at_many_bricks(cuda, dtype, ci, co):
+    """K far longer than one chunk (2 x 40 x 48 x 56 voxels): each block walks over many
+    bricks, and the chunks' partials add up in order; the same bits twice."""
+    g = torch.Generator(device=cuda).manual_seed(ci + co)
+    x, gy = _wgrad_inputs(g, (2, 40, 48, 56), ci, co, dtype, cuda)
+    got = conv3d_3x3_wgrad(x, gy)
+    again = conv3d_3x3_wgrad(x, gy)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert conv3d_3x3_wgrad_plan(x, gy)["chunks"] > 1
+    _assert_close(got, conv3d_3x3_wgrad_plain(x, gy), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ci,co", [(16, 16), (8, 2), (48, 8)])
+def test_conv_wgrad_kernel_unaligned_inputs(cuda, dtype, ci, co):
+    """x and g one element into their storage (not 16-byte aligned) take the FMA route;
+    each view ends where its storage ends."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    shape = (1, 4, 5, 6)
+    x = torch.randn(1 + 120 * ci, generator=g, device=cuda).to(dtype)[1:].view(*shape, ci)
+    gy = torch.randn(1 + 120 * co, generator=g, device=cuda).to(dtype)[1:].view(*shape, co)
+    assert conv3d_3x3_wgrad_plan(x, gy)["route"] == "fma"
+    got = conv3d_3x3_wgrad(x, gy)
+    torch.cuda.synchronize()
+    _assert_close(got, conv3d_3x3_wgrad_plain(x, gy), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ci", [1, 2, 8, 16, 48, 256])
+@pytest.mark.parametrize("co", [2, 8, 16, 256])
+def test_conv_backward_on_the_kernels(cuda, dtype, ci, co):
+    """Autograd through the wrapper over the grid of CI and CO: dx on the forward kernel
+    (one more launch, at CO -> CI), dw on the weight-gradient kernel, db a float32 sum;
+    against autograd of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(ci * 7 + co)
+    shape = (2, 5, 6, 7)
+    x = torch.randn((*shape, ci), generator=g, device=cuda).to(dtype).requires_grad_()
+    w = (torch.randn((3, 3, 3, ci, co), generator=g, device=cuda) / (27 * ci) ** 0.5).to(dtype).requires_grad_()
+    b = torch.randn((co,), generator=g, device=cuda).to(dtype).requires_grad_()
+    gy = torch.randn((*shape, co), generator=g, device=cuda).to(dtype)
+    params = [x, w, b]
+    before = conv3d_3x3_same.launches, conv3d_3x3_wgrad.launches
+    got = torch.autograd.grad(conv3d_3x3_same(x, w, b), params, gy)
+    assert (conv3d_3x3_same.launches, conv3d_3x3_wgrad.launches) == (before[0] + 2, before[1] + 1)
+    ref = torch.autograd.grad(conv3d_3x3_same_plain(x, w, b), params, gy)
+    for a, r in zip(got, ref):
+        assert a.dtype == r.dtype == dtype
+        _assert_close(a, r, dtype)
+
+
+def _norm_bwd_inputs(g, shape, dtype, device, affine, slope, gamma=None):
+    c = shape[1]
+    x = (torch.randn(shape, generator=g, device=device) * 2 + 0.5).to(dtype)
+    fmt = torch.channels_last_3d if len(shape) == 5 else torch.channels_last
+    x = x.contiguous(memory_format=fmt)
+    gy = torch.randn(shape, generator=g, device=device).to(dtype).contiguous(memory_format=fmt)
+    w = b = a = None
+    if affine:
+        w = (torch.rand((c,), generator=g, device=device) + 0.5).to(dtype) if gamma is None else \
+            torch.full((c,), gamma, device=device).to(dtype)
+        b = torch.randn((c,), generator=g, device=device).to(dtype)
+    if slope == "one":
+        a = torch.full((1,), 0.25, device=device).to(dtype)
+    elif slope == "per_channel":
+        a = torch.rand((c,), generator=g, device=device).to(dtype)
+    return x, gy, w, b, a
+
+
+def _norm_bwd_check(x, gy, w, b, a, dtype):
+    with torch.inference_mode():
+        _, stats = _forward(x, w, b, a, 1e-5, True)
+        before = instance_norm_prelu_backward.launches
+        dx, sums = instance_norm_prelu_backward(gy, x, stats, w, b, a)
+        assert instance_norm_prelu_backward.launches == before + 1
+        again = instance_norm_prelu_backward(gy, x, stats, w, b, a)
+        torch.cuda.synchronize()
+        assert torch.equal(dx, again[0]) and torch.equal(sums, again[1])
+        ref_dx, ref_sums = instance_norm_prelu_backward_plain(gy, x, stats, w, b, a)
+    assert dx.dtype == dtype and dx.shape == x.shape
+    _assert_close(dx, ref_dx, dtype)
+    for s, r in zip(sums, ref_sums):  # float32 sums of float32 terms in another order
+        if r.abs().max().item() > 0:
+            _assert_close(s, r, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 1, 5, 6, 7), (2, 2, 9, 8, 7), (1, 3, 4, 4, 4), (3, 16, 6, 5, 4),
+                                   (2, 24, 7, 7, 7), (2, 64, 6, 6, 6), (1, 256, 3, 3, 3), (2, 8, 10, 12)])
+@pytest.mark.parametrize("affine,slope", [(False, None), (False, "one"), (True, "per_channel"), (True, "one")])
+def test_norm_backward_kernel_matches_plain(cuda, dtype, shape, affine, slope):
+    g = torch.Generator(device=cuda).manual_seed(shape[1] * 31 + len(shape))
+    x, gy, w, b, a = _norm_bwd_inputs(g, shape, dtype, cuda, affine, slope)
+    _norm_bwd_check(x, gy, w, b, a, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(4, 2, 48, 48, 48), (4, 16, 24, 24, 24), (2, 32, 20, 20, 20)])
+def test_norm_backward_kernel_split_path(cuda, dtype, shape):
+    """Instances that no block holds: the sums launch of several blocks an instance, then
+    the dx launch that adds their partials in order."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x, gy, w, b, a = _norm_bwd_inputs(g, shape, dtype, cuda, False, "one")
+    card, occupancy = _card(cuda.index or 0)
+    plan = instance_norm_backward_plan(shape[0], shape[1], math.prod(shape[2:]), dtype, True, card, occupancy)
+    assert plan["path"] == "split" and plan["per_unit"] > 1
+    _norm_bwd_check(x, gy, w, b, a, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("gamma", [0.0, 1e-4])
+def test_norm_backward_kernel_at_a_zero_weight(cuda, dtype, gamma):
+    """A weight of 0 or 1e-4: dx is 0 or tiny, and the weight's grad, the sum of gz x^,
+    still comes from x (not from the output, which holds no x^ at 0)."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x, gy, w, b, a = _norm_bwd_inputs(g, (2, 16, 6, 7, 8), dtype, cuda, True, "one", gamma=gamma)
+    _norm_bwd_check(x, gy, w, b, a, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [2, 16, 24])
+def test_norm_backward_kernel_unaligned_inputs(cuda, dtype, c):
+    """x and g one element into their storage take the general path (one element a load)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    shape = (2, 5, 6, 7, c)
+    n = torch.Size(shape).numel()
+    x = (torch.randn(1 + n, generator=g, device=cuda) * 2).to(dtype)[1:].view(shape).permute(0, 4, 1, 2, 3)
+    gy = torch.randn(1 + n, generator=g, device=cuda).to(dtype)[1:].view(shape).permute(0, 4, 1, 2, 3)
+    w = (torch.rand((c,), generator=g, device=cuda) + 0.5).to(dtype)
+    b = torch.randn((c,), generator=g, device=cuda).to(dtype)
+    a = torch.full((1,), 0.25, device=cuda).to(dtype)
+    _norm_bwd_check(x, gy, w, b, a, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_norm_autograd_on_the_kernels(cuda, dtype):
+    """Autograd through the wrapper, a channel-first grad coming back: the forward with its
+    statistics and the backward kernel, one launch each; against autograd of the plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x, _, w, b, a = _norm_bwd_inputs(g, (2, 16, 6, 7, 8), dtype, cuda, True, "per_channel")
+    gy = torch.randn(x.shape, generator=g, device=cuda).to(dtype)  # NCDHW memory
+    params = [t.requires_grad_() for t in (x, w, b, a)]
+    before = instance_norm_prelu.launches, instance_norm_prelu_backward.launches
+    got = torch.autograd.grad(instance_norm_prelu(x, w, b, a), params, gy)
+    assert (instance_norm_prelu.launches, instance_norm_prelu_backward.launches) == (before[0] + 1, before[1] + 1)
+    ref = torch.autograd.grad(instance_norm_prelu_plain(x, w, b, a), params, gy)
+    for t, r in zip(got, ref):
+        # the kernel's and the plain version's statistics differ in their last bits, and
+        # the parameter grads are sums over the batch and the space
+        _assert_close(t, r, dtype)
+
+
+def test_small_unet_train_step_on_card_matches_cpu(cuda):
+    """One float32 step of a small UNet's loss on the card against the CPU's: the loss and
+    every parameter's grad. The PReLU slopes are 1, so that no activation near 0 takes the
+    other branch on one side of the comparison; the conv biases that an instance norm
+    follows have an exact grad of 0 and are held to 1e-3 of their weight's grad instead."""
+    from monai_tpu_torch.losses import DiceCELoss
+    from monai_tpu_torch.networks.blocks.convolutions import Convolution
+
+    net = UNet(3, 1, 2, (4, 8, 16), (2, 2), num_res_units=2, generator=torch.Generator().manual_seed(0),
+               device="cpu")
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.PReLU):
+                m.weight.fill_(1.0)
+    zero = {f"{name}.conv.bias" for name, m in net.named_modules()
+            if isinstance(m, Convolution) and "adn" in m._modules and "N" in m.adn._modules}
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand((2, 1, 16, 16, 16), generator=gen)
+    y = (torch.rand((2, 1, 16, 16, 16), generator=gen) > 0.5).float()
+    loss_fn = DiceCELoss(to_onehot_y=True, softmax=True)
+    ref_loss = loss_fn(net(x), y)
+    ref_loss.backward()
+    ref = {k: p.grad.clone() for k, p in net.named_parameters()}
+    net.zero_grad()
+    net.to(cuda)
+    loss = loss_fn(net(x.to(cuda)), y.to(cuda))
+    loss.backward()
+    assert abs(loss.item() - ref_loss.item()) <= 1e-5 * abs(ref_loss.item())
+    grads = {k: p.grad.cpu() for k, p in net.named_parameters()}
+    for k, r in ref.items():
+        if k in zero:
+            weight = k[:-4] + "weight"
+            for g in (grads, ref):
+                assert g[k].abs().max().item() <= 1e-3 * g[weight].abs().max().item(), k
+        else:
+            assert (grads[k] - r).abs().max().item() <= 1e-3 * r.abs().max().item(), k

@@ -1,5 +1,10 @@
 """monai_tpu_torch as a package: imports without JAX, routes CPU tensors to the plain
-versions, and its kernel wrappers refuse what the kernels do not take."""
+versions, its kernel wrappers refuse what the kernels do not take, and an installed copy
+ships every kernel source and builds somewhere it can write."""
+import glob
+import importlib.util
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -44,6 +49,14 @@ def test_port_imports_no_jax():
             "                                             TrainableJointBilateralFilter)\n"
             "from monai_tpu_torch.networks.blocks import CRF\n"
             "from monai_tpu_torch.networks import filter_state_dict_from_jax\n"
+            "from monai_tpu_torch.engines import Events, IterationEvents, State, SupervisedTrainer, Workflow\n"
+            "from monai_tpu_torch.engines import default_prepare_batch\n"
+            "from monai_tpu_torch.losses import DiceCELoss, DiceLoss\n"
+            "from monai_tpu_torch.metrics import CumulativeIterationMetric, DiceMetric, compute_dice\n"
+            "from monai_tpu_torch.metrics import do_metric_reduction, ignore_background\n"
+            "from monai_tpu_torch.networks.utils import amp_model_view, cast_params_to_compute, one_hot\n"
+            "from monai_tpu_torch.ops.conv3d import conv3d_3x3_wgrad\n"
+            "from monai_tpu_torch.networks.layers.fast_norm import instance_norm_prelu_backward\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'monai_tpu', 'triton'))\n"
             "print(bad)\n"
             "assert not bad, bad\n")
@@ -52,7 +65,8 @@ def test_port_imports_no_jax():
 
 
 def test_lazy_subpackages():
-    assert set(monai_tpu_torch.__all__) == {"data", "inferers", "networks", "ops", "transforms", "utils"}
+    assert set(monai_tpu_torch.__all__) == {"data", "engines", "inferers", "losses", "metrics", "networks", "ops",
+                                            "transforms", "utils"}
     assert monai_tpu_torch.inferers.SlidingWindowInferer is not None
     with pytest.raises(AttributeError):
         monai_tpu_torch.not_a_subpackage
@@ -110,13 +124,27 @@ def test_norm_wrapper_rejects_unsupported(kwargs, error):
 
 
 def test_wrappers_refuse_grad():
-    w = torch.zeros(3, 3, 3, 2, 2, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        conv3d_3x3_same(torch.zeros(1, 2, 2, 2, 2), w)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        instance_norm_prelu(torch.zeros(1, 2, 3, 3, 3, requires_grad=True))
+    """The bilateral stencil has no backward; the conv and norm wrappers have one (below),
+    and window attention's refusal is tests/test_torch_window_attention.py's."""
     with pytest.raises(RuntimeError, match="forward-only"):
         bilateral_stencil(torch.zeros(1, 1, 4, 4, 4, requires_grad=True))
+
+
+def test_conv_wrapper_gives_grads():
+    x = torch.randn(1, 2, 3, 4, 2, requires_grad=True)
+    w = torch.randn(3, 3, 3, 2, 3, requires_grad=True)
+    b = torch.randn(3, requires_grad=True)
+    before = conv3d_3x3_same.launches
+    conv3d_3x3_same(x, w, b).square().sum().backward()
+    assert all(t.grad is not None and t.grad.shape == t.shape and t.grad.abs().max() > 0 for t in (x, w, b))
+    assert conv3d_3x3_same.launches == before  # CPU tensors: the plain versions
+
+
+def test_norm_wrapper_gives_grads():
+    x = torch.randn(2, 3, 3, 4, 5, requires_grad=True)
+    w, b, a = (torch.rand(3) + 0.5).requires_grad_(), torch.randn(3).requires_grad_(), torch.rand(1).requires_grad_()
+    (instance_norm_prelu(x, w, b, a) * torch.randn(2, 3, 3, 4, 5)).sum().backward()
+    assert all(t.grad is not None and t.grad.shape == t.shape and t.grad.abs().max() > 0 for t in (x, w, b, a))
 
 
 def test_trainable_filters_default_to_the_card(monkeypatch):
@@ -230,6 +258,71 @@ def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch, edited):
     assert _build.library_path() == path
     (src / edited).write_text((src / edited).read_text() + "\n// edit\n")
     assert _build.library_path() != path
+
+
+def test_backward_kernels_refuse_a_second_derivative():
+    """The backward kernels have no backward of their own: a graph of the grads raises."""
+    x = torch.randn(1, 2, 3, 4, 2, requires_grad=True)
+    w = torch.randn(3, 3, 3, 2, 2, requires_grad=True)
+    xn = torch.randn(1, 2, 3, 4, 5, requires_grad=True)
+    for out, inp in ((conv3d_3x3_same(x, w), x), (instance_norm_prelu(xn, slope=torch.full((1,), 0.25)), xn)):
+        (g,) = torch.autograd.grad(out.square().sum(), inp, create_graph=True)
+        with pytest.raises(RuntimeError, match="differentiate twice"):
+            g.square().sum().backward()
+
+
+def _globs_match(name: str) -> bool:
+    """``csrc/<name>`` is shipped by the port's package_data globs in setup.py."""
+    text = (REPO / "setup.py").read_text()
+    globs = re.search(r'"monai_tpu_torch":\s*\[([^\]]*)\]', text).group(1)
+    return any(Path("csrc", name).match(g.strip().strip('"')) for g in globs.split(","))
+
+
+def test_package_data_ships_every_kernel_source_and_header():
+    """An installed copy builds from what setup.py ships: every file that the library's
+    hash reads, and every header that a source includes."""
+    hashed = [p.name for p in _build.CSRC_DIR.glob("*.cu*")]
+    included = {m for p in _build.CSRC_DIR.glob("*.cu*") for m in re.findall(r'#include "([^"]+)"', p.read_text())}
+    assert "mma_sync.cuh" in included and "conv3d_3x3_wgrad.cu" in hashed
+    assert all(_globs_match(n) for n in [*hashed, *included])
+    assert all((_build.CSRC_DIR / n).is_file() for n in included)
+
+
+def _load_build_copy(tmp_path: Path):
+    """``ops/_build.py`` of a copy of the package under tmp_path/site-packages (no checkout
+    around it), loaded as a module of its own."""
+    pkg = tmp_path / "site-packages" / "monai_tpu_torch"
+    (pkg / "ops").mkdir(parents=True)
+    shutil.copy(REPO / "monai_tpu_torch" / "ops" / "_build.py", pkg / "ops" / "_build.py")
+    shutil.copytree(_build.CSRC_DIR, pkg / "csrc")
+    spec = importlib.util.spec_from_file_location("_build_copy", pkg / "ops" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, pkg
+
+
+def test_installed_copy_builds_into_a_writable_cache(tmp_path, monkeypatch):
+    cache = tmp_path / "cache"
+    monkeypatch.setenv("XDG_CACHE_HOME", str(cache))
+    mod, pkg = _load_build_copy(tmp_path)
+    assert mod.CSRC_DIR == pkg / "csrc"
+    assert mod.BUILD_DIR == cache / "monai_tpu_torch" / "build"
+    assert mod.library_path().parent == mod.BUILD_DIR and mod._writable(mod.BUILD_DIR)
+    monkeypatch.delenv("XDG_CACHE_HOME")
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    assert mod.build_dir() == tmp_path / "home" / ".cache" / "monai_tpu_torch" / "build"
+
+
+def test_build_dir_falls_back_and_raises_where_nothing_is_writable(tmp_path, monkeypatch):
+    """A checkout whose build/ cannot be written builds into the cache; with no writable
+    place at all, the build raises rather than failing later."""
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    local = REPO / "build" / "monai_tpu_torch"
+    monkeypatch.setattr(_build, "_writable", lambda p: p != local)
+    assert _build.build_dir() == tmp_path / "cache" / "monai_tpu_torch" / "build"
+    monkeypatch.setattr(_build, "_writable", lambda p: False)
+    with pytest.raises(RuntimeError, match="writable"):
+        _build.build_dir()
 
 
 def test_utils():
