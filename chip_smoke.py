@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port, monai_tpu_torch, on one NVIDIA GPU.
 
-Drives the port's four paths, each at full width with random weights from a seed:
+Drives the port's paths, each at full width with random weights from a seed:
 
 - UNet: the Spleen-CT 3-D UNet (channels 16-32-64-128-256, strides 2, two residual
   units, instance norm, PReLU) under ``SlidingWindowInferer``, one window batch of 18,
@@ -26,6 +26,12 @@ Drives the port's four paths, each at full width with random weights from a seed
   ``SupervisedTrainer(amp=True)`` with ``DiceCELoss(to_onehot_y=True, softmax=True)`` and
   AdamW (lr 1e-4, weight decay 1e-4) on batches of 4 96³ patches (x uniform, label
   uniform > 0.5, from a seed), bfloat16 compute on float32 master weights.
+- The Spleen bundle end to end: ``bundles/spleen_ct_segmentation/configs/inference.json``
+  as it stands, through the port's bundle runner (``monai_tpu_torch.bundle.run``, then
+  ``python -m monai_tpu_torch.bundle run``), over 4 copies of the spleen path's CT with its
+  weights as the bundle's checkpoint: Dataset, DataLoader, SupervisedEvaluator with
+  decollation, CheckpointLoader, the path above, and SaveImaged writing one label map a
+  volume.
 
   1. the card's name and power limit; the CUDA kernels built from the checkout's sources
   2. each kernel against its plain PyTorch version at every shape each path gives it, the
@@ -70,6 +76,15 @@ Drives the port's four paths, each at full width with random weights from a seed
      bit for bit; then ``SupervisedTrainer(amp=True)`` at batch 4, 3 warm-up iterations and
      20 timed: steps/s, patches/s, the median step, the peak memory, the launches a step
      of each kernel against the sites, and the loss at each step
+  8. the Spleen bundle's inference.json through the port's runner, overriding only its
+     bundle root and the ``imports`` and ``initialize`` that name the package, after a
+     warm-up over one volume: at 0 and at 2 loader threads, vols/s over 4 volumes, each
+     volume's time from the start of its iteration to its file written with the loader's
+     wait, the forward, the postprocessing and the write, the write's share, the peak
+     memory and the launches (counted across the threads); each saved file's type, shape,
+     affine and values, and its identity with phase 5's label map; the evaluator's network
+     against the checkpoint; the same through the command line; then a spleen forward and
+     a volume under torch's default TF32 setting against the CPU and the float32 labels
 
 It prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0; so it is without a CUDA device.
@@ -78,6 +93,7 @@ Run from the repository root: ``python3 chip_smoke.py``
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import statistics
@@ -106,6 +122,17 @@ SPLEEN_BATCH, SPLEEN_WINDOWS = 4, 48
 SPLEEN_PER_VOLUME = (120, 0, 0, 2, 0)  # 12 forwards of 10 convs; Spacing and its inverse
 SPLEEN_TIMED = 5  # volumes timed end to end, after one warm-up
 CT_PATH = Path(__file__).resolve().parent / "build" / "spleen_ct" / "ct_512x512x90.nii.gz"
+# The Spleen bundle's own inference.json through the port's runner: 4 copies of the CT, at 0
+# and 2 loader threads, the bundle root overridden and its imports and initialize naming the
+# port (as README gives them)
+BUNDLE_CONFIG = Path(__file__).resolve().parent / "bundles" / "spleen_ct_segmentation" / "configs" / "inference.json"
+BUNDLE_ROOT = Path(__file__).resolve().parent / "build" / "spleen_bundle"
+BUNDLE_VOLUMES, BUNDLE_WORKERS = 4, (0, 2)
+BUNDLE_OVERRIDES = {"imports": ["$import os", "$import glob", "$from monai_tpu_torch.handlers import from_engine"],
+                    "initialize": ["$import monai_tpu_torch", "$monai_tpu_torch.utils.set_determinism(seed=123)"]}
+# a voxel where a label map differs from another run's must be a near tie: its top-two
+# logit margin below this share of the logits' std
+TOL_TIE = 1e-4
 
 # Tolerances, relative to max|plain output|. bfloat16: both versions round an f32 sum to
 # bf16 (8-bit significand), so they may differ by one bf16 step, <= 2^-7 of the value;
@@ -716,10 +743,11 @@ def spleen_volume(pre, post, inferer, net) -> tuple[dict, dict, torch.Tensor, fl
     return stages, d, labels, wall
 
 
-def spleen_path(dev) -> tuple[tuple[int, ...], dict, torch.Tensor, torch.Tensor]:
+def spleen_path(dev) -> tuple[tuple[int, ...], dict, torch.Tensor, torch.Tensor, dict]:
     """Phase 5: the Spleen inference path on the card, then its checks against the CPU.
-    Returns the launch counts, the kernels' summaries, and the last volume's preprocessed
-    image (1, 1, 270, 270, 224) and logits (1, 2, 270, 270, 224) for phase 6."""
+    Returns the launch counts, the kernels' summaries, the last volume's preprocessed
+    image (1, 1, 270, 270, 224) and logits (1, 2, 270, 270, 224) for phase 6, and for
+    phase 8 the path's pieces with the net on the CPU and its label map."""
     from monai_tpu_torch.data import read_nifti
     from monai_tpu_torch.data.utils import dense_patch_slices
     from monai_tpu_torch.inferers import SlidingWindowInferer, compute_scan_interval
@@ -799,7 +827,8 @@ def spleen_path(dev) -> tuple[tuple[int, ...], dict, torch.Tensor, torch.Tensor]
     forward_check("spleen", net_cpu, net, {}, (10, 0, 0, 0, 0), dev)
     logits = inferer(image.data[None], net)  # the last volume's, for phase 6
     resample["cuda_launches"] = resample_cuda
-    return counts, {"conv": conv, "resample": resample}, image.data[None], logits
+    path = {"pre": pre, "post": post, "inferer": inferer, "net": net, "net_cpu": net_cpu, "labels": out.data.cpu()}
+    return counts, {"conv": conv, "resample": resample}, image.data[None], logits, path
 
 
 def exp_per_s() -> float:
@@ -1229,6 +1258,268 @@ def train_path(net_cpu, sites: tuple[Counter, Counter], dev) -> dict:
     return counts
 
 
+class StageClock:
+    """Per-iteration stamps of a bundle run, taken by wrapping the engine's pieces for the
+    run's length: the loader's wait for each batch, the forward (``_iteration``, then a
+    synchronise), the postprocessing (decollate, the transforms and the write, then a
+    synchronise) and the write alone (``NiftiWriter.write``: the label map's one copy to the
+    host, the gzip and the file); the devices of each stage's tensors, and the evaluator."""
+
+    def __init__(self):
+        from monai_tpu_torch.data import DataLoader, NiftiWriter
+        from monai_tpu_torch.engines import SupervisedEvaluator, Workflow
+
+        self.targets = [(DataLoader, "__iter__"), (SupervisedEvaluator, "_iteration"),
+                        (Workflow, "_apply_post_and_metrics"), (NiftiWriter, "write")]
+        self.iters, self.devices, self.evaluator, self.start, self.end = [], [], None, None, None
+
+    def __enter__(self):
+        self.saved = [getattr(cls, name) for cls, name in self.targets]
+        (it, iteration, post, write), clock = self.saved, self
+
+        def timed_iter(loader):
+            clock.start = time.perf_counter()
+            inner = it(loader)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(inner)
+                except StopIteration:
+                    return
+                clock.iters.append({"t0": t0, "wait": time.perf_counter() - t0})
+                clock.devices.append(("batch", batch["image"].data.device))
+                yield batch
+
+        def timed_iteration(engine, *args):
+            clock.evaluator = engine
+            t0 = time.perf_counter()
+            out = iteration(engine, *args)
+            torch.cuda.synchronize()
+            clock.iters[-1]["forward"] = time.perf_counter() - t0
+            clock.devices.append(("pred", out["pred"].device))
+            return out
+
+        def timed_post(engine):
+            t0 = time.perf_counter()
+            post(engine)
+            torch.cuda.synchronize()
+            clock.end = time.perf_counter()
+            clock.iters[-1].update(post=clock.end - t0, total=clock.end - clock.iters[-1]["t0"])
+
+        def timed_write(writer, *args, **kwargs):
+            clock.devices.append(("written", writer.data_obj.device))
+            t0 = time.perf_counter()
+            write(writer, *args, **kwargs)
+            clock.iters[-1]["write"] = clock.iters[-1].get("write", 0.0) + time.perf_counter() - t0
+
+        for (cls, name), fn in zip(self.targets, (timed_iter, timed_iteration, timed_post, timed_write)):
+            setattr(cls, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (cls, name), fn in zip(self.targets, self.saved):
+            setattr(cls, name, fn)
+
+
+def check_bundle_outputs(eval_dir: Path, volumes: int, labels: np.ndarray, same: np.ndarray, affine: np.ndarray,
+                         margins) -> list[int]:
+    """Each volume's saved label map: its path, type, shape, affine and values; identical
+    to ``same`` (phase 5's path re-run under the bundle's cuDNN settings), and where it
+    differs from ``labels`` (phase 5's own run), a near tie: a top-two logit margin
+    (``margins()``, relative to the logits' std) below TOL_TIE. Returns the voxels that
+    differ from phase 5's run, file by file."""
+    from monai_tpu_torch.data import read_nifti
+
+    differ = []
+    for i in range(volumes):
+        path = eval_dir / f"spleen_{i}" / f"spleen_{i}_seg.nii.gz"
+        require(path.is_file(), f"bundle: {path} was not written")
+        got, meta = read_nifti(path)
+        require(got.dtype == np.float32 and got.shape == CT_SHAPE, f"bundle: {path.name} is {got.dtype} {got.shape}")
+        require(np.abs(meta["affine"] - affine).max() <= 1e-9, f"bundle: {path.name} is not on the input's affine")
+        require(bool(np.isin(got, (0.0, 1.0)).all()), f"bundle: {path.name} holds values other than 0 and 1")
+        require(np.array_equal(got, same), f"bundle: {path.name} is not the label map of phase 5's path under the "
+                                           f"bundle's settings ({int((got != same).sum())} voxels differ)")
+        bad = got != labels
+        differ.append(int(bad.sum()))
+        if differ[-1]:
+            worst = float(margins()[bad].max())
+            require(worst < TOL_TIE, f"bundle: {path.name} differs from phase 5's label map beyond a near tie "
+                                     f"({differ[-1]} voxels, margins up to {worst:.3g} std)")
+    return differ
+
+
+def make_bundle_root(root: Path, volumes: int, state: dict) -> Path:
+    """A bundle root for inference.json: ``volumes`` copies of the CT (each decoded from its
+    own file) under data/Task09_Spleen/imagesTs and ``state`` as models/model_final.ckpt.
+    Returns the checkpoint's path."""
+    import shutil
+
+    data = root / "data" / "Task09_Spleen" / "imagesTs"
+    shutil.rmtree(root, ignore_errors=True)
+    data.mkdir(parents=True)
+    (root / "models").mkdir()
+    for i in range(volumes):
+        shutil.copyfile(CT_PATH, data / f"spleen_{i}.nii.gz")
+    torch.save({"model": state}, root / "models" / "model_final.ckpt")
+    return root / "models" / "model_final.ckpt"
+
+
+def bundle_phase(dev, spleen5: dict) -> tuple[int, ...]:
+    """Phase 8: the Spleen bundle's inference.json, run as it stands through the port's
+    ``bundle.run`` (overriding only ``bundle_root``, ``imports`` and ``initialize``) over 4
+    copies of phase 5's CT, with phase 5's weights in ``models/model_final.ckpt``: once as
+    the bundle sets its loader (no worker thread) and once with 2 threads, after a warm-up
+    over one volume; then through the command line, in a process of its own, over one.
+    Each file is checked against phase 5's label map; then a spleen forward and a volume
+    under torch's default TF32 setting. Returns the launch counts of the two timed runs."""
+    from monai_tpu_torch.bundle import run
+    from monai_tpu_torch.data import read_nifti
+    from monai_tpu_torch.transforms import Invertd, SaveImage
+
+    ckpt = make_bundle_root(BUNDLE_ROOT, BUNDLE_VOLUMES, spleen5["net_cpu"].state_dict())
+    overrides = {"bundle_root": str(BUNDLE_ROOT), **BUNDLE_OVERRIDES}
+    labels, affine = spleen5["labels"][0].numpy(), read_nifti(CT_PATH)[1]["affine"]
+    pre, post, inferer, net = spleen5["pre"], spleen5["post"], spleen5["inferer"], spleen5["net"]
+    cache = {}
+
+    def margins() -> np.ndarray:
+        """The top-two logit margin of phase 5's net on the CT, relative to the logits' std,
+        on the file's grid (inverted at nearest interpolation, as the labels are)."""
+        if "margins" not in cache:
+            with torch.inference_mode():
+                d = pre({"image": str(CT_PATH)})
+                logits = inferer(d["image"].data[None], net)[0]
+                m = ((logits[1] - logits[0]).abs() / logits.std())[None]
+                cache["margins"] = Invertd("pred", transform=pre, orig_keys="image")(
+                    {**d, "pred": m})["pred"].data[0].cpu().numpy()
+        return cache["margins"]
+
+    t0 = time.perf_counter()
+    run(config_file=str(BUNDLE_CONFIG), **overrides,
+        datalist=[{"image": str(BUNDLE_ROOT / "data" / "Task09_Spleen" / "imagesTs" / "spleen_0.nii.gz")}])
+    torch.cuda.synchronize()
+    print(f"bundle warm-up (one volume, with the parse, the net and the checkpoint): {time.perf_counter() - t0:.2f} s; "
+          f"cuDNN deterministic {torch.backends.cudnn.deterministic}, benchmark {torch.backends.cudnn.benchmark} "
+          f"(set_determinism), TF32 {torch.backends.cudnn.allow_tf32}", flush=True)
+    with torch.inference_mode():  # phase 5's path under the cuDNN settings the bundle set, twice
+        for _ in range(2):
+            stages, d, argmax, wall = spleen_volume(pre, post, inferer, net)
+            same = d["pred"].data[0].cpu().numpy()
+            del d, argmax  # their tensors would count in the bundle runs' peak memory
+    n_same = int((same != labels).sum())
+    print(f"phase 5's path under the bundle's settings: sliding window {stages['sliding_window'] * 1e3:.2f} ms, "
+          f"per volume {wall * 1e3:.2f} ms (the second of two volumes); {n_same} voxels differ from phase 5's "
+          f"label map" + (f", top-two logit margins up to {float(margins()[same != labels].max()):.3g} std"
+                          if n_same else ""), flush=True)
+    (BUNDLE_ROOT / "eval").rename(BUNDLE_ROOT / "eval_warmup")
+
+    totals = [0] * 5
+    for workers in BUNDLE_WORKERS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        extra = {"dataloader::num_workers": workers} if workers else {}
+        with StageClock() as clock:
+            t0 = time.perf_counter()
+            run(config_file=str(BUNDLE_CONFIG), **overrides, **extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts, resample_cuda = launch_counts(), _wrappers()[3].cuda_launches
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        its = clock.iters
+        require(len(its) == BUNDLE_VOLUMES and all("write" in it for it in its),
+                f"bundle ({workers} threads): {len(its)} iterations, not {BUNDLE_VOLUMES} each with a write")
+        med = {k: statistics.median(it[k] for it in its) * 1e3 for k in ("total", "wait", "forward", "post", "write")}
+        epoch = clock.end - clock.start
+        print(f"bundle run, {workers} loader threads: {BUNDLE_VOLUMES / epoch:.4f} vols/s over {BUNDLE_VOLUMES} volumes "
+              f"({epoch:.3f} s from the loader's start to the last file; the whole run {wall:.3f} s with its parse, "
+              f"net and checkpoint); per volume, medians (ms): iteration start to file written {med['total']:.2f}, "
+              f"loader wait {med['wait']:.2f}, forward {med['forward']:.2f}, postprocessing without the write "
+              f"{med['post'] - med['write']:.2f}, write {med['write']:.2f} (the write's share of the volumes' time "
+              f"{sum(it['write'] for it in its) / sum(it['total'] for it in its):.4f}); per volume (ms): "
+              f"{[round(it['total'] * 1e3, 2) for it in its]}, loader waits {[round(it['wait'] * 1e3, 2) for it in its]}; "
+              f"peak memory {peak_gb:.2f} GB; launches conv {counts[0]}, norm {counts[1]}, attention {counts[2]}, "
+              f"resample {counts[3]} ({resample_cuda} CUDA launches), bilateral {counts[4]}", flush=True)
+        require(counts == tuple(n * BUNDLE_VOLUMES for n in SPLEEN_PER_VOLUME),
+                f"bundle ({workers} threads): {BUNDLE_VOLUMES} volumes launched {counts}, not {SPLEEN_PER_VOLUME} each")
+        require(resample_cuda == SPLEEN_PER_VOLUME[3] * BUNDLE_VOLUMES, f"bundle: {resample_cuda} resample launches")
+        require(all(dv.type == "cuda" for _, dv in clock.devices), f"bundle: a stage left the card: {clock.devices}")
+        file_state = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+        loaded = clock.evaluator.network.state_dict()
+        require(set(loaded) == set(file_state) and all(torch.equal(loaded[k].cpu(), v) for k, v in file_state.items()),
+                "bundle: the evaluator's network is not the checkpoint's (CheckpointLoader did not run)")
+        differ = check_bundle_outputs(BUNDLE_ROOT / "eval", BUNDLE_VOLUMES, labels, same, affine, margins)
+        print(f"bundle run, {workers} loader threads: {BUNDLE_VOLUMES} files at eval/spleen_i/spleen_i_seg.nii.gz, "
+              f"float32 {CT_SHAPE} on the input's affine, labels 0 and 1, each identical to phase 5's path under the "
+              f"bundle's settings; voxels that differ from phase 5's own label map: {differ}; every stage's tensors "
+              f"on the card; the evaluator's network equals the checkpoint", flush=True)
+        (BUNDLE_ROOT / "eval").rename(BUNDLE_ROOT / f"eval_{workers}_threads")
+        totals = [a + b for a, b in zip(totals, counts)]
+
+    # the write alone of a smooth label map of the same shape and type (the phantom's
+    # spleen): gzip's time depends on what it compresses
+    smooth = np.zeros(CT_SHAPE, np.float32)
+    x, y, z = (np.linspace(-1, 1, n, dtype=np.float32) for n in CT_SHAPE)
+    smooth[((x[:, None, None] - 0.45) ** 2 + (y[None, :, None] + 0.25) ** 2) / 0.02 + z[None, None] ** 2 / 0.25 < 1] = 1
+    saver = SaveImage(output_dir=str(BUNDLE_ROOT / "eval_write"), output_postfix="seg", print_log=False)
+    t0 = time.perf_counter()
+    saver(torch.from_numpy(smooth)[None].to(dev), meta_data={"affine": affine, "filename_or_obj": "smooth.nii.gz"})
+    print(f"write alone, a smooth label map ({100 * smooth.mean():.2f}% label 1, "
+          f"{(BUNDLE_ROOT / 'eval_write' / 'smooth' / 'smooth_seg.nii.gz').stat().st_size / 1e6:.3f} MB gzipped): "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms; the bundle's label map ({100 * labels.mean():.2f}% label 1, "
+          f"{(BUNDLE_ROOT / 'eval_0_threads' / 'spleen_0' / 'spleen_0_seg.nii.gz').stat().st_size / 1e6:.3f} MB "
+          f"gzipped) took the write times above", flush=True)
+
+    # the command line, as README gives it, in a process of its own, on a root of one volume
+    cli_root = BUNDLE_ROOT.parent / "spleen_bundle_cli"
+    make_bundle_root(cli_root, 1, spleen5["net_cpu"].state_dict())
+    cmd = [sys.executable, "-m", "monai_tpu_torch.bundle", "run", "--config_file", str(BUNDLE_CONFIG),
+           "--bundle_root", str(cli_root), "--imports", json.dumps(BUNDLE_OVERRIDES["imports"]),
+           "--initialize", json.dumps(BUNDLE_OVERRIDES["initialize"])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=300)
+    require(proc.returncode == 0, f"bundle command line failed:\n{proc.stderr[-3000:]}")
+    differ = check_bundle_outputs(cli_root / "eval", 1, labels, same, affine, margins)
+    print(f"bundle command line (python -m monai_tpu_torch.bundle run, torch's default TF32 setting): one volume in "
+          f"{time.perf_counter() - t0:.1f} s with the process's start; identical to phase 5's path under the bundle's "
+          f"settings; voxels that differ from phase 5's own label map: {differ}", flush=True)
+
+    # torch's default settings, as a user's process has them (cuDNN may use TF32 for float32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = True, False
+    try:
+        with torch.inference_mode():
+            d = pre({"image": str(CT_PATH)})
+            tf32 = post({**d, "pred": inferer(d["image"].data[None], net)[0]})["pred"].data[0].cpu().numpy()
+            bad = tf32 != labels
+            worst = float(margins()[bad].max()) if bad.any() else 0.0
+            print(f"spleen volume under torch's defaults (TF32 allowed): label agreement with phase 5's float32 label "
+                  f"map {1 - bad.mean():.8f} ({int(bad.sum())} voxels differ, top-two logit margins up to {worst:.3g} "
+                  f"std; tie tolerance {TOL_TIE})", flush=True)
+            require(worst < TOL_TIE, "spleen: the label map under torch's TF32 default differs beyond a near tie")
+            forward_check("spleen under torch's TF32 default", spleen5["net_cpu"], net, {}, (10, 0, 0, 0, 0), dev)
+            # what the TF32 default does where the port does not turn it off (no gate: the fault
+            # that full_float32 repairs)
+            import monai_tpu_torch.networks.layers.factories as factories
+
+            kept, factories.full_float32 = factories.full_float32, lambda x: contextlib.nullcontext()
+            try:
+                window = torch.rand((1, 1, *ROI), generator=torch.Generator().manual_seed(1))
+                ref = spleen5["net_cpu"](window)
+                err = (net(window.to(dev)).cpu() - ref).abs().max().item() / ref.std().item()
+                raw = post({**d, "pred": inferer(d["image"].data[None], net)[0]})["pred"].data[0].cpu().numpy()
+            finally:
+                factories.full_float32 = kept
+            bad = raw != labels
+            print(f"spleen with cuDNN's float32 convs on TF32 (the port's full_float32 taken out): forward 96^3 max err "
+                  f"{err:.4g} std (the float32 gate {TOL_FWD_F32_MAX}); volume label agreement with the float32 map "
+                  f"{1 - bad.mean():.8f} ({int(bad.sum())} voxels differ, margins up to "
+                  f"{float(margins()[bad].max()) if bad.any() else 0.0:.3g} std)", flush=True)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return tuple(totals)
+
+
 def training_phase(dev) -> tuple[dict, dict]:
     """Phase 7: the training path's kernels at its sites, the batch-1 step against the CPU,
     and the trainer. Returns the launch counts of the trainer's timed run and the
@@ -1310,12 +1601,12 @@ def inference_phases(dev) -> tuple:
         torch.cuda.empty_cache()
 
         # 5. the Spleen inference path, its kernels at its shapes, and its checks against the CPU
-        spleen_counts, spleen, image, logits = spleen_path(dev)
+        spleen_counts, spleen, image, logits, spleen5 = spleen_path(dev)
 
         # 6. the filtering path on the spleen path's data, and its checks
         filtering = filtering_path(dev, image, logits)
         del image, logits
-    return summaries, unet_counts, swin_counts, spleen_counts, spleen, filtering
+    return summaries, unet_counts, swin_counts, spleen_counts, spleen, filtering, spleen5
 
 
 def main() -> None:
@@ -1336,10 +1627,15 @@ def main() -> None:
     library()
     print(f"build: {library_path().name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    summaries, unet_counts, swin_counts, spleen_counts, spleen, filtering = inference_phases(dev)
+    summaries, unet_counts, swin_counts, spleen_counts, spleen, filtering, spleen5 = inference_phases(dev)
 
     # 7. the training path, outside inference mode
     train_counts, train = training_phase(dev)
+
+    # 8. the Spleen bundle's inference.json through the port's runner, file to file (last:
+    # its set_determinism changes cuDNN's global settings)
+    bundle_counts = bundle_phase(dev, spleen5)
+    del spleen5
 
     training = [
         {"name": "conv3d_3x3_wgrad", "route": "cuda", "source": "monai_tpu_torch/csrc/conv3d_3x3_wgrad.cu",
@@ -1370,7 +1666,8 @@ def main() -> None:
     kernels = [
         {"name": "conv3d_3x3_same", "route": "cuda", "source": "monai_tpu_torch/csrc/conv3d_3x3_same.cu",
          "replaces": "monai_tpu/ops/pallas_conv3d.py:91",
-         "launches": unet_counts[0] + swin_counts[0] + spleen_counts[0] + train_counts["conv3d_3x3_same"],
+         "launches": unet_counts[0] + swin_counts[0] + spleen_counts[0] + train_counts["conv3d_3x3_same"]
+         + bundle_counts[0],
          **merged(0)},
         {"name": "instance_norm_prelu", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
          "replaces": "monai_tpu/networks/layers/fast_norm.py:44",
@@ -1379,7 +1676,8 @@ def main() -> None:
          "replaces": "monai_tpu/ops/pallas_window_attention.py:106", "launches": swin_counts[2],
          **summaries["swinunetr"][2]},
         {"name": "separable_resample_3d", "route": "cuda", "source": "monai_tpu_torch/csrc/separable_resample_3d.cu",
-         "replaces": "monai_tpu/ops/pallas_resample.py:117", "launches": spleen_counts[3], **spleen["resample"]},
+         "replaces": "monai_tpu/ops/pallas_resample.py:117", "launches": spleen_counts[3] + bundle_counts[3],
+         **spleen["resample"]},
         {"name": "bilateral_filter_2d", "route": "cuda", "source": "monai_tpu_torch/csrc/bilateral_filter.cu",
          "replaces": "monai_tpu/ops/pallas_filtering.py:99", **filtering["B"]},
         {"name": "bilateral_filter_3d", "route": "cuda", "source": "monai_tpu_torch/csrc/bilateral_filter.cu",

@@ -11,7 +11,8 @@ import sys
 
 __version__ = "0.1.0"
 
-__all__ = ["data", "engines", "inferers", "losses", "metrics", "networks", "ops", "transforms", "utils"]
+__all__ = ["bundle", "data", "engines", "handlers", "inferers", "losses", "metrics", "networks", "ops", "transforms",
+           "utils"]
 
 _SUBMODULES = set(__all__)
 

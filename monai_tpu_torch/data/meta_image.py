@@ -9,6 +9,10 @@ As in the JAX package, MetaImage is a thin wrapper and not a tensor subclass:
 - ``meta``: a plain dict (filename, original affine, spatial shape, ...).
 - ``applied_operations`` and ``pending_operations``: the stacks that make the spatial
   transforms invertible and let pending operations fuse into one resample.
+- ``is_batch``: True for a collated batch (``data.utils.list_data_collate``), whose
+  ``data`` is (B, C, ...), ``affine`` (B, D+1, D+1), ``meta["batched_meta"]`` and
+  ``applied_operations`` a list with one entry per item, until ``decollate_batch``
+  gives the items back.
 """
 from __future__ import annotations
 
@@ -28,12 +32,14 @@ class MetaImage:
     """Tensor with affine, metadata and transform trace; see the module docstring."""
 
     def __init__(self, data: Any, affine: np.ndarray | None = None, meta: dict | None = None,
-                 applied_operations: list | None = None, pending_operations: list | None = None):
+                 applied_operations: list | None = None, pending_operations: list | None = None,
+                 is_batch: bool = False):
         if isinstance(data, MetaImage):
             affine = data.affine if affine is None else affine
             meta = dict(data.meta) if meta is None else meta
             applied_operations = list(data.applied_operations) if applied_operations is None else applied_operations
             pending_operations = list(data.pending_operations) if pending_operations is None else pending_operations
+            is_batch = is_batch or data.is_batch
             data = data.data
         self.data: torch.Tensor = data if isinstance(data, torch.Tensor) else torch.as_tensor(np.asarray(data))
         self.meta: dict = dict(meta) if meta else {}
@@ -47,6 +53,7 @@ class MetaImage:
         self.meta.setdefault(MetaKeys.SPACE, SpaceKeys.RAS)
         self.applied_operations: list = list(applied_operations) if applied_operations else []
         self.pending_operations: list = list(pending_operations) if pending_operations else []
+        self.is_batch = is_batch
 
     @property
     def affine(self) -> np.ndarray:
@@ -102,7 +109,7 @@ class MetaImage:
         """A MetaImage holding ``data`` and a shallow copy of this one's metadata."""
         return MetaImage(data, affine=np.array(self.affine), meta=dict(self.meta),
                          applied_operations=list(self.applied_operations),
-                         pending_operations=list(self.pending_operations))
+                         pending_operations=list(self.pending_operations), is_batch=self.is_batch)
 
     @staticmethod
     def ensure_meta(img: Any) -> "MetaImage":

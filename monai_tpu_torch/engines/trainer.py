@@ -36,6 +36,8 @@ class SupervisedTrainer(Trainer):
 
     ``optimizer`` is a ``torch.optim`` optimizer over ``network``'s parameters;
     ``optim_set_to_none`` clears the grads to None rather than to zeros before each step.
+    ``decollate`` is off by default (the JAX package's is on): the step's postprocessing
+    and metrics take the whole batch until the training bundle's handlers need items.
     ``compile`` and ``compile_kwargs`` are taken for the JAX package's signature and do
     nothing: the step runs eagerly."""
 
@@ -46,13 +48,13 @@ class SupervisedTrainer(Trainer):
                  inferer: Inferer | None = None, postprocessing: Callable | None = None,
                  key_train_metric: dict | None = None, additional_metrics: dict | None = None,
                  metric_cmp_fn: Callable = lambda cur, best: cur > best, train_handlers: Sequence | None = None,
-                 amp: bool = False, optim_set_to_none: bool = False, compile: bool = True,
+                 amp: bool = False, decollate: bool = False, optim_set_to_none: bool = False, compile: bool = True,
                  compile_kwargs: dict | None = None):
         super().__init__(device=device, max_epochs=max_epochs, data_loader=train_data_loader,
                          epoch_length=epoch_length, non_blocking=non_blocking, prepare_batch=prepare_batch,
                          iteration_update=iteration_update, postprocessing=postprocessing,
                          key_metric=key_train_metric, additional_metrics=additional_metrics,
-                         metric_cmp_fn=metric_cmp_fn, handlers=train_handlers, amp=amp)
+                         metric_cmp_fn=metric_cmp_fn, handlers=train_handlers, amp=amp, decollate=decollate)
         self.network = network
         self.optimizer = optimizer
         self.loss_function = loss_function

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from ..data.meta_image import MetaImage
 from ..utils.enums import CommonKeys
 from .events import IterationEvents  # noqa: F401 (kept here as the JAX package keeps it)
 
@@ -10,14 +11,18 @@ __all__ = ["IterationEvents", "default_prepare_batch"]
 
 
 def _to_device(x, device, non_blocking: bool):
-    if x is None or device is None or not isinstance(x, torch.Tensor):
+    if device is None:
         return x
-    return x.to(device, non_blocking=non_blocking)
+    if isinstance(x, MetaImage):
+        return x.new_like(x.data.to(device, non_blocking=non_blocking))
+    if isinstance(x, torch.Tensor):
+        return x.to(device, non_blocking=non_blocking)
+    return x
 
 
 def default_prepare_batch(batchdata, device=None, non_blocking: bool = False, **kwargs):
     """(image, label) of a batch dict (label None where it has none), or of an (image,
-    label) pair, moved to ``device``."""
+    label) pair, moved to ``device`` (a MetaImage with its meta)."""
     if not isinstance(batchdata, dict):
         if isinstance(batchdata, (tuple, list)) and len(batchdata) >= 2:
             return _to_device(batchdata[0], device, non_blocking), _to_device(batchdata[1], device, non_blocking)

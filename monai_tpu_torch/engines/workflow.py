@@ -1,8 +1,9 @@
 """Workflow engine (counterpart of monai_tpu/engines/workflow.py): the epoch and
 iteration loop, its events, the engine state and the metrics fed from each iteration's
-output. Batches are not decollated in the port yet: ``postprocessing``, where given,
-runs on each iteration's whole output dict, and the metrics take its ``pred`` and
-``label``."""
+output. With ``decollate`` each iteration's output dict becomes the list of its items
+(``data.utils.decollate_batch``), ``postprocessing`` runs on each item, and the batch
+is decollated beside it; without, ``postprocessing`` runs on the whole output dict. The
+metrics take ``pred`` and ``label`` (stacked again where decollated)."""
 from __future__ import annotations
 
 from collections.abc import Callable, Iterable, Sequence
@@ -10,6 +11,8 @@ from typing import Any
 
 import torch
 
+from ..data.utils import decollate_batch
+from ..transforms.transform import apply_transform
 from ..utils.backend import resolve_device
 from ..utils.enums import CommonKeys
 from .events import EventEmitter, Events
@@ -48,7 +51,7 @@ class Workflow(EventEmitter):
                  iteration_update: Callable | None = None, postprocessing: Callable | None = None,
                  key_metric: dict | None = None, additional_metrics: dict | None = None,
                  metric_cmp_fn: Callable = lambda cur, best: cur > best, handlers: Sequence | None = None,
-                 amp: bool = False):
+                 amp: bool = False, decollate: bool = True):
         super().__init__()
         self.device = resolve_device(device)
         self.state = State(max_epochs=max_epochs, device=self.device)
@@ -58,6 +61,7 @@ class Workflow(EventEmitter):
         self.metric_cmp_fn = metric_cmp_fn
         self.amp = amp
         self.postprocessing = postprocessing
+        self.decollate = decollate
         self._iteration_update = iteration_update
         if epoch_length is None and data_loader is not None:
             try:
@@ -99,11 +103,25 @@ class Workflow(EventEmitter):
         out = self.state.output
         if not isinstance(out, dict):
             return
-        if self.postprocessing is not None:
-            out = self.state.output = self.postprocessing(out)
+        if self.decollate:
+            items = decollate_batch(out)
+            if self.postprocessing is not None:
+                items = [apply_transform(self.postprocessing, item, map_items=False) for item in items]
+            self.state.output = items
+            if isinstance(self.state.batch, dict):
+                self.state.batch = decollate_batch(self.state.batch)
+            preds, labels = ([item.get(k) for item in items] for k in (CommonKeys.PRED, CommonKeys.LABEL))
+            if not self.metrics or any(v is None for v in preds + labels):
+                return
+            pred, label = (torch.stack([getattr(v, "data", v) for v in vs]) for vs in (preds, labels))
+        else:
+            if self.postprocessing is not None:
+                out = self.state.output = self.postprocessing(out)
+            pred, label = out.get(CommonKeys.PRED), out.get(CommonKeys.LABEL)
+            if pred is None or label is None:
+                return
         for metric in self.metrics.values():
-            if out.get(CommonKeys.PRED) is not None and out.get(CommonKeys.LABEL) is not None:
-                metric(out[CommonKeys.PRED], out[CommonKeys.LABEL])
+            metric(pred, label)
 
     def run(self) -> None:
         """The epochs, each over the data loader (at most ``epoch_length`` batches)."""

@@ -4,7 +4,10 @@ monai_tpu/networks/layers/factories.py, for the layers the UNet and SwinUNETR us
 ``Conv[Conv.CONV, 3]`` gives a constructor of ``Conv3d``, which sends a 3x3x3
 stride-1 SAME convolution to the CUDA kernel (``ops/conv3d.py``); every other
 convolution (1x1, the strided patch embedding) and every transposed convolution is
-``F.conv3d`` / ``F.conv_transpose3d``, as the JAX package leaves them to XLA.
+``F.conv3d`` / ``F.conv_transpose3d``, as the JAX package leaves them to XLA. Those
+run in full float32 on float32 CUDA inputs whatever torch's TF32 setting
+(``full_float32``): torch's default lets cuDNN round their float32 inputs to TF32's
+10-bit mantissa, and the port's float32 path is held to the CPU's float32.
 ``Norm``: instance runs the CUDA kernel of ``fast_norm.py``; batch is
 ``nn.BatchNorm{n}d`` (eps 1e-5, plain PyTorch, as the JAX package has no kernel for
 it); layer is ``nn.LayerNorm`` with the JAX package's eps of 1e-6 (torch MONAI uses
@@ -27,9 +30,10 @@ import torch
 from torch import nn
 
 from ...ops.conv3d import conv3d_3x3_same
+from ...utils.backend import full_float32
 from .fast_norm import InstanceNorm
 
-__all__ = ["LayerFactory", "Conv", "ConvTrans", "Norm", "Act", "Dropout", "Conv3d", "split_args",
+__all__ = ["LayerFactory", "Conv", "ConvTrans", "Norm", "Act", "Dropout", "Conv3d", "ConvTranspose3d", "split_args",
            "get_act_layer", "get_dropout_layer", "get_norm_layer", "init_uniform_", "linear"]
 
 
@@ -95,9 +99,26 @@ def linear(in_features: int, out_features: int, bias: bool = True, device=None, 
     return init_uniform_(nn.Linear(in_features, out_features, bias=bias, device=device, dtype=dtype), generator)
 
 
+def _exact_float32(base: type) -> type:
+    """``base``, a torch convolution module, with its calls in ``full_float32``."""
+
+    class Exact(base):
+        def forward(self, x: torch.Tensor, *args) -> torch.Tensor:
+            with full_float32(x):
+                return super().forward(x, *args)
+
+    Exact.__name__ = Exact.__qualname__ = base.__name__
+    Exact.__doc__ = f"``nn.{base.__name__}`` in full float32 on float32 CUDA inputs (``full_float32``)."
+    return Exact
+
+
+ConvTranspose3d = _exact_float32(nn.ConvTranspose3d)
+
+
 class Conv3d(nn.Conv3d):
     """``nn.Conv3d`` whose 3x3x3, stride-1, dilation-1, ungrouped, zero-padded SAME case
-    runs ``ops.conv3d.conv3d_3x3_same`` on the channels-last view of its input."""
+    runs ``ops.conv3d.conv3d_3x3_same`` on the channels-last view of its input; any other
+    runs cuDNN, in full float32 on float32 CUDA inputs (``full_float32``)."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -107,14 +128,15 @@ class Conv3d(nn.Conv3d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.same_3x3x3:
-            return super().forward(x)
+            with full_float32(x):
+                return super().forward(x)
         w = self.weight.permute(2, 3, 4, 1, 0).contiguous()  # (O,I,kd,kh,kw) -> (kd,kh,kw,I,O)
         y = conv3d_3x3_same(x.permute(0, 2, 3, 4, 1).contiguous(), w, self.bias)
         return y.permute(0, 4, 1, 2, 3)  # channel-first view, channels-last memory
 
 
-_CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: Conv3d}
-_CONVTRANS = {1: nn.ConvTranspose1d, 2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
+_CONV = {1: _exact_float32(nn.Conv1d), 2: _exact_float32(nn.Conv2d), 3: Conv3d}
+_CONVTRANS = {1: _exact_float32(nn.ConvTranspose1d), 2: _exact_float32(nn.ConvTranspose2d), 3: ConvTranspose3d}
 _DROPOUT = {1: nn.Dropout, 2: nn.Dropout2d, 3: nn.Dropout3d}
 _BATCHNORM = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
 

@@ -39,6 +39,8 @@ import torch
 from torch.autograd.function import once_differentiable
 from torch import nn
 
+from ...utils.counters import count_launch
+
 __all__ = ["InstanceNorm", "instance_norm_backward_plan", "instance_norm_plan", "instance_norm_prelu",
            "instance_norm_prelu_backward", "instance_norm_prelu_backward_plain", "instance_norm_prelu_plain"]
 
@@ -399,7 +401,7 @@ def _forward(x, weight, bias, slope, eps: float, want_stats: bool) -> tuple[torc
     if err != 0:
         raise RuntimeError(f"instance_norm_prelu: CUDA launch failed with error {err} "
                            f"(x {tuple(x.shape)} {x.dtype}, plan {p})")
-    instance_norm_prelu.launches += 1
+    count_launch(instance_norm_prelu)
     return out, stats
 
 
@@ -457,7 +459,7 @@ def instance_norm_prelu_backward(g: torch.Tensor, x: torch.Tensor, stats: torch.
     if err != 0:
         raise RuntimeError(f"instance_norm_prelu_backward: CUDA launch failed with error {err} "
                            f"(x {tuple(x.shape)} {x.dtype}, plan {p})")
-    instance_norm_prelu_backward.launches += 1
+    count_launch(instance_norm_prelu_backward)
     return dx, sums
 
 

@@ -9,8 +9,8 @@ with a plain C interface, loaded with ``ctypes``. The library lands in
 raises if that cannot be written either. The name carries a hash of the sources and
 flags, so an edited source builds anew and an unchanged one is loaded as it is. The
 build works in a temporary directory and renames the library into place, so processes
-that build at the same time do not see each other's half-written files. A failed build
-raises.
+that build at the same time do not see each other's half-written files; the threads of
+one process build once, under a lock. A failed build raises.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_dir", "find_nvcc", "library", "library_path"]
@@ -111,9 +112,18 @@ def _compile(out: Path) -> None:
         os.replace(lib, out)
 
 
-@functools.cache
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
+    """The kernels' shared library, built on first use. Threads that reach it at once
+    (the DataLoader's workers beside the main thread) wait for one build."""
+    with _LIBRARY_LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     path = library_path()
     if not path.exists():
         _compile(path)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ._build import library
+from ..utils.counters import count_launch
 
 __all__ = ["bilateral_exps", "bilateral_plan", "bilateral_stencil", "bilateral_stencil_plain", "card_resident",
            "edge_pad", "filter_radius", "spatial_weights"]
@@ -306,7 +307,7 @@ def _launch(img: torch.Tensor, spatial_sigma: float, color_sigma: float, truncat
     if err != 0:
         raise RuntimeError(f"bilateral_stencil: CUDA launch failed with error {err} "
                            f"({tuple(img.shape)}, radius {radius}, {plan['label']})")
-    bilateral_stencil.launches += 1
+    count_launch(bilateral_stencil)
     return out.to(img.dtype)
 
 

@@ -24,6 +24,7 @@ from torch.autograd.function import once_differentiable
 import torch.nn.functional as F
 
 from ._build import library
+from ..utils.counters import count_launch
 
 __all__ = ["conv3d_3x3_same", "conv3d_3x3_same_plain", "conv3d_3x3_wgrad", "conv3d_3x3_wgrad_plain"]
 
@@ -88,7 +89,7 @@ def _forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> tor
     if err != 0:
         raise RuntimeError(f"conv3d_3x3_same: CUDA launch failed with error {err} "
                            f"(x {tuple(x.shape)} {x.dtype}, CO {co})")
-    conv3d_3x3_same.launches += 1
+    count_launch(conv3d_3x3_same)
     return y
 
 
@@ -200,7 +201,7 @@ def conv3d_3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"conv3d_3x3_wgrad: CUDA launch failed with error {err} "
                            f"(x {tuple(x.shape)} {x.dtype}, CO {co}, plan {plan})")
-    conv3d_3x3_wgrad.launches += 1
+    count_launch(conv3d_3x3_wgrad)
     return dw
 
 

@@ -3,7 +3,8 @@
 
 One 1-D correlation per spatial axis (``F.conv1d`` on the axis moved last), for any
 number of axes: the bilateral grid blurs a 3-D image's grid over four, which the JAX
-package's ``lax.conv_general_dilated`` helper does not take.
+package's ``lax.conv_general_dilated`` helper does not take. A float32 CUDA tensor's
+correlations run in full float32 whatever torch's TF32 setting (``full_float32``).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.backend import full_float32
 from ..utils.misc import ensure_tuple_rep
 
 __all__ = ["gaussian_1d", "gaussian_filter", "separable_filtering"]
@@ -90,7 +92,8 @@ def separable_filtering(x: torch.Tensor, kernels: Sequence, mode: str = "zeros")
         else:
             idx = torch.from_numpy(_padded_index(n, before, after, pad_mode)).to(out.device)
             line = moved.index_select(-1, idx).reshape(-1, 1, n + ksize - 1)
-        filtered = F.conv1d(line, k.view(1, 1, ksize)).reshape(moved.shape)
+        with full_float32(line):
+            filtered = F.conv1d(line, k.view(1, 1, ksize)).reshape(moved.shape)
         out = filtered.movedim(-1, axis + 1)
     return out.contiguous()
 

@@ -29,6 +29,7 @@ import torch
 
 from ._build import library
 from .separable import interp_matrix, is_separable, separable_affine_resample
+from ..utils.counters import count_launch
 
 __all__ = ["ResamplePlan", "interp_taps", "resample_plan", "separable_resample_3d", "separable_resample_3d_plain",
            "taps_from_matrix"]
@@ -421,8 +422,8 @@ def _launch(img: torch.Tensor, plan: ResamplePlan) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"separable_resample_3d: CUDA launch failed with error {err} "
                            f"({tuple(img.shape)} -> {plan.out_shape}, route {plan.route}, tile {plan.tile})")
-    separable_resample_3d.launches += 1
-    separable_resample_3d.cuda_launches += launched.value
+    count_launch(separable_resample_3d)
+    count_launch(separable_resample_3d, launched.value, "cuda_launches")
     return out
 
 

@@ -17,6 +17,7 @@ import functools
 import torch
 
 from ._build import library
+from ..utils.counters import count_launch
 
 __all__ = ["fused_window_attention", "fused_window_attention_plain", "window_attention_plan"]
 
@@ -123,7 +124,7 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bi
     if err != 0:
         raise RuntimeError(f"fused_window_attention: CUDA launch failed with error {err} "
                            f"(q {tuple(q.shape)} {q.dtype}, mask {None if mask is None else tuple(mask.shape)})")
-    fused_window_attention.launches += 1
+    count_launch(fused_window_attention)
     return out
 
 

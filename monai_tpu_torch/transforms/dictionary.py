@@ -1,5 +1,6 @@
 """Dictionary versions of the ported transforms (counterpart of
-monai_tpu/transforms/dictionary.py): the ``<Name>d`` of each, and ``Invertd``."""
+monai_tpu/transforms/dictionary.py): the ``<Name>d`` of each, ``Invertd`` and
+``SaveImaged``."""
 from __future__ import annotations
 
 from collections.abc import Mapping, Sequence
@@ -12,7 +13,7 @@ from ..utils.misc import ensure_tuple_rep
 from .compose import Compose
 from .intensity_array import ScaleIntensityRange
 from .inverse import InvertibleTransform
-from .io_array import LoadImage
+from .io_array import LoadImage, SaveImage
 from .post_array import Activations, AsDiscrete
 from .spatial_array import Orientation, Spacing
 from .traits import LazyTrait
@@ -20,7 +21,7 @@ from .transform import MapTransform
 from .utility_array import EnsureChannelFirst
 
 __all__ = ["LoadImaged", "EnsureChannelFirstd", "Orientationd", "Spacingd", "ScaleIntensityRanged", "Activationsd",
-           "AsDiscreted", "Invertd"]
+           "AsDiscreted", "Invertd", "SaveImaged"]
 
 
 def _mapped(name: str, array_cls, call_kwargs: tuple = ()):
@@ -80,8 +81,11 @@ class LoadImaged(MapTransform):
 
 class Invertd(MapTransform):
     """Invert ``transform`` on predictions: graft the operations that ``transform``
-    recorded on ``orig_keys``' images, with their affine, onto each prediction and run
-    ``transform.inverse`` (at nearest interpolation where ``nearest_interp``)."""
+    recorded on ``orig_keys``' images, with their affine and meta, onto each prediction
+    and run ``transform.inverse`` (at nearest interpolation where ``nearest_interp``).
+    The prediction so keeps its image's ``filename_or_obj``, which names its file in
+    ``SaveImaged``, as in torch MONAI's Invertd (monai_tpu's keeps the prediction's own
+    meta, and its files are named by a running index)."""
 
     def __init__(self, keys, transform: InvertibleTransform, orig_keys=None,
                  nearest_interp: bool | Sequence[bool] = True, allow_missing_keys: bool = False):
@@ -98,9 +102,8 @@ class Invertd(MapTransform):
             orig = d.get(orig_key)
             pred = MetaImage.ensure_meta(d[key])
             if isinstance(orig, MetaImage):
-                pred = pred.new_like(pred.data)
-                pred.applied_operations = [dict(op) for op in orig.applied_operations]
-                pred.affine = np.asarray(orig.affine).copy()
+                pred = MetaImage(pred.data, affine=np.asarray(orig.affine).copy(), meta=dict(orig.meta),
+                                 applied_operations=[dict(op) for op in orig.applied_operations])
             if nearest_interp:
                 for op in pred.applied_operations:
                     if LazyAttr.INTERP_MODE in op:
@@ -111,4 +114,31 @@ class Invertd(MapTransform):
                 d[key] = self.transform.inverse({orig_key: pred})[orig_key]  # a dict pipeline
             else:
                 d[key] = self.transform.inverse(pred)
+        return d
+
+
+class SaveImaged(MapTransform):
+    """``SaveImage`` of each key's image, named from its own meta, or from the dict's
+    ``meta_keys`` entry (``<key>_<meta_key_postfix>``) where the image is a bare
+    tensor."""
+
+    def __init__(self, keys, meta_keys=None, meta_key_postfix: str = "meta_dict", output_dir: str = "./",
+                 output_postfix: str = "trans", output_ext: str = ".nii.gz", resample: bool = False,
+                 output_dtype=np.float32, allow_missing_keys: bool = False, squeeze_end_dims: bool = True,
+                 data_root_dir: str = "", separate_folder: bool = True, print_log: bool = True, writer=None,
+                 folder_layout=None):
+        MapTransform.__init__(self, keys, allow_missing_keys)
+        self.saver = SaveImage(output_dir=output_dir, output_postfix=output_postfix, output_ext=output_ext,
+                               output_dtype=output_dtype, resample=resample, squeeze_end_dims=squeeze_end_dims,
+                               data_root_dir=data_root_dir, separate_folder=separate_folder, print_log=print_log,
+                               writer=writer, folder_layout=folder_layout)
+        self.meta_keys = ensure_tuple_rep(meta_keys, len(self.keys))
+        self.meta_key_postfix = ensure_tuple_rep(meta_key_postfix, len(self.keys))
+
+    def __call__(self, data: Mapping) -> dict:
+        d = dict(data)
+        for key, meta_key, postfix in self.key_iterator(d, self.meta_keys, self.meta_key_postfix):
+            if meta_key is None and postfix is not None:
+                meta_key = f"{key}_{postfix}"
+            self.saver(d[key], meta_data=d.get(meta_key) if meta_key is not None else None)
         return d

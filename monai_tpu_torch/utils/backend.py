@@ -1,13 +1,17 @@
 """numpy ⇄ torch conversion, device and dtype helpers (counterpart of
-monai_tpu/utils/backend.py, which does the same between numpy and jax.numpy)."""
+monai_tpu/utils/backend.py, which does the same between numpy and jax.numpy), and the
+float32 precision of the port's cuDNN calls."""
 from __future__ import annotations
 
+import contextlib
+import threading
+from collections.abc import Iterator
 from typing import Any
 
 import numpy as np
 import torch
 
-__all__ = ["get_torch_dtype", "resolve_device", "to_numpy", "to_torch"]
+__all__ = ["full_float32", "get_torch_dtype", "resolve_device", "to_numpy", "to_torch"]
 
 _NAMED_DTYPES = {"float32": torch.float32, "float": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16, "half": torch.float16, "float64": torch.float64}
@@ -50,3 +54,24 @@ def to_numpy(x: Any, dtype: Any = None) -> np.ndarray:
         x = x.cpu().numpy()
     out = np.asarray(x)
     return out if dtype is None else out.astype(dtype, copy=False)
+
+
+_TF32_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def full_float32(x: torch.Tensor) -> Iterator[None]:
+    """Around a cuDNN call on ``x``: where ``x`` is a float32 CUDA tensor, TF32 is off
+    (``torch.backends.cudnn.allow_tf32``) for the call and the caller's setting comes
+    back after. The setting is global, so threads that run such calls at once take
+    turns; a float32 convolution's backward runs later, under the caller's setting."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        yield
+        return
+    with _TF32_LOCK:
+        before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = before

@@ -101,3 +101,12 @@ class MetricReduction(StrEnum):
     SUM_BATCH = "sum_batch"
     MEAN_CHANNEL = "mean_channel"
     SUM_CHANNEL = "sum_channel"
+
+
+class CompInitMode(StrEnum):
+    """How a bundle config's ``_mode_`` instantiates a ``_target_``."""
+
+    DEFAULT = "default"
+    CALLABLE = "callable"
+    DEBUG = "debug"
+    PARTIAL = "partial"

@@ -931,3 +931,26 @@ def test_small_unet_train_step_on_card_matches_cpu(cuda):
                 assert g[k].abs().max().item() <= 1e-3 * g[weight].abs().max().item(), k
         else:
             assert (grads[k] - r).abs().max().item() <= 1e-3 * r.abs().max().item(), k
+
+
+def test_float32_unet_and_blur_ignore_the_tf32_setting(cuda):
+    """The spleen bundle's batch-norm UNet and the Gaussian blur give the same bits in
+    float32 whether torch lets cuDNN use TF32 (its default) or not: the port runs its
+    cuDNN calls in full float32 on float32 inputs."""
+    from monai_tpu_torch.ops.gaussian import gaussian_filter
+
+    net = UNet(3, 1, 2, (16, 32, 64, 128, 256), (2, 2, 2, 2), num_res_units=2, norm="batch",
+               generator=torch.Generator().manual_seed(0), device=cuda).eval()
+    x = torch.rand((2, 1, 64, 64, 64), generator=torch.Generator().manual_seed(1)).to(cuda)
+    out = {}
+    torch.backends.cudnn.deterministic = True  # the same algorithms, run to run
+    try:
+        with torch.inference_mode():
+            for tf32 in (False, True, False):
+                torch.backends.cudnn.allow_tf32 = tf32
+                out.setdefault(tf32, []).append((net(x), gaussian_filter(x, 2.0)))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, False
+    (a, ga), (b, gb) = out[False]
+    (c, gc), = out[True]
+    assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(ga, gb) and torch.equal(ga, gc)

@@ -7,6 +7,8 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -57,6 +59,16 @@ def test_port_imports_no_jax():
             "from monai_tpu_torch.networks.utils import amp_model_view, cast_params_to_compute, one_hot\n"
             "from monai_tpu_torch.ops.conv3d import conv3d_3x3_wgrad\n"
             "from monai_tpu_torch.networks.layers.fast_norm import instance_norm_prelu_backward\n"
+            "from monai_tpu_torch.bundle import ComponentLocator, ConfigParser, ConfigWorkflow, run\n"
+            "import monai_tpu_torch.bundle.__main__\n"
+            "from monai_tpu_torch.data import DataLoader, Dataset, FolderLayout, NiftiWriter, decollate_batch\n"
+            "from monai_tpu_torch.data import list_data_collate, register_writer, resolve_writer\n"
+            "from monai_tpu_torch.engines import Evaluator, SupervisedEvaluator\n"
+            "from monai_tpu_torch.handlers import CheckpointLoader, from_engine\n"
+            "from monai_tpu_torch.transforms import SaveImage, SaveImaged\n"
+            "from monai_tpu_torch.utils import get_seed, instantiate, locate, optional_import, set_determinism\n"
+            "from monai_tpu_torch.utils.counters import count_launch\n"
+            "ComponentLocator().get_component_module_name('UNet')  # imports every module of the port\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'monai_tpu', 'triton'))\n"
             "print(bad)\n"
             "assert not bad, bad\n")
@@ -65,8 +77,8 @@ def test_port_imports_no_jax():
 
 
 def test_lazy_subpackages():
-    assert set(monai_tpu_torch.__all__) == {"data", "engines", "inferers", "losses", "metrics", "networks", "ops",
-                                            "transforms", "utils"}
+    assert set(monai_tpu_torch.__all__) == {"bundle", "data", "engines", "handlers", "inferers", "losses", "metrics",
+                                            "networks", "ops", "transforms", "utils"}
     assert monai_tpu_torch.inferers.SlidingWindowInferer is not None
     with pytest.raises(AttributeError):
         monai_tpu_torch.not_a_subpackage
@@ -330,3 +342,141 @@ def test_utils():
     assert get_torch_dtype("bfloat16") is torch.bfloat16 and get_torch_dtype(np.float32) is torch.float32
     t = to_torch(np.arange(4, dtype=np.float32), dtype="bfloat16")
     assert t.dtype is torch.bfloat16 and to_numpy(t).dtype == np.float32
+
+
+def test_launch_counts_are_exact_across_threads():
+    """``count_launch`` loses no count when threads add at once, with the interpreter
+    switching threads as often as it can; every kernel wrapper counts through it."""
+    from monai_tpu_torch.utils.counters import count_launch
+
+    def stub():
+        pass
+
+    stub.launches = stub.cuda_launches = 0
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [(count_launch(stub), count_launch(stub, 2, "cuda_launches"))
+                                                    for _ in range(5000)]) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sys.setswitchinterval(old)
+    assert (stub.launches, stub.cuda_launches) == (40000, 80000)
+    sources = [p.read_text() for p in (REPO / "monai_tpu_torch").rglob("*.py")]
+    assert not any(re.search(r"\.(cuda_)?launches \+=", src) for src in sources)
+    assert sum(src.count("count_launch(") for src in sources) >= 8
+
+
+def test_library_builds_once_when_threads_reach_it_together(tmp_path, monkeypatch):
+    """Threads that call ``library()`` at once on first use wait for one build."""
+    builds, barrier = [], threading.Barrier(6)
+
+    def slow_compile(path):
+        builds.append(path)
+        time.sleep(0.2)
+        path.write_bytes(b"")
+
+    monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "libstub.so")
+    monkeypatch.setattr(_build, "_compile", slow_compile)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: ("loaded", path))
+    _build._load.cache_clear()
+    got = []
+    try:
+        threads = [threading.Thread(target=lambda: (barrier.wait(), got.append(_build.library()))) for _ in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        _build._load.cache_clear()
+    assert builds == [tmp_path / "libstub.so"] and len(got) == 6 and len(set(got)) == 1
+
+
+def test_evaluator_and_checkpoint_loader_default_to_the_card(monkeypatch, tmp_path):
+    from monai_tpu_torch.engines import SupervisedEvaluator
+    from monai_tpu_torch.handlers import CheckpointLoader
+
+    net = UNet(3, 1, 2, (4, 8), (2,), device="cpu")
+    torch.save({"model": net.state_dict()}, tmp_path / "model.pt")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SupervisedEvaluator(val_data_loader=[], network=net)
+    evaluator = SupervisedEvaluator(device="cpu", val_data_loader=[], network=net)
+    seen = []
+    monkeypatch.setattr(torch, "load", lambda path, map_location=None, **kw: seen.append(map_location) or {})
+    loader = CheckpointLoader(str(tmp_path / "model.pt"), {"model": net}, strict=False)
+    loader(evaluator)
+    assert seen == [torch.device("cpu")]
+    evaluator.state.device = torch.device("cuda")  # a card engine: the file is mapped to the card
+    loader(evaluator)
+    assert seen[-1] == torch.device("cuda")
+
+
+class _CudaFloat32:
+    """Stands for a float32 CUDA tensor where there is no card."""
+
+    device, dtype = torch.device("cuda"), torch.float32
+
+
+def test_full_float32_turns_tf32_off_for_float32_cuda_calls_only():
+    from monai_tpu_torch.utils import full_float32
+
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with full_float32(_CudaFloat32()):
+            assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is True
+        for x in (torch.zeros(1), torch.zeros(1, dtype=torch.bfloat16)):
+            with full_float32(x):
+                assert torch.backends.cudnn.allow_tf32 is True
+        with pytest.raises(ValueError), full_float32(_CudaFloat32()):
+            raise ValueError
+        assert torch.backends.cudnn.allow_tf32 is True
+        seen = []
+
+        def call():
+            with full_float32(_CudaFloat32()):
+                time.sleep(0.01)
+                seen.append(torch.backends.cudnn.allow_tf32)
+
+        threads = [threading.Thread(target=call) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert seen == [False] * 4 and torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def test_every_cudnn_conv_of_the_spleen_unet_and_the_blur_runs_in_full_float32(monkeypatch):
+    """The spleen UNet's strided, 1x1 and transposed convs (cuDNN on the card) and the
+    Gaussian blur's correlations each run inside ``full_float32``; the 3x3x3 convs are
+    kernel 1, in float32 already."""
+    import monai_tpu_torch.networks.layers.factories as factories
+    import monai_tpu_torch.ops.gaussian as gaussian
+    from monai_tpu_torch.utils import full_float32
+
+    calls = []
+
+    def spy(x):
+        calls.append(tuple(x.shape))
+        return full_float32(x)
+
+    monkeypatch.setattr(factories, "full_float32", spy)
+    monkeypatch.setattr(gaussian, "full_float32", spy)
+    net = UNet(3, 1, 2, (4, 4, 4, 4, 4), (2, 2, 2, 2), num_res_units=2, norm="batch", device="cpu").eval()
+    with torch.inference_mode():
+        net(torch.rand(1, 1, 16, 16, 16))
+    convs = [m for m in net.modules() if isinstance(m, torch.nn.modules.conv._ConvNd)]
+    assert len(calls) == sum(not getattr(m, "same_3x3x3", False) for m in convs) == 12
+    calls.clear()
+    correlations = []
+    conv1d = torch.nn.functional.conv1d
+    monkeypatch.setattr(gaussian.F, "conv1d", lambda *a, **k: correlations.append(1) or conv1d(*a, **k))
+    gaussian.gaussian_filter(torch.rand(1, 1, 6, 6, 6), 1.0)
+    assert len(calls) == len(correlations) >= 3
