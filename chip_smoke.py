@@ -26,6 +26,12 @@ Drives the port's paths, each at full width with random weights from a seed:
   ``SupervisedTrainer(amp=True)`` with ``DiceCELoss(to_onehot_y=True, softmax=True)`` and
   AdamW (lr 1e-4, weight decay 1e-4) on batches of 4 96³ patches (x uniform, label
   uniform > 0.5, from a seed), bfloat16 compute on float32 master weights.
+- BTCV training: the BTCV bundle's ``SwinUNETR(1, 14, feature_size=48)`` trained in
+  float32 by ``SupervisedTrainer`` (no amp) with ``DiceCELoss(to_onehot_y=True,
+  softmax=True)`` and AdamW (lr 1e-4, weight decay 1e-5) on batches of 4 96³ patches, under
+  torch's default TF32 setting; and the BTCV bundle's ``train.json`` through the port's
+  runner on synthetic data (CacheDataset, the random crops, flips, rotations and shift,
+  the validation, the statistics and the checkpoint).
 - The Spleen bundle end to end: ``bundles/spleen_ct_segmentation/configs/inference.json``
   as it stands, through the port's bundle runner (``monai_tpu_torch.bundle.run``, then
   ``python -m monai_tpu_torch.bundle run``), over 4 copies of the spleen path's CT with its
@@ -85,6 +91,22 @@ Drives the port's paths, each at full width with random weights from a seed:
      affine and values, and its identity with phase 5's label map; the evaluator's network
      against the checkpoint; the same through the command line; then a spleen forward and
      a volume under torch's default TF32 setting against the CPU and the float32 labels
+  9. (run after 7, before 8) the BTCV SwinUNETR's float32 training step: the window
+     attention's backward kernel against its plain version at the step's eight sites (head
+     dim 16) and the bench SwinUNETR's (head dim 8), masked and unmasked, in float32,
+     bfloat16 and float16, two calls bit for bit, float32 timed against the plain version,
+     autograd of SDPA and the bound; the conv's and the norm's backward kernels at the Swin
+     sites in float32 and bfloat16; one batch-1 32³ step on the card against the port's CPU
+     step; then ``SupervisedTrainer`` in float32 at batch 4, 2 warm-up iterations and 10
+     timed with cuDNN's TF32 allowed as by default: steps/s, the median step, the peak
+     memory, the launches a step of each kernel against the sites, each loss
+  10. (last) the BTCV bundle's ``train.json`` through the port's runner, overriding its
+     bundle root, imports and initialize (the port's), its optimizer (``torch.optim.AdamW``,
+     the file's rates) and its datalists (the file's expressions at 160x160x200, which its
+     96³ crops fit): the synthetic data's and the cache fill's time, two epochs' steps,
+     steps/s and times, each validation's time and ``val_mean_dice``, the peak memory and
+     the launches; each crop batch (4, 1, 96, 96, 96) on the card, the checkpoint against
+     the trained network; then the command line as a process of its own for one epoch
 
 It prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0; so it is without a CUDA device.
@@ -96,6 +118,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -241,12 +265,23 @@ def _backward_wrappers():
     return conv3d_3x3_wgrad, instance_norm_prelu_backward
 
 
+def _attention_backward():
+    from monai_tpu_torch.ops.window_attention import fused_window_attention_backward
+
+    return fused_window_attention_backward
+
+
 def launch_counts() -> tuple[int, ...]:
     return tuple(w.launches for w in _wrappers())
 
 
+def all_launch_counts() -> dict:
+    """Every kernel wrapper's launches, by its name."""
+    return {w.__name__: w.launches for w in (*_wrappers(), *_backward_wrappers(), _attention_backward())}
+
+
 def reset_launch_counts() -> None:
-    for w in (*_wrappers(), *_backward_wrappers()):
+    for w in (*_wrappers(), *_backward_wrappers(), _attention_backward()):
         w.launches = 0
     _wrappers()[3].cuda_launches = 0  # the resample's CUDA launches, which its C function counts
 
@@ -977,19 +1012,20 @@ def _conv_backward_library(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor, ma
                                                        [0, 0, 0], 1, mask)
 
 
-def check_conv_backward(sites: Counter, batch: int, dev) -> tuple[dict, dict]:
-    """At every conv site of the training step, in bfloat16, float32 and float16: the weight
-    gradient kernel (dw of x and g) and dx on the conv kernel (g and the flipped, transposed
-    weights) against their plain versions; bfloat16 also timed against the plain versions
-    and cuDNN's ``aten.convolution_backward`` with dw's or dx's output mask. Returns the
-    kernels-line numbers of dw and of dx, summed over a step's sites."""
+def check_conv_backward(sites: Counter, batch: int, dev, checked=None, timed: bool = True) -> tuple[dict, dict]:
+    """At every conv site of the training step, in bfloat16, float32 and float16 (or the
+    ``checked`` types): the weight gradient kernel (dw of x and g) and dx on the conv
+    kernel (g and the flipped, transposed weights) against their plain versions; where
+    ``timed``, bfloat16 also timed against the plain versions and cuDNN's
+    ``aten.convolution_backward`` with dw's or dx's output mask. Returns the kernels-line
+    numbers of dw and of dx, summed over a step's sites."""
     from monai_tpu_torch.ops.conv3d import (conv3d_3x3_same, conv3d_3x3_same_plain, conv3d_3x3_wgrad,
                                             conv3d_3x3_wgrad_plain, conv3d_3x3_wgrad_plan)
 
     g = torch.Generator(device=dev).manual_seed(7)
     dw_rows, dx_rows = [], []
     for (ci, co, sp), count in sorted(sites.items()):
-        for dtype, tol in CHECKED:
+        for dtype, tol in checked or CHECKED:
             x = torch.randn((batch, *sp, ci), generator=g, device=dev).to(dtype)
             gy = torch.randn((batch, *sp, co), generator=g, device=dev).to(dtype)
             w = (torch.randn((3, 3, 3, ci, co), generator=g, device=dev) / (27 * ci) ** 0.5).to(dtype)
@@ -1004,7 +1040,7 @@ def check_conv_backward(sites: Counter, batch: int, dev) -> tuple[dict, dict]:
             msg = (f"conv backward {ci:3d}->{co:3d} @{sp} x{count} {str(dtype)[6:]:8s} dw max_abs_err {err_w:.4g} "
                    f"({rel_w:.3g} of max|ref|), dx {err_x:.4g} ({rel_x:.3g}), tol {tol}; dw plan {plan['route']}, "
                    f"{plan['chunks']} chunks, {plan['blocks']} blocks of {plan['threads']}")
-            if dtype == torch.bfloat16:
+            if timed and dtype == torch.bfloat16:
                 flops = 2.0 * batch * np.prod(sp) * 27 * ci * co
                 size = x.element_size()
                 k_ms, p_ms = paired_ms(lambda: conv3d_3x3_wgrad(x, gy), lambda: conv3d_3x3_wgrad_plain(x, gy), iters=10)
@@ -1023,13 +1059,13 @@ def check_conv_backward(sites: Counter, batch: int, dev) -> tuple[dict, dict]:
     return _summary(dw_rows), _summary(dx_rows)
 
 
-def check_norm_backward(sites: Counter, batch: int, dev) -> dict:
-    """At every norm site of the training step, in bfloat16, float32 and float16: the
-    backward kernel against its plain version, from the forward kernel's statistics (dx,
-    and the three float32 sums the parameter grads come from, 1e-4 of max|ref|: sums in
-    another order); bfloat16 also timed against the plain version and autograd's backward
-    of ``F.instance_norm`` without the slope (the library call). The bound: x and g read
-    once, dx written once."""
+def check_norm_backward(sites: Counter, batch: int, dev, checked=None, timed: bool = True) -> dict:
+    """At every norm site of the training step, in bfloat16, float32 and float16 (or the
+    ``checked`` types): the backward kernel against its plain version, from the forward
+    kernel's statistics (dx, and the three float32 sums the parameter grads come from,
+    1e-4 of max|ref|: sums in another order); where ``timed``, bfloat16 also timed against
+    the plain version and autograd's backward of ``F.instance_norm`` without the slope (the
+    library call). The bound: x and g read once, dx written once."""
     from monai_tpu_torch.networks.layers.fast_norm import (_card, _forward, instance_norm_backward_plan,
                                                            instance_norm_prelu_backward,
                                                            instance_norm_prelu_backward_plain)
@@ -1037,7 +1073,7 @@ def check_norm_backward(sites: Counter, batch: int, dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(8)
     rows = []
     for (c, sp, affine, slope), count in sorted(sites.items(), key=str):
-        for dtype, tol in CHECKED:
+        for dtype, tol in checked or CHECKED:
             x = (torch.randn((batch, c, *sp), generator=g, device=dev) * 3 + 1).to(dtype)
             x = x.contiguous(memory_format=torch.channels_last_3d)
             gy = torch.randn((batch, c, *sp), generator=g, device=dev).to(dtype)
@@ -1058,7 +1094,7 @@ def check_norm_backward(sites: Counter, batch: int, dev) -> dict:
             msg = (f"norm backward C={c:3d} @{sp} x{count} {str(dtype)[6:]:8s} dx max_abs_err {err:.4g} ({rel:.3g} of "
                    f"max|ref|, tol {tol}), sums {sum_rel:.3g} (tol {TOL_F32}); plan {plan['path']}, {plan['blocks']} "
                    f"blocks of {plan['threads']}, {plan['launches']} launches")
-            if dtype == torch.bfloat16:
+            if timed and dtype == torch.bfloat16:
                 k_ms, p_ms = paired_ms(lambda: instance_norm_prelu_backward(gy, x, stats, w, b, a),
                                        lambda: instance_norm_prelu_backward_plain(gy, x, stats, w, b, a), iters=10)
                 xl = x.detach().requires_grad_()
@@ -1353,8 +1389,6 @@ def make_bundle_root(root: Path, volumes: int, state: dict) -> Path:
     """A bundle root for inference.json: ``volumes`` copies of the CT (each decoded from its
     own file) under data/Task09_Spleen/imagesTs and ``state`` as models/model_final.ckpt.
     Returns the checkpoint's path."""
-    import shutil
-
     data = root / "data" / "Task09_Spleen" / "imagesTs"
     shutil.rmtree(root, ignore_errors=True)
     data.mkdir(parents=True)
@@ -1544,6 +1578,396 @@ def training_phase(dev) -> tuple[dict, dict]:
     return counts, {"dw": dw, "dx": dx, "norm_backward": norm_bwd}
 
 
+# Phase 9, the BTCV bundle's SwinUNETR trained in float32 (no amp), as its train.json has
+# it: SwinUNETR(1, 14, feature_size=48), DiceCELoss(to_onehot_y, softmax), AdamW(lr 1e-4,
+# weight decay 1e-5) built by the trainer from the parameters, one fixed batch of 4 96^3
+# patches; warm-up and timed iterations, under torch's default TF32 setting
+SWIN_TRAIN_WARMUP, SWIN_TRAIN_TIMED = 2, 10
+# the window attention's sites a step at batch 4 of 96^3 (windows, heads, N, D, mask rows);
+# the bench SwinUNETR's (feature size 24) are the same at D = 8
+SWIN_ATTN_SITES = {(1372, 3, 343, 16, 343): 1, (1372, 3, 343, 16, None): 1, (256, 6, 343, 16, 64): 1,
+                   (256, 6, 343, 16, None): 1, (32, 12, 343, 16, 8): 1, (32, 12, 343, 16, None): 1,
+                   (4, 24, 216, 16, None): 2}
+# The batch-1 step on the card against the port's CPU step, at 32^3 (full widths). As in
+# phase 7, float32 is held twice: the same net with every LeakyReLU slope at 1 (no kink;
+# every kernel's backward still runs), each grad within TOL_STEP_F32 of its max|ref|; and
+# the net as it is, each grad's cosine with the CPU's at least SWIN_MIN_COSINE (branch
+# flips of the LeakyReLU move its grads by up to ~1e-2 of their max, PERF.md §6 PR 13).
+# At 32^3 the bottleneck is one voxel, and an instance norm over one voxel gives its bias
+# whatever its input: what lies before the bottleneck's two norms has an exact grad of 0,
+# held under TOL_STEP_F32 of the largest grad on both sides. The 1x1 residual conv from the
+# single input channel reaches the loss only through its norm's eps (the norm undoes its
+# scale), so its grad is 1/sqrt(eps)-amplified rounding: held by the cosine alone.
+SWIN_STEP_ROI = (32, 32, 32)
+SWIN_MIN_COSINE = 0.999
+SWIN_EXACT_ZERO = {"encoder10.layer.conv1.conv.weight", "encoder10.layer.conv2.conv.weight",
+                   "encoder10.layer.norm1.weight", "encoder10.layer.norm1.bias", "encoder10.layer.norm2.weight"}
+SWIN_EPS_ONLY = {"encoder1.layer.conv3.conv.weight"}
+
+
+def _attention_bwd_inputs(g, site, dtype, masks, dev):
+    b, h, n, d, nw = site
+    q, k, v = (torch.randn((b, h, n, d), generator=g, device=dev).to(dtype) for _ in range(3))
+    q = (q.float() * d ** -0.5).to(dtype)
+    bias = torch.randn((h, n, n), generator=g, device=dev) * 0.5
+    mask = None if nw is None else masks[nw]
+    dout = torch.randn((b, h, n, d), generator=g, device=dev).to(dtype)
+    return q, k, v, bias, mask, dout
+
+
+def check_attention_backward(masks: dict, dev) -> dict:
+    """The backward kernel at each site of the BTCV step (head dim 16) and of the bench
+    SwinUNETR (head dim 8), masked and unmasked, in float32, bfloat16 and float16: dq, dk,
+    dv and dbias against the plain backward on the kernel forward's output, each at the
+    type's gate of its max|ref|, and two calls bit for bit. In float32 (the step's type)
+    also timed against the plain version and, as the library call, autograd's backward of
+    ``F.scaled_dot_product_attention`` with bias + mask as one additive mask that requires
+    a grad (its forward run once before). The bound: q, k, v, dO, O, bias, mask and the
+    log-sum-exp read once and dq, dk, dv, dbias written once; the five N^2 D products at
+    the type's peak; one exp a score at the card's exp rate. Returns the kernels-line
+    numbers of the step's (head dim 16) sites, summed over a step."""
+    from monai_tpu_torch.ops.window_attention import (_forward, fused_window_attention_backward,
+                                                      fused_window_attention_backward_plain,
+                                                      window_attention_backward_plan)
+
+    rate = exp_per_s()
+    g = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    sites = list(SWIN_ATTN_SITES.items()) + [((b, h, n, 8, nw), 0) for (b, h, n, _, nw) in SWIN_ATTN_SITES]
+    for site, count in sites:
+        for dtype, tol in CHECKED:
+            q, k, v, bias, mask, dout = _attention_bwd_inputs(g, site, dtype, masks, dev)
+            out, lse = _forward(q, k, v, bias, mask, with_lse=True)
+            got = fused_window_attention_backward(q, k, v, bias, mask, out, dout, lse)
+            again = fused_window_attention_backward(q, k, v, bias, mask, out, dout, lse)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            del again
+            errs = [rel_err(a, r) for a, r in zip(got, fused_window_attention_backward_plain(q, k, v, bias, mask, out,
+                                                                                            dout))]
+            err = max(e[0] for e in errs)
+            require(all(e[1] <= tol for e in errs) and same,
+                    f"attention backward {site} {dtype}: dq, dk, dv, dbias max err over max|ref| "
+                    f"{[round(e[1], 8) for e in errs]} (tol {tol}), the same bits twice: {same}")
+            plan = window_attention_backward_plan(q, k, v, bias, mask)
+            msg = (f"attention backward windows {site[0]} heads {site[1]} N {site[2]} D {site[3]} mask rows {site[4]} "
+                   f"x{count} {str(dtype)[6:]:8s} max err over max|ref| dq {errs[0][1]:.3g} dk {errs[1][1]:.3g} dv "
+                   f"{errs[2][1]:.3g} dbias {errs[3][1]:.3g} (tol {tol}); same bits twice; plan: instance D "
+                   f"{plan['head_dim']}, {plan['windows_per_block']} windows a dq block, {plan['splits']} dbias "
+                   f"partials, {plan['dq_blocks']} dq and {plan['dkdv_blocks']} dkdv blocks")
+            if dtype == torch.float32:
+                b, h, n, d, nw = site
+                k_ms, p_ms = paired_ms(lambda: fused_window_attention_backward(q, k, v, bias, mask, out, dout, lse),
+                                       lambda: fused_window_attention_backward_plain(q, k, v, bias, mask, out, dout),
+                                       iters=5)
+                groups = 1 if nw is None else nw
+                add = (bias if nw is None else bias[None] + mask[:, None]).detach().requires_grad_()
+                qs, ks, vs = (t.view(b // groups, groups, h, n, d).detach().requires_grad_() if nw else
+                              t.detach().requires_grad_() for t in (q, k, v))
+                with torch.enable_grad():
+                    y = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=add, scale=1.0)
+                gs = dout.view(y.shape)
+                lib_ms = cuda_ms(lambda: torch.autograd.grad(y, (qs, ks, vs, add), gs, retain_graph=True), iters=5)
+                del y, add, qs, ks, vs
+                # q, k, v, dO, O read and dq, dk, dv written; bias read, dbias written; lse; mask
+                nbytes = (8 * q.numel() * q.element_size() + 2 * bias.numel() * 4 + b * h * n * 4
+                          + (0 if mask is None else mask.numel() * 4))
+                b_ms, o_ms = bound(nbytes, 5 * 2.0 * b * h * n * n * d, dtype)
+                e_ms = b * h * n * n / rate * 1e3
+                if count:
+                    rows.append((count, err, k_ms, p_ms, lib_ms, b_ms, max(o_ms, e_ms)))
+                sides = {"bytes": b_ms, "FLOP": o_ms, "exp": e_ms}
+                side = max(sides, key=sides.get)
+                msg += (f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  SDPA autograd {lib_ms:.4f} ms  bound "
+                        f"{sides[side]:.4f} ms ({side}; bytes {b_ms:.4f}, FLOP {o_ms:.4f}, exp {e_ms:.4f})")
+            print(msg, flush=True)
+            del q, k, v, bias, dout, out, lse, got
+    torch.cuda.empty_cache()
+    return _summary(rows)
+
+
+def _swin_grads(net, x, y, loss_fn) -> tuple[float, dict]:
+    net.zero_grad(set_to_none=True)
+    loss = loss_fn(net(x), y)
+    loss.backward()
+    return loss.item(), {k: p.grad.detach().clone() for k, p in net.named_parameters()}
+
+
+def swin_step_check(net_cpu, dev) -> None:
+    """One float32 step of the BTCV SwinUNETR at batch 1 of 32^3 (full widths) on the card
+    against the port's CPU step of the same weights and data (see SWIN_STEP_ROI)."""
+    from monai_tpu_torch.losses import DiceCELoss
+
+    gen = torch.Generator().manual_seed(21)
+    x = torch.rand((1, 1, *SWIN_STEP_ROI), generator=gen)
+    y = torch.randint(0, 14, (1, 1, *SWIN_STEP_ROI), generator=gen).float()
+    loss_fn = DiceCELoss(to_onehot_y=True, softmax=True)
+    net_one = copy.deepcopy(net_cpu).train()
+    for name, buf in net_one.named_buffers():  # the slopes fused into the norm kernel
+        if name.endswith("lrelu_slope"):
+            buf.fill_(1.0)
+    for m in net_one.modules():  # and the LeakyReLUs after the residual adds
+        if isinstance(m, torch.nn.LeakyReLU):
+            m.negative_slope = 1.0
+    results = {}
+    for label, net_c in (("slopes 1", net_one), ("as it is", net_cpu.train())):
+        t0 = time.perf_counter()
+        ref_loss, ref = _swin_grads(net_c, x, y, loss_fn)
+        cpu_s = time.perf_counter() - t0
+        net_c.zero_grad(set_to_none=True)
+        loss, got = _swin_grads(copy.deepcopy(net_c).to(dev), x.to(dev), y.to(dev), loss_fn)
+        skip = SWIN_EXACT_ZERO | SWIN_EPS_ONLY
+        largest = max(r.abs().max().item() for r in ref.values())
+        zero = max(max(got[k].abs().max().item(), ref[k].abs().max().item()) for k in SWIN_EXACT_ZERO) / largest
+        errs = sorted(((got[k].cpu() - r).abs().max().item() / max(r.abs().max().item(), 1e-30), k)
+                      for k, r in ref.items() if k not in skip)
+        cos = sorted((F.cosine_similarity(got[k].cpu().double().flatten(), r.double().flatten(), dim=0).item(), k)
+                     for k, r in ref.items() if k not in SWIN_EXACT_ZERO)
+        results[label] = (abs(loss - ref_loss) / abs(ref_loss), errs, cos, zero)
+        print(f"swin train step batch 1 @{SWIN_STEP_ROI} float32, LeakyReLU {label}, against the CPU step ({cpu_s:.1f} "
+              f"s on the CPU): loss {ref_loss:.6f}, rel err {results[label][0]:.3g}; worst grads (max err over "
+              f"max|ref|) " + ", ".join(f"{k} {e:.3g}" for e, k in errs[-3:]) + "; least cosines "
+              + ", ".join(f"{k} {c:.6f}" for c, k in cos[:3]) + f"; the {len(SWIN_EXACT_ZERO)} grads that are "
+              f"exactly 0: max|grad| {zero:.3g} of the largest grad", flush=True)
+    loss_one, errs_one, _, zero_one = results["slopes 1"]
+    loss_as, _, cos_as, zero_as = results["as it is"]
+    require(loss_one <= TOL_STEP_F32 and errs_one[-1][0] <= TOL_STEP_F32,
+            "the float32 SwinUNETR step (slopes 1) on the card disagrees with the CPU")
+    require(loss_as <= TOL_STEP_F32 and cos_as[0][0] >= SWIN_MIN_COSINE,
+            "the float32 SwinUNETR step on the card disagrees with the CPU")
+    require(max(zero_one, zero_as) <= TOL_STEP_F32, "a SwinUNETR grad that is exactly 0 is not ~0 on the card or CPU")
+
+
+def swin_train_path(net_cpu, per_step: dict, dev) -> dict:
+    """``SupervisedTrainer`` in float32 (no amp) with the optimizer given as a factory (the
+    bundle's ``"_mode_": "partial"``), on one fixed batch of 4 96^3 patches, under torch's
+    default ``cudnn.allow_tf32`` (True; restored after): SWIN_TRAIN_WARMUP iterations, then
+    SWIN_TRAIN_TIMED timed, their launch counts and peak memory (set to 0 just before
+    them), the step times between CUDA events at each iteration's end and each loss.
+    Returns the launch counts of the timed run."""
+    import functools
+
+    from monai_tpu_torch.engines import Events, SupervisedTrainer
+    from monai_tpu_torch.losses import DiceCELoss
+
+    net = copy.deepcopy(net_cpu).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    batch = {"image": torch.rand((TRAIN_BATCH, 1, *ROI), generator=gen, device=dev),
+             "label": torch.randint(0, 14, (TRAIN_BATCH, 1, *ROI), generator=gen, device=dev).float()}
+    trainer = SupervisedTrainer(device=dev, max_epochs=1,
+                                train_data_loader=[batch] * (SWIN_TRAIN_WARMUP + SWIN_TRAIN_TIMED), network=net,
+                                optimizer=functools.partial(torch.optim.AdamW, lr=1e-4, weight_decay=1e-5),
+                                loss_function=DiceCELoss(to_onehot_y=True, softmax=True))
+    losses, ends, start = [], [], {}
+
+    @trainer.on(Events.ITERATION_COMPLETED)
+    def _record(engine):
+        losses.append(engine.state.output["loss"])
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        if engine.state.iteration == SWIN_TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launch_counts()
+            start["t"] = time.perf_counter()
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # torch's default, as a user's process runs
+    try:
+        trainer.run()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    wall = time.perf_counter() - start["t"]
+    counts = all_launch_counts()
+    losses = [v.item() for v in losses]
+    step_ms = [ends[i].elapsed_time(ends[i + 1]) for i in range(SWIN_TRAIN_WARMUP - 1, len(ends) - 1)]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    got = {k: v / SWIN_TRAIN_TIMED for k, v in counts.items() if k in per_step}
+    print(f"swin_train SupervisedTrainer float32 SwinUNETR(1, 14, feature_size=48) batch {TRAIN_BATCH} @96^3 "
+          f"(cudnn.allow_tf32 True, matmul TF32 {torch.backends.cuda.matmul.allow_tf32}): "
+          f"{SWIN_TRAIN_TIMED / wall:.4f} steps/s, {TRAIN_BATCH * SWIN_TRAIN_TIMED / wall:.3f} patches/s "
+          f"({SWIN_TRAIN_TIMED} steps after {SWIN_TRAIN_WARMUP} warm-up, one synchronise at the end); step median "
+          f"{statistics.median(step_ms):.3f} ms (min {min(step_ms):.3f}, max {max(step_ms):.3f}, CUDA events at each "
+          f"iteration's end); peak memory {peak_gb:.2f} GB; launches a step {got} (the sites give {per_step}); "
+          f"loss by step: " + ", ".join(f"{v:.6f}" for v in losses), flush=True)
+    require(all(np.isfinite(v) for v in losses), "swin_train: a loss is not finite")
+    require(losses[SWIN_TRAIN_TIMED] < losses[0], f"swin_train: the loss after {SWIN_TRAIN_TIMED} steps "
+                                                  f"{losses[SWIN_TRAIN_TIMED]:.6f} is not below the first {losses[0]:.6f}")
+    require(got == per_step, f"swin_train: launches a step {got}, the sites give {per_step}")
+    return counts
+
+
+def swin_training_phase(dev) -> tuple[dict, dict]:
+    """Phase 9: the BTCV SwinUNETR's training step: the backward kernel of the window
+    attention at the step's sites, the conv and norm kernels' backward at the Swin sites,
+    the batch-1 step against the CPU, and the float32 trainer. Returns the trainer's
+    launch counts and the attention backward's kernels-line numbers."""
+    from monai_tpu_torch.networks.nets import SwinUNETR
+
+    net_cpu = SwinUNETR(1, 14, feature_size=48, generator=torch.Generator().manual_seed(0), device="cpu")
+    window = torch.rand((TRAIN_BATCH, 1, *ROI), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    with torch.no_grad():
+        conv_sites, norm_sites, attn_sites, masks = record_sites(copy.deepcopy(net_cpu).to(dev).train(), window)
+    require(attn_sites == Counter(SWIN_ATTN_SITES), f"the BTCV step's attention sites {dict(attn_sites)} are not "
+                                                    f"{SWIN_ATTN_SITES}")
+    n_conv, n_norm, n_attn = sum(conv_sites.values()), sum(norm_sites.values()), sum(attn_sites.values())
+    # each conv a forward and a dx, but encoder1's first: its input is the image, which takes no grad
+    per_step = {"conv3d_3x3_same": 2 * n_conv - 1, "conv3d_3x3_wgrad": n_conv, "instance_norm_prelu": n_norm,
+                "instance_norm_prelu_backward": n_norm, "fused_window_attention": n_attn,
+                "fused_window_attention_backward": n_attn}
+    print(f"swin_train sites a step (batch {TRAIN_BATCH}): {n_conv} 3x3x3 stride-1 convs (each a forward, a dx but "
+          f"the first and a dw), {n_norm} instance norms (each a forward and a backward; affine, LeakyReLU 0.01 or none), {n_attn} "
+          f"window attentions (each a forward and a backward)", flush=True)
+    attn_bwd = check_attention_backward(masks, dev)
+    del masks
+    # the conv and norm backward kernels at the Swin sites, in the step's float32 and in bfloat16
+    checked = ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16))
+    check_conv_backward(conv_sites, TRAIN_BATCH, dev, checked, timed=False)
+    check_norm_backward(norm_sites, TRAIN_BATCH, dev, checked, timed=False)
+    torch.cuda.empty_cache()
+    swin_step_check(net_cpu, dev)
+    torch.cuda.empty_cache()
+    counts = swin_train_path(net_cpu, per_step, dev)
+    torch.cuda.empty_cache()
+    return counts, attn_bwd
+
+
+# Phase 10: the BTCV bundle's train.json through the port's runner, overriding its bundle
+# root, its imports and initialize (naming the port), its optimizer (optax.adamw's rates
+# under torch's name) and its datalists (the file's own expressions at a synthetic size its
+# 96^3 crops fit: its 96^3 phantoms at 1 mm come out of Spacingd 64x64x48, which
+# RandCropByPosNegLabeld refuses)
+BTCV_CONFIG = Path(__file__).resolve().parent / "bundles" / "btcv_swinunetr" / "configs" / "train.json"
+BTCV_ROOT = Path(__file__).resolve().parent / "build" / "btcv_bundle"
+BTCV_SYNTH_SIZE = (160, 160, 200)
+
+
+def btcv_overrides(root: Path) -> dict:
+    cfg = json.loads(BTCV_CONFIG.read_text())
+    size = f"spatial_size={BTCV_SYNTH_SIZE}"
+    lists = {k: cfg[k].replace("spatial_size=(96, 96, 96)", size) for k in ("datalist", "val_datalist")}
+    require(all(size in v for v in lists.values()), "the bundle's datalist expressions changed")
+    imports = [i.replace("monai_tpu.", "monai_tpu_torch.") for i in cfg["imports"]]
+    return {"bundle_root": str(root), "imports": imports,
+            "initialize": ["$import monai_tpu_torch", "$monai_tpu_torch.utils.set_determinism(seed=0)"],
+            "optimizer": {"_target_": "torch.optim.AdamW", "_mode_": "partial", "lr": 1e-4, "weight_decay": 1e-5},
+            **lists}
+
+
+def btcv_bundle_phase(dev) -> dict:
+    """Phase 10: the BTCV bundle's train.json through ``monai_tpu_torch.bundle.run`` in a
+    fresh bundle root: the synthetic data made first (timed; the config's expression then
+    finds the files), the cache fill, the two epochs' iterations and times, each
+    validation's time and ``val_mean_dice``, the peak memory and every kernel's launches;
+    checked: both epochs, every loss finite, every crop batch (4, 1, 96, 96, 96) on the
+    card, 8 attention backward launches a step, the dice finite in [0, 1], and the
+    checkpoint loading into a fresh SwinUNETR equal to the trained network. Then the same
+    command line as a process of its own with ``--epochs 1``, and its checkpoint. Returns
+    the run's launch counts."""
+    from monai_tpu_torch.apps.datasets import make_synthetic_datalist
+    from monai_tpu_torch.bundle import run
+    from monai_tpu_torch.data import CacheDataset
+    from monai_tpu_torch.engines import Events, SupervisedEvaluator, SupervisedTrainer, Workflow
+    from monai_tpu_torch.networks.nets import SwinUNETR
+
+    shutil.rmtree(BTCV_ROOT, ignore_errors=True)
+    root = BTCV_ROOT / "run"
+    t0 = time.perf_counter()
+    make_synthetic_datalist(str(root / "data" / "BTCV_synth"), num_images=8, spatial_size=BTCV_SYNTH_SIZE,
+                            num_seg_classes=3)
+    data_s = time.perf_counter() - t0
+    stamps, engines, crops, losses = [], {}, [], []
+    fire, fill = Workflow.fire_event, CacheDataset.set_data
+
+    def recorded_fire(engine, event):
+        name = "trainer" if isinstance(engine, SupervisedTrainer) else "evaluator"
+        engines[name] = engine
+        if name == "trainer" and str(event) == str(Events.ITERATION_STARTED):
+            image = engine.state.batch["image"]
+            crops.append((tuple(image.data.shape), image.data.device.type))
+        if name == "trainer" and str(event) == str(Events.ITERATION_COMPLETED):
+            losses.append(engine.state.output["loss"].item())
+        if str(event) in (str(Events.STARTED), str(Events.EPOCH_STARTED), str(Events.EPOCH_COMPLETED),
+                          str(Events.COMPLETED)):
+            torch.cuda.synchronize()
+            stamps.append((name, str(event), engine.state.epoch, time.perf_counter()))
+        return fire(engine, event)
+
+    def timed_fill(dataset, data):
+        t1 = time.perf_counter()
+        fill(dataset, data)
+        torch.cuda.synchronize()
+        stamps.append(("cache", "filled", len(dataset._cache), time.perf_counter() - t1))
+
+    Workflow.fire_event, CacheDataset.set_data = recorded_fire, timed_fill
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        run(config_file=str(BTCV_CONFIG), **btcv_overrides(root))
+        torch.cuda.synchronize()
+    finally:
+        Workflow.fire_event, CacheDataset.set_data = fire, fill
+    total_s = time.perf_counter() - t0
+    counts = all_launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    trainer, evaluator = engines["trainer"], engines["evaluator"]
+    steps = trainer.state.iteration
+
+    def at(name, event, epoch):
+        return next(t for n, e, ep, t in stamps if n == name and e == event and ep == epoch)
+
+    # each stamp is taken before the event's handlers run: an epoch's time is its iterations
+    # (the loader's reads included), without the validation its EPOCH_COMPLETED handler runs
+    epochs = [at("trainer", str(Events.EPOCH_COMPLETED), e) - at("trainer", str(Events.EPOCH_STARTED), e)
+              for e in (1, 2)]
+    starts, ends = ([t for n, e, _, t in stamps if n == "evaluator" and e == str(ev)]
+                    for ev in (Events.STARTED, Events.COMPLETED))
+    vals = [b - a for a, b in zip(starts, ends)]
+    train_s = sum(epochs)
+    fill_s = [t for n, e, _, t in stamps if n == "cache"]
+    dice = evaluator.state.metrics.get("val_mean_dice", float("nan"))
+    print(f"btcv bundle train.json (python -m monai_tpu_torch.bundle run's function; datalists at {BTCV_SYNTH_SIZE}): "
+          f"synthetic data (8 images) {data_s:.1f} s; cache fill {fill_s[0] if fill_s else float('nan'):.2f} s "
+          f"({trainer.data_loader.dataset.cache_num} items); {trainer.state.epoch} epochs, {steps} steps, "
+          f"{steps / train_s:.4f} steps/s over the training iterations ({train_s:.2f} s, the loader's reads included); "
+          f"epochs {', '.join(f'{t:.2f}' for t in epochs)} s; validations {', '.join(f'{t:.2f}' for t in vals)} s; "
+          f"val_mean_dice {dice:.6f}; the whole run {total_s:.1f} s with the parse, the net and the data; peak memory "
+          f"{peak_gb:.2f} GB; launches {counts}; losses " + ", ".join(f"{v:.4f}" for v in losses), flush=True)
+    require(trainer.state.epoch == 2 and steps == 12, f"btcv bundle: {trainer.state.epoch} epochs, {steps} steps")
+    require(all(np.isfinite(v) for v in losses) and len(losses) == steps, "btcv bundle: a training loss is not finite")
+    require(all(c == ((4, 1, *ROI), "cuda") for c in crops) and len(crops) == steps,
+            f"btcv bundle: crop batches {sorted(set(crops))}, not (4, 1, 96, 96, 96) on the card")
+    require(counts["fused_window_attention_backward"] == 8 * steps,
+            f"btcv bundle: {counts['fused_window_attention_backward']} attention backward launches in {steps} steps")
+    require(np.isfinite(dice) and 0.0 <= dice <= 1.0, f"btcv bundle: val_mean_dice {dice}")
+    ckpt = root / "models" / "model_final.ckpt"
+    fresh = SwinUNETR(1, 4, feature_size=48, device="cpu")
+    fresh.load_state_dict(torch.load(ckpt, map_location="cpu", weights_only=True)["model"])
+    trained = trainer.network.state_dict()
+    require(all(torch.equal(v, trained[k].cpu()) for k, v in fresh.state_dict().items()),
+            "btcv bundle: the checkpoint is not the trained network")
+    del trainer, evaluator, engines, fresh, trained
+    torch.cuda.empty_cache()
+
+    # the command line, as README gives it, one epoch, on the same synthetic data
+    args = [sys.executable, "-m", "monai_tpu_torch.bundle", "run", "--config_file", str(BTCV_CONFIG), "--epochs", "1"]
+    for k, v in btcv_overrides(BTCV_ROOT / "cli").items():
+        args += [f"--{k}", v if isinstance(v, str) else json.dumps(v)]
+    env = {**os.environ, "MONAI_DATA_DIRECTORY": str(root / "data")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(args, capture_output=True, text=True, env=env, cwd=Path(__file__).resolve().parent)
+    require(proc.returncode == 0, f"btcv bundle command line failed: {proc.stderr[-2000:]}")
+    cli_ckpt = BTCV_ROOT / "cli" / "models" / "model_final.ckpt"
+    state = torch.load(cli_ckpt, map_location="cpu", weights_only=True)["model"]
+    SwinUNETR(1, 4, feature_size=48, device="cpu").load_state_dict(state)
+    print(f"btcv bundle command line (--epochs 1, a process of its own): {time.perf_counter() - t0:.1f} s with the "
+          f"process's start; {cli_ckpt.relative_to(BTCV_ROOT)} loads into a fresh SwinUNETR; its last log lines: "
+          + " | ".join(proc.stdout.strip().splitlines()[-2:]), flush=True)
+    return counts
+
+
 def inference_phases(dev) -> tuple:
     """Phases 2 to 6, under ``torch.inference_mode()``: the forward kernels at the inference paths'
     shapes, the sliding windows, the forwards against the CPU, the Spleen path and the filtering
@@ -1627,23 +2051,35 @@ def main() -> None:
     library()
     print(f"build: {library_path().name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    summaries, unet_counts, swin_counts, spleen_counts, spleen, filtering, spleen5 = inference_phases(dev)
+    summaries, unet_counts, swin_sw_counts, spleen_counts, spleen, filtering, spleen5 = inference_phases(dev)
 
     # 7. the training path, outside inference mode
     train_counts, train = training_phase(dev)
 
-    # 8. the Spleen bundle's inference.json through the port's runner, file to file (last:
-    # its set_determinism changes cuDNN's global settings)
+    # 9. the BTCV SwinUNETR's float32 training step
+    swin_counts, attn_bwd = swin_training_phase(dev)
+
+    # 8. the Spleen bundle's inference.json through the port's runner, file to file (after the
+    # paths above: its set_determinism changes cuDNN's global settings)
     bundle_counts = bundle_phase(dev, spleen5)
     del spleen5
 
+    # 10. the BTCV bundle's train.json through the port's runner (last, as it sets the seed too)
+    btcv_counts = btcv_bundle_phase(dev)
+    trained = {k: swin_counts[k] + btcv_counts[k] for k in swin_counts}  # phases 9 and 10
+
     training = [
         {"name": "conv3d_3x3_wgrad", "route": "cuda", "source": "monai_tpu_torch/csrc/conv3d_3x3_wgrad.cu",
-         "replaces": "monai_tpu/ops/pallas_conv3d.py:200", "launches": train_counts["conv3d_3x3_wgrad"],
-         **train["dw"]},
+         "replaces": "monai_tpu/ops/pallas_conv3d.py:200",
+         "launches": train_counts["conv3d_3x3_wgrad"] + trained["conv3d_3x3_wgrad"], **train["dw"]},
         {"name": "instance_norm_prelu_backward", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
          "replaces": "monai_tpu/networks/layers/fast_norm.py:74",
-         "launches": train_counts["instance_norm_prelu_backward"], **train["norm_backward"]},
+         "launches": train_counts["instance_norm_prelu_backward"] + trained["instance_norm_prelu_backward"],
+         **train["norm_backward"]},
+        {"name": "fused_window_attention_backward", "route": "cuda",
+         "source": "monai_tpu_torch/csrc/window_attention_bwd.cu",
+         "replaces": "monai_tpu/ops/pallas_window_attention.py:159",
+         "launches": trained["fused_window_attention_backward"], **attn_bwd},
     ]
 
     def line(s: dict) -> str:
@@ -1652,7 +2088,8 @@ def main() -> None:
         return f"{s['ms']:.4f} / {s['plain_ms']:.4f} / {lib} / {s['bound_ms']:.4f} ({side})"
 
     print("per training step at batch 4 (ms, kernel / plain / library / bound): " + "; ".join(
-        f"{k} {line(train[k])}" for k in ("dw", "dx", "norm_backward")), flush=True)
+        f"{k} {line(train[k])}" for k in ("dw", "dx", "norm_backward"))
+          + f"; float32 swin attention backward {line(attn_bwd)}", flush=True)
 
     def merged(i: int) -> dict:
         """The per-forward sums of kernel i over the UNet and SwinUNETR paths (bfloat16)."""
@@ -1666,15 +2103,16 @@ def main() -> None:
     kernels = [
         {"name": "conv3d_3x3_same", "route": "cuda", "source": "monai_tpu_torch/csrc/conv3d_3x3_same.cu",
          "replaces": "monai_tpu/ops/pallas_conv3d.py:91",
-         "launches": unet_counts[0] + swin_counts[0] + spleen_counts[0] + train_counts["conv3d_3x3_same"]
-         + bundle_counts[0],
+         "launches": unet_counts[0] + swin_sw_counts[0] + spleen_counts[0] + train_counts["conv3d_3x3_same"]
+         + bundle_counts[0] + trained["conv3d_3x3_same"],
          **merged(0)},
         {"name": "instance_norm_prelu", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
          "replaces": "monai_tpu/networks/layers/fast_norm.py:44",
-         "launches": unet_counts[1] + swin_counts[1] + train_counts["instance_norm_prelu"], **merged(1)},
+         "launches": unet_counts[1] + swin_sw_counts[1] + train_counts["instance_norm_prelu"]
+         + trained["instance_norm_prelu"], **merged(1)},
         {"name": "fused_window_attention", "route": "cuda", "source": "monai_tpu_torch/csrc/window_attention.cu",
-         "replaces": "monai_tpu/ops/pallas_window_attention.py:106", "launches": swin_counts[2],
-         **summaries["swinunetr"][2]},
+         "replaces": "monai_tpu/ops/pallas_window_attention.py:106",
+         "launches": swin_sw_counts[2] + trained["fused_window_attention"], **summaries["swinunetr"][2]},
         {"name": "separable_resample_3d", "route": "cuda", "source": "monai_tpu_torch/csrc/separable_resample_3d.cu",
          "replaces": "monai_tpu/ops/pallas_resample.py:117", "launches": spleen_counts[3] + bundle_counts[3],
          **spleen["resample"]},

@@ -7,6 +7,9 @@
 // window b uses mask row b % nW. The scores, the row max, exp and the row sum are
 // float32; the normalised p is rounded to the input type before p.v, which accumulates
 // in float32; the output is in the input type. That is what the TPU kernel computes.
+// Under autograd every instance also writes each score row's float32 log-sum-exp,
+// max + log(sum), into lse (B, H, N), which the backward (window_attention_bwd.cu) reads;
+// in inference lse is null and nothing more is written.
 //
 // Replaces monai_tpu/ops/pallas_window_attention.py::_fwd_pallas (body _attn_kernel).
 // That kernel kept a block of WB windows' (N, N) f32 scores in VMEM for one head, so the
@@ -121,7 +124,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                         const float* __restrict__ bias, const float* __restrict__ mask,
-                        T* __restrict__ out, int H, int N, int nW, int n_qtiles) {
+                        T* __restrict__ out, float* __restrict__ lse, int H, int N, int nW, int n_qtiles) {
   constexpr int kLd = D + 1;
   extern __shared__ float smem[];
   float* Ks = smem;            // N x kLd
@@ -181,6 +184,7 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
       sum += e;
     }
     sum = warp_sum(sum);
+    if (lse != nullptr && lane == 0) lse[row] = mx + logf(sum);
 
     float o[D];
 #pragma unroll
@@ -207,7 +211,7 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* bias, const float* mask, void* out,
-                   long long B, int H, int N, int nW, cudaStream_t stream) {
+                   float* lse, long long B, int H, int N, int nW, cudaStream_t stream) {
   const int n_qtiles = (N + kQTile - 1) / kQTile;
   const long long blocks = B * H * n_qtiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -219,7 +223,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* bia
   }
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                                        static_cast<const T*>(v), bias, mask, static_cast<T*>(out),
-                                                       H, N, nW, n_qtiles);
+                                                       lse, H, N, nW, n_qtiles);
   return cudaGetLastError();
 }
 
@@ -246,7 +250,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 window_attention_generic_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                                 const float* __restrict__ bias, const float* __restrict__ mask,
-                                T* __restrict__ out, int H, int N, int D, int nW, int n_qtiles) {
+                                T* __restrict__ out, float* __restrict__ lse, int H, int N, int D, int nW,
+                                int n_qtiles) {
   const int ld = D + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -312,6 +317,8 @@ window_attention_generic_kernel(const T* __restrict__ q, const T* __restrict__ k
     const float mx = warp_max(m[t]);
     l[t] = warp_sum(m[t] == -INFINITY ? 0.0f : l[t] * expf(m[t] - mx));
     m[t] = mx;
+    const int r = warp + kWarps * t;
+    if (lse != nullptr && lane == 0 && r < q_rows) lse[bh * N + q0 + r] = mx + logf(l[t]);
   }
 
   // pass 2: p = exp(s - max) / sum in the input type, and p.v into Os
@@ -347,7 +354,7 @@ window_attention_generic_kernel(const T* __restrict__ q, const T* __restrict__ k
 
 template <typename T>
 cudaError_t launch_generic(const void* q, const void* k, const void* v, const float* bias, const float* mask,
-                           void* out, long long B, int H, int N, int D, int nW, cudaStream_t stream) {
+                           void* out, float* lse, long long B, int H, int N, int D, int nW, cudaStream_t stream) {
   const int n_qtiles = (N + kGQTile - 1) / kGQTile;
   const long long blocks = B * H * n_qtiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -364,7 +371,7 @@ cudaError_t launch_generic(const void* q, const void* k, const void* v, const fl
   }
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                                        static_cast<const T*>(v), bias, mask, static_cast<T*>(out),
-                                                       H, N, D, nW, n_qtiles);
+                                                       lse, H, N, D, nW, n_qtiles);
   return cudaGetLastError();
 }
 
@@ -417,7 +424,7 @@ template <typename T, int D, int CH, bool FULL, int RG, int MINB>
 __global__ void __launch_bounds__(64 * RG, MINB)
 window_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                             const float* __restrict__ bias, const float* __restrict__ mask, T* __restrict__ out,
-                            MmaGeom g) {
+                            float* __restrict__ lse, MmaGeom g) {
   constexpr int LDK = kv_ld<D>();
   constexpr int NT = D / 8;                // n8 tiles of the output
   constexpr int KQ = D == 8 ? 1 : D / 16;  // Q fragments (k8 at D = 8, else k16 steps)
@@ -609,8 +616,14 @@ window_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, co
         rsum[half * kTile + r0 + g8 + 8] = sb;
       }
       pair_sync(1 + rg);
-      const float ia = 1.0f / (sa + rsum[(half ^ 1) * kTile + r0 + g8]);
-      const float ib = 1.0f / (sb + rsum[(half ^ 1) * kTile + r0 + g8 + 8]);
+      const float suma = sa + rsum[(half ^ 1) * kTile + r0 + g8];
+      const float sumb = sb + rsum[(half ^ 1) * kTile + r0 + g8 + 8];
+      const float ia = 1.0f / suma, ib = 1.0f / sumb;
+      if (lse != nullptr && !half && t4 == 0) {
+        float* lw = lse + window(j) * N;
+        if (row_a < N) lw[row_a] = ma + logf(suma);
+        if (row_b < N) lw[row_b] = mb + logf(sumb);
+      }
 
       // O = P V over this warp's keys: p rounded to T, two adjacent n8 score tiles as
       // one k16 A fragment
@@ -679,7 +692,7 @@ enum Instance { kMma = 0, kFma = 1, kGeneric = 2 };
 
 struct MmaPlan {
   cudaError_t (*run)(const MmaPlan&, const void*, const void*, const void*, const float*, const float*, void*,
-                     cudaStream_t);
+                     float*, cudaStream_t);
   MmaGeom g;
   unsigned blocks;
   size_t smem;
@@ -701,11 +714,11 @@ constexpr int mma_row_groups() {
 
 template <typename T, int D, int CH, bool FULL>
 cudaError_t run_mma(const MmaPlan& p, const void* q, const void* k, const void* v, const float* bias,
-                    const float* mask, void* out, cudaStream_t stream) {
+                    const float* mask, void* out, float* lse, cudaStream_t stream) {
   constexpr int RG = mma_row_groups<D, CH>();
   window_attention_mma_kernel<T, D, CH, FULL, RG, mma_min_blocks<D, CH>()><<<p.blocks, 64 * RG, p.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias, mask,
-      static_cast<T*>(out), p.g);
+      static_cast<T*>(out), lse, p.g);
   return cudaGetLastError();
 }
 
@@ -816,19 +829,19 @@ Instance pick_instance(int N, int D, int dtype, bool aligned) {
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const float* bias, const float* mask, void* out,
-                     long long B, int H, int N, int D, int nW, int dtype, cudaStream_t stream) {
+                     float* lse, long long B, int H, int N, int D, int nW, int dtype, cudaStream_t stream) {
   const Instance inst = pick_instance(N, D, dtype, aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out));
-  if (inst == kGeneric) return launch_generic<T>(q, k, v, bias, mask, out, B, H, N, D, nW, stream);
+  if (inst == kGeneric) return launch_generic<T>(q, k, v, bias, mask, out, lse, B, H, N, D, nW, stream);
   if (inst == kMma) {
     MmaPlan p;
     const cudaError_t err = find_mma_plan(p, B, H, N, D, nW, dtype);
     if (err != cudaSuccess) return err;
-    return p.run(p, q, k, v, bias, mask, out, stream);
+    return p.run(p, q, k, v, bias, mask, out, lse, stream);
   }
   switch (D) {
-    case 8: return launch<T, 8>(q, k, v, bias, mask, out, B, H, N, nW, stream);
-    case 16: return launch<T, 16>(q, k, v, bias, mask, out, B, H, N, nW, stream);
-    default: return launch<T, 32>(q, k, v, bias, mask, out, B, H, N, nW, stream);
+    case 8: return launch<T, 8>(q, k, v, bias, mask, out, lse, B, H, N, nW, stream);
+    case 16: return launch<T, 16>(q, k, v, bias, mask, out, lse, B, H, N, nW, stream);
+    default: return launch<T, 32>(q, k, v, bias, mask, out, lse, B, H, N, nW, stream);
   }
 }
 
@@ -838,19 +851,21 @@ bool valid(long long B, int H, int N, int D, int nW, bool has_mask) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16; mask may be null (then nW is ignored). Returns a
-// cudaError_t (0 on success); launches on `stream` and does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; mask may be null (then nW is ignored); lse
+// (B, H, N) float32, or null where no log-sum-exp is wanted. Returns a cudaError_t (0 on
+// success); launches on `stream` and does not synchronise.
 extern "C" int monai_window_attention(const void* q, const void* k, const void* v, const void* bias,
-                                      const void* mask, void* out, long long B, int H, int N, int D, int nW,
-                                      int dtype, void* stream) {
+                                      const void* mask, void* out, void* lse, long long B, int H, int N, int D,
+                                      int nW, int dtype, void* stream) {
   if (!valid(B, H, N, D, nW, mask != nullptr)) return (int)cudaErrorInvalidValue;
   if (mask == nullptr) nW = 1;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* bf = static_cast<const float*>(bias);
   const auto* mf = static_cast<const float*>(mask);
-  if (dtype == 0) return (int)launch_d<float>(q, k, v, bf, mf, out, B, H, N, D, nW, dtype, s);
-  if (dtype == 1) return (int)launch_d<__nv_bfloat16>(q, k, v, bf, mf, out, B, H, N, D, nW, dtype, s);
-  if (dtype == 2) return (int)launch_d<__half>(q, k, v, bf, mf, out, B, H, N, D, nW, dtype, s);
+  auto* lf = static_cast<float*>(lse);
+  if (dtype == 0) return (int)launch_d<float>(q, k, v, bf, mf, out, lf, B, H, N, D, nW, dtype, s);
+  if (dtype == 1) return (int)launch_d<__nv_bfloat16>(q, k, v, bf, mf, out, lf, B, H, N, D, nW, dtype, s);
+  if (dtype == 2) return (int)launch_d<__half>(q, k, v, bf, mf, out, lf, B, H, N, D, nW, dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,13 +1,18 @@
-"""Dataset (counterpart of monai_tpu/data/dataset.py ``Dataset``): a sequence of items
-and the transform each goes through when it is read. ``CacheDataset`` waits for the
-training bundle."""
+"""Dataset and CacheDataset (counterpart of monai_tpu/data/dataset.py): a sequence of
+items and the transform each goes through when it is read; ``CacheDataset`` keeps each
+item as the transforms before the first random one leave it, and runs only the rest at
+each read."""
 from __future__ import annotations
 
+import copy
+import sys
 from collections.abc import Callable, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any
 
 import torch.utils.data
 
-__all__ = ["Dataset"]
+__all__ = ["CacheDataset", "Dataset"]
 
 
 class Dataset(torch.utils.data.Dataset):
@@ -35,3 +40,58 @@ class Dataset(torch.utils.data.Dataset):
         if isinstance(index, Sequence):
             return torch.utils.data.Subset(self, index)
         return self._transform(index)
+
+
+def _first_random_index(pipeline) -> int | None:
+    """The index of the first transform that ends the deterministic prefix: a random one,
+    or a callable that is not a ``Transform``."""
+    from ..transforms.traits import RandomizableTrait
+    from ..transforms.transform import Transform
+
+    return pipeline.get_index_of_first(lambda t: isinstance(t, RandomizableTrait) or not isinstance(t, Transform))
+
+
+class CacheDataset(Dataset):
+    """A ``Dataset`` that runs the transforms before the first random one once for each of
+    its first ``min(cache_num, len(data) * cache_rate)`` items, when it is made, and keeps
+    the results where the transforms left them (the port's ``LoadImaged`` and ``Spacingd``
+    leave them on the card). A read of a cached item runs the rest of the transforms on a
+    deep copy of it, so a transform that changes its input in place never reaches the
+    cache; an item past the cache runs all of them. ``num_workers`` threads
+    fill the cache (threads, not processes: the transforms run on the card). The JAX
+    package's ``runtime_cache``, ``hash_as_key`` and ``copy_cache=False`` are not ported."""
+
+    def __init__(self, data: Sequence, transform: Sequence[Callable] | Callable | None = None,
+                 cache_num: int = sys.maxsize, cache_rate: float = 1.0, num_workers: int | None = 1):
+        super().__init__(data=data, transform=transform)
+        self.set_num = cache_num
+        self.set_rate = cache_rate
+        self.num_workers = 1 if num_workers is None else max(int(num_workers), 1)
+        self.set_data(data)
+
+    def set_data(self, data: Sequence) -> None:
+        """Take a new list of items and fill the cache for it."""
+        self.data = data
+        self.cache_num = min(int(self.set_num), int(len(data) * self.set_rate), len(data))
+        self._start = None if self.transform is None else _first_random_index(self.transform)
+        items = list(data[: self.cache_num])
+        if self.num_workers > 1:
+            with ThreadPoolExecutor(self.num_workers, thread_name_prefix="CacheDataset") as pool:
+                self._cache = list(pool.map(self._load_cache_item, items))
+        else:
+            self._cache = [self._load_cache_item(item) for item in items]
+
+    def _load_cache_item(self, item: Any):
+        if self.transform is None:
+            return item
+        return self.transform(item, end=self._start)
+
+    def _transform(self, index: int):
+        if index >= self.cache_num:
+            return super()._transform(index)
+        item = copy.deepcopy(self._cache[index])
+        if self.transform is None or self._start is None:
+            return item
+        from ..transforms.transform import apply_transform
+
+        return apply_transform(lambda x: self.transform(x, start=self._start), item, map_items=False)

@@ -14,6 +14,7 @@ from collections.abc import Callable, Iterable, Sequence
 
 import torch
 
+from ..data.meta_image import MetaImage
 from ..inferers.inferer import Inferer, SimpleInferer
 from ..networks.utils import amp_model_view
 from ..utils.enums import CommonKeys as Keys
@@ -34,15 +35,21 @@ class Trainer(Workflow):
 class SupervisedTrainer(Trainer):
     """Supervised training: per iteration, forward, loss, backward and an optimizer step.
 
-    ``optimizer`` is a ``torch.optim`` optimizer over ``network``'s parameters;
+    ``optimizer`` is a ``torch.optim`` optimizer over ``network``'s parameters, or a
+    callable that builds one from them (``functools.partial(torch.optim.AdamW, lr=1e-4)``,
+    a bundle's ``"_mode_": "partial"``), as the JAX trainer binds an optax transformation
+    to the network. ``amp=False`` runs the step in the network's own type (float32);
     ``optim_set_to_none`` clears the grads to None rather than to zeros before each step.
-    ``decollate`` is off by default (the JAX package's is on): the step's postprocessing
-    and metrics take the whole batch until the training bundle's handlers need items.
+    ``train_handlers`` attach to the engine (``attach``) as the JAX trainer's do.
+    ``decollate`` is off by default (the JAX package's is on): the handlers the bundles
+    use (``StatsHandler``, ``ValidationHandler``, ``CheckpointSaver``) read the iteration's
+    output dict as it is, and the step's postprocessing and metrics take the whole batch.
+    A batch of ``MetaImage``s gives its data to the network and the loss.
     ``compile`` and ``compile_kwargs`` are taken for the JAX package's signature and do
     nothing: the step runs eagerly."""
 
     def __init__(self, device=None, max_epochs: int = 1, train_data_loader: Iterable | None = None,
-                 network: torch.nn.Module | None = None, optimizer: torch.optim.Optimizer | None = None,
+                 network: torch.nn.Module | None = None, optimizer: torch.optim.Optimizer | Callable | None = None,
                  loss_function: Callable | None = None, epoch_length: int | None = None, non_blocking: bool = False,
                  prepare_batch: Callable = default_prepare_batch, iteration_update: Callable | None = None,
                  inferer: Inferer | None = None, postprocessing: Callable | None = None,
@@ -56,6 +63,8 @@ class SupervisedTrainer(Trainer):
                          key_metric=key_train_metric, additional_metrics=additional_metrics,
                          metric_cmp_fn=metric_cmp_fn, handlers=train_handlers, amp=amp, decollate=decollate)
         self.network = network
+        if optimizer is not None and not isinstance(optimizer, torch.optim.Optimizer):
+            optimizer = optimizer(network.parameters())
         self.optimizer = optimizer
         self.loss_function = loss_function
         self.inferer = SimpleInferer() if inferer is None else inferer
@@ -74,10 +83,12 @@ class SupervisedTrainer(Trainer):
         self.network.train()
         self.optimizer.zero_grad(set_to_none=self.optim_set_to_none)
         model = amp_model_view(self.network) if self.amp else self.network
-        x = inputs.to(torch.bfloat16) if self.amp else inputs
+        x = inputs.data if isinstance(inputs, MetaImage) else inputs
+        y = targets.data if isinstance(targets, MetaImage) else targets
+        x = x.to(torch.bfloat16) if self.amp else x
         preds = self.inferer(x, model, *args, **kwargs).float()
         engine.fire_event(IterationEvents.FORWARD_COMPLETED)
-        loss = self.loss_function(preds, targets).mean()
+        loss = self.loss_function(preds, y).mean()
         engine.fire_event(IterationEvents.LOSS_COMPLETED)
         loss.backward()
         engine.fire_event(IterationEvents.BACKWARD_COMPLETED)

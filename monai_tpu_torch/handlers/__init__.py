@@ -1,2 +1,3 @@
-from .checkpoint import CheckpointLoader
-from .ignite_metric import from_engine
+from .checkpoint import CheckpointLoader, CheckpointSaver
+from .handlers import StatsHandler, ValidationHandler
+from .ignite_metric import IgniteMetricHandler, MeanDice, from_engine

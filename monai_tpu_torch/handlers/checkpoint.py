@@ -1,8 +1,10 @@
-"""CheckpointLoader (counterpart of monai_tpu/handlers/checkpoint.py). The port's
-checkpoint is a torch file, as torch MONAI's is, not the JAX package's orbax directory;
-a JAX checkpoint comes over through ``networks.weights.unet_state_dict_from_jax``."""
+"""CheckpointLoader and CheckpointSaver (counterpart of monai_tpu/handlers/checkpoint.py).
+The port's checkpoint is a torch file, ``{key: state_dict}`` as torch MONAI's is, not the
+JAX package's orbax directory; a JAX checkpoint comes over through
+``networks.weights.unet_state_dict_from_jax`` or ``swin_state_dict_from_jax``."""
 from __future__ import annotations
 
+import os
 from collections.abc import Mapping
 from typing import Any
 
@@ -10,7 +12,7 @@ import torch
 
 from ..engines.events import Events
 
-__all__ = ["CheckpointLoader"]
+__all__ = ["CheckpointLoader", "CheckpointSaver"]
 
 
 class CheckpointLoader:
@@ -45,3 +47,41 @@ class CheckpointLoader:
                     raise KeyError(f"checkpoint {self.load_path} has no entry {key!r}")
                 continue
             obj.load_state_dict(checkpoint[key], strict=self.strict)
+
+
+class CheckpointSaver:
+    """At the run's end, and where it raises, save ``{key: obj.state_dict()}`` of
+    ``save_dict`` as one torch file ``save_dir/final_filename`` (``save_final``; else
+    ``checkpoint_final_iteration=<n>.ckpt``). Saving on the key metric
+    (``save_key_metric``) and every n epochs are not ported; the former raises."""
+
+    def __init__(self, save_dir: str, save_dict: Mapping[str, Any], save_final: bool = False,
+                 final_filename: str | None = None, save_key_metric: bool = False):
+        if save_dir is None:
+            raise AssertionError("must provide directory to save the checkpoints.")
+        if not save_dict:
+            raise AssertionError("must provide source objects to save.")
+        if save_key_metric:
+            raise NotImplementedError("CheckpointSaver(save_key_metric=True) is not ported")
+        self.save_dir = save_dir
+        self.save_dict = dict(save_dict)
+        self.save_final = save_final
+        self.final_filename = final_filename
+
+    def attach(self, engine) -> None:
+        if self.save_final:
+            engine.add_event_handler(Events.COMPLETED, self.completed)
+            engine.add_event_handler(Events.EXCEPTION_RAISED, self.exception_raised)
+
+    def completed(self, engine) -> None:
+        """Write the state dicts, through a temporary file and a rename."""
+        name = self.final_filename or f"checkpoint_final_iteration={engine.state.iteration}.ckpt"
+        path = os.path.join(self.save_dir, name)
+        os.makedirs(self.save_dir, exist_ok=True)
+        torch.save({k: obj.state_dict() for k, obj in self.save_dict.items()}, path + ".tmp")
+        os.replace(path + ".tmp", path)
+
+    def exception_raised(self, engine, e: Exception | None = None) -> None:
+        self.completed(engine)
+        if e is not None:
+            raise e

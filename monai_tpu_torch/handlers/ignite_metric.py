@@ -1,10 +1,18 @@
-"""``from_engine`` (counterpart of monai_tpu/handlers/ignite_metric.py ``from_engine``):
-pick keys out of an engine's output or batch."""
+"""``from_engine``, ``IgniteMetricHandler`` and ``MeanDice`` (counterpart of
+monai_tpu/handlers/ignite_metric.py): pick keys out of an engine's output, and a
+cumulative metric that an engine's ``key_metric`` or ``additional_metrics`` take. The
+engine feeds such a metric each iteration's predictions and labels (stacked where it
+decollated them), aggregates it at the epoch's end into ``state.metrics`` and resets it
+(``engines.workflow.Workflow``)."""
 from __future__ import annotations
 
+from collections.abc import Callable
+
+from ..metrics import DiceMetric
+from ..utils.enums import MetricReduction
 from ..utils.misc import ensure_tuple
 
-__all__ = ["from_engine"]
+__all__ = ["IgniteMetricHandler", "MeanDice", "from_engine"]
 
 
 def from_engine(keys, first: bool = False):
@@ -23,3 +31,32 @@ def from_engine(keys, first: bool = False):
         return data
 
     return _wrapper
+
+
+class IgniteMetricHandler:
+    """A cumulative metric (``metric_fn``) for an engine's ``key_metric`` or
+    ``additional_metrics``: called with (y_pred, y), ``aggregate``, ``reset``.
+    ``output_transform`` is taken for the JAX package's signature: the engine hands the
+    metric the predictions and labels itself."""
+
+    def __init__(self, metric_fn, output_transform: Callable = lambda x: x):
+        self.metric_fn = metric_fn
+        self.output_transform = output_transform
+
+    def __call__(self, y_pred, y=None):
+        return self.metric_fn(y_pred, y)
+
+    def aggregate(self, *args, **kwargs):
+        return self.metric_fn.aggregate(*args, **kwargs)
+
+    def reset(self) -> None:
+        self.metric_fn.reset()
+
+
+class MeanDice(IgniteMetricHandler):
+    """The mean dice (``metrics.DiceMetric``) over an epoch's predictions and labels."""
+
+    def __init__(self, include_background: bool = True, reduction: str = MetricReduction.MEAN,
+                 num_classes: int | None = None, output_transform: Callable = lambda x: x):
+        super().__init__(DiceMetric(include_background=include_background, reduction=reduction,
+                                    num_classes=num_classes), output_transform)

@@ -6,8 +6,10 @@ stride-1 SAME convolution to the CUDA kernel (``ops/conv3d.py``); every other
 convolution (1x1, the strided patch embedding) and every transposed convolution is
 ``F.conv3d`` / ``F.conv_transpose3d``, as the JAX package leaves them to XLA. Those
 run in full float32 on float32 CUDA inputs whatever torch's TF32 setting
-(``full_float32``): torch's default lets cuDNN round their float32 inputs to TF32's
-10-bit mantissa, and the port's float32 path is held to the CPU's float32.
+(``full_float32``), forward and backward (``_Float32Conv``): torch's default lets cuDNN
+round their float32 inputs to TF32's 10-bit mantissa, and the port's float32 path is held
+to the CPU's float32. (torch's float32 matrix products, the ``Linear`` layers, run in
+full float32 by default: ``torch.backends.cuda.matmul.allow_tf32`` is False.)
 ``Norm``: instance runs the CUDA kernel of ``fast_norm.py``; batch is
 ``nn.BatchNorm{n}d`` (eps 1e-5, plain PyTorch, as the JAX package has no kernel for
 it); layer is ``nn.LayerNorm`` with the JAX package's eps of 1e-6 (torch MONAI uses
@@ -28,6 +30,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from ...ops.conv3d import conv3d_3x3_same
 from ...utils.backend import full_float32
@@ -99,11 +102,47 @@ def linear(in_features: int, out_features: int, bias: bool = True, device=None, 
     return init_uniform_(nn.Linear(in_features, out_features, bias=bias, device=device, dtype=dtype), generator)
 
 
+_conv_backward = torch.ops.aten.convolution_backward  # a name of this module, which a test can watch
+
+
+class _Float32Conv(torch.autograd.Function):
+    """A cuDNN convolution (``aten.convolution``) whose forward and backward each run in
+    ``full_float32``: autograd would run the backward later, under the caller's TF32
+    setting."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, dilation, transposed, output_padding, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding, dilation, transposed, output_padding, groups)
+        ctx.bias_sizes = None if bias is None else list(bias.shape)
+        with full_float32(x):
+            return torch.ops.aten.convolution(x, weight, bias, stride, padding, dilation, transposed, output_padding,
+                                              groups)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], ctx.needs_input_grad[2] and ctx.bias_sizes is not None]
+        with full_float32(x):
+            dx, dw, db = _conv_backward(g.contiguous(), x, weight, ctx.bias_sizes, *ctx.conf, mask)
+        return dx, dw, db, None, None, None, None, None, None
+
+
 def _exact_float32(base: type) -> type:
-    """``base``, a torch convolution module, with its calls in ``full_float32``."""
+    """``base``, a torch convolution module, with its calls in ``full_float32``: on a
+    float32 CUDA input with numeric zero padding, forward and backward (``_Float32Conv``);
+    otherwise the module's own call inside ``full_float32`` (TF32 does not touch the
+    other types)."""
 
     class Exact(base):
         def forward(self, x: torch.Tensor, *args) -> torch.Tensor:
+            if (x.device.type == "cuda" and x.dtype == torch.float32 and self.padding_mode == "zeros"
+                    and not isinstance(self.padding, str) and not args):
+                transposed = isinstance(self, nn.modules.conv._ConvTransposeNd)
+                out_pad = tuple(self.output_padding) if transposed else (0,) * len(self.stride)
+                return _Float32Conv.apply(x, self.weight, self.bias, list(self.stride), list(self.padding),
+                                          list(self.dilation), transposed, list(out_pad), self.groups)
             with full_float32(x):
                 return super().forward(x, *args)
 
@@ -115,7 +154,7 @@ def _exact_float32(base: type) -> type:
 ConvTranspose3d = _exact_float32(nn.ConvTranspose3d)
 
 
-class Conv3d(nn.Conv3d):
+class Conv3d(_exact_float32(nn.Conv3d)):
     """``nn.Conv3d`` whose 3x3x3, stride-1, dilation-1, ungrouped, zero-padded SAME case
     runs ``ops.conv3d.conv3d_3x3_same`` on the channels-last view of its input; any other
     runs cuDNN, in full float32 on float32 CUDA inputs (``full_float32``)."""
@@ -128,8 +167,7 @@ class Conv3d(nn.Conv3d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.same_3x3x3:
-            with full_float32(x):
-                return super().forward(x)
+            return super().forward(x)
         w = self.weight.permute(2, 3, 4, 1, 0).contiguous()  # (O,I,kd,kh,kw) -> (kd,kh,kw,I,O)
         y = conv3d_3x3_same(x.permute(0, 2, 3, 4, 1).contiguous(), w, self.bias)
         return y.permute(0, 4, 1, 2, 3)  # channel-first view, channels-last memory

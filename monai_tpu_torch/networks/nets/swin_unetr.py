@@ -8,15 +8,19 @@ two layouts are views. Module names follow torch MONAI (``swinViT.layers1.0.bloc
 .attn.qkv``, ``encoder1.layer.conv1.conv``, ``decoder5.transp_conv.conv``,
 ``out.conv.conv``), so the ``state_dict`` keys are torch MONAI's.
 
-Window attention runs the CUDA kernel of ``ops/window_attention.py``; the 3x3x3 convs
-and the instance norms run the UNet path's kernels. The shifted-window masks are
-built once per padded size, window and shift, and kept on the device.
+Window attention runs the CUDA kernel of ``ops/window_attention.py``, forward and (under
+autograd) backward; the 3x3x3 convs and the instance norms run the UNet path's kernels,
+forward and backward. The relative-position bias gets its grad through the table gather
+by autograd. The shifted-window masks are built once per padded size, window and shift,
+and kept on the device.
 
 Where the JAX package differs from torch MONAI, the port follows the JAX package:
 LayerNorm eps 1e-6 (torch MONAI 1e-5) and GELU in the tanh approximation (torch MONAI
-the exact erf), so a torch MONAI checkpoint gives slightly different logits. Not taken:
-drop path, activation checkpointing, ``use_v2`` and the deprecated ``img_size``;
-attention dropout waits for the training slice.
+the exact erf), so a torch MONAI checkpoint gives slightly different logits; and
+``use_checkpoint`` and ``dropout_path_rate`` are taken and have no effect, as in the JAX
+package (torch MONAI recomputes each stage under ``use_checkpoint``, which bounds its
+memory, and drops paths at ``dropout_path_rate``). Not taken: ``use_v2`` and the
+deprecated ``img_size``; attention dropout (``attn_drop_rate`` > 0) raises.
 """
 from __future__ import annotations
 
@@ -122,7 +126,7 @@ class WindowAttention(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         if attn_drop != 0.0:
-            raise NotImplementedError("attention dropout waits for the training slice")
+            raise NotImplementedError("attention dropout is not ported (the fused attention kernel has none)")
         self.dim = dim
         self.window_size = tuple(window_size)
         self.num_heads = num_heads
@@ -311,15 +315,18 @@ class SwinTransformer(nn.Module):
 
 class SwinUNETR(nn.Module):
     """Swin encoder and conv decoder: ``SwinUNETR(in_channels=1, out_channels=14,
-    feature_size=24)`` is the BTCV network; channel-first (B, C, *spatial) in and out,
-    each spatial size a multiple of 32. ``device=None`` is the CUDA card; the weights
-    are made on the CPU and then moved, so one seed gives the same weights on either
-    device."""
+    feature_size=24)`` is the bench's BTCV network, ``feature_size=48`` the BTCV bundle's;
+    channel-first (B, C, *spatial) in and out, each spatial size a multiple of 32.
+    ``device=None`` is the CUDA card; the weights are made on the CPU and then moved, so
+    one seed gives the same weights on either device. ``dropout_path_rate`` and
+    ``use_checkpoint`` are taken for the JAX package's signature and do nothing there or
+    here (see the module docstring)."""
 
     def __init__(self, in_channels: int = 1, out_channels: int = 2, depths: Sequence[int] = (2, 2, 2, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), feature_size: int = 24,
                  norm_name=("instance", {"affine": True}), drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
-                 normalize: bool = True, spatial_dims: int = 3, downsample="merging",
+                 dropout_path_rate: float = 0.0, normalize: bool = True, use_checkpoint: bool = False,
+                 spatial_dims: int = 3, downsample="merging",
                  window_size: Sequence[int] | int = 7, patch_size: Sequence[int] | int = 2, device=None,
                  dtype=None, generator: torch.Generator | None = None):
         super().__init__()

@@ -7,7 +7,14 @@ in plain PyTorch, and not the XLA formulation: the scores and the softmax are fl
 the normalised probabilities are rounded to the input type, and p·v accumulates in
 float32, as the TPU kernel does. The wrapper runs it for tensors on the CPU, and it is
 the oracle the kernel is held to on the card. For a CUDA tensor the wrapper launches the
-kernel or raises; it never falls back. Forward only.
+kernel or raises; it never falls back.
+
+Under autograd the wrapper is the counterpart of the JAX custom VJP (``_vjp_fwd`` and
+``_vjp_bwd``): the forward kernel also writes each score row's log-sum-exp, and the
+backward is ``fused_window_attention_backward``, the kernels of
+``csrc/window_attention_bwd.cu`` (its plain version
+``fused_window_attention_backward_plain``), which give dq, dk, dv and dbias; the mask gets
+no grad, as in the JAX rule.
 """
 from __future__ import annotations
 
@@ -15,11 +22,13 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ._build import library
 from ..utils.counters import count_launch
 
-__all__ = ["fused_window_attention", "fused_window_attention_plain", "window_attention_plan"]
+__all__ = ["fused_window_attention", "fused_window_attention_backward", "fused_window_attention_backward_plain",
+           "fused_window_attention_plain", "window_attention_backward_plan", "window_attention_plan"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _INSTANCES = ("mma", "fma", "generic")
@@ -59,14 +68,12 @@ def _check(q, k, v, bias, mask) -> None:
         raise ValueError("q, k, v, bias and mask must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_window_attention takes contiguous tensors")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("fused_window_attention is forward-only; run it under torch.inference_mode()")
 
 
 @functools.cache
 def _launcher():
     fn = library().monai_window_attention
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -100,6 +107,46 @@ def window_attention_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bia
             "blocks_per_sm": info[3], "smem_bytes": info[4], "rows_per_block": info[5]}
 
 
+def _forward(q, k, v, bias, mask, with_lse: bool = False):
+    """The CUDA forward; with ``with_lse`` also each score row's float32 log-sum-exp
+    (B, H, N), else None."""
+    b, h, n, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device) if with_lse else None
+    with torch.cuda.device(q.device):
+        err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                          None if mask is None else mask.data_ptr(), out.data_ptr(),
+                          None if lse is None else lse.data_ptr(), b, h, n, d,
+                          0 if mask is None else mask.shape[0], _DTYPE_CODES[q.dtype],
+                          torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_window_attention: CUDA launch failed with error {err} "
+                           f"(q {tuple(q.shape)} {q.dtype}, mask {None if mask is None else tuple(mask.shape)})")
+    count_launch(fused_window_attention)
+    return out, lse
+
+
+class _WindowAttention(torch.autograd.Function):
+    """The JAX rule: the forward saves q, k, v, bias, mask, the output and (on the card)
+    the log-sum-exp; the backward gives dq, dk, dv and dbias, and no grad to the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask):
+        if q.device.type == "cpu":
+            out, lse = fused_window_attention_plain(q, k, v, bias, mask), None
+        else:
+            out, lse = _forward(q, k, v, bias, mask, with_lse=True)
+        ctx.save_for_backward(q, k, v, bias, mask, out, lse)
+        return out
+
+    @staticmethod
+    @once_differentiable  # the backward kernels have no backward of their own
+    def backward(ctx, g):
+        q, k, v, bias, mask, out, lse = ctx.saved_tensors
+        dq, dk, dv, dbias = fused_window_attention_backward(q, k, v, bias, mask, out, g.contiguous(), lse)
+        return dq, dk, dv, dbias, None
+
+
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
                            mask: torch.Tensor | None = None) -> torch.Tensor:
     """softmax(q kᵀ + bias[h] + mask[b % nW]) v for q, k, v (B, H, N, D), q already scaled
@@ -108,24 +155,129 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bi
 
     CPU tensors run the plain version; CUDA tensors run the CUDA kernel (any N and any
     head dim whose key chunks fit the card's shared memory; past that the kernel refuses
-    and this raises) and add one to ``fused_window_attention.launches``."""
+    and this raises) and add one to ``fused_window_attention.launches``. Where autograd
+    records (q, k, v or bias requires a grad), the backward runs
+    ``fused_window_attention_backward``."""
     _check(q, k, v, bias, mask)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_window_attention runs on CPU or CUDA tensors, not {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+        return _WindowAttention.apply(q, k, v, bias, mask)
     if q.device.type == "cpu":
         return fused_window_attention_plain(q, k, v, bias, mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_window_attention runs on CPU or CUDA tensors, not {q.device}")
-    b, h, n, d = q.shape
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                          None if mask is None else mask.data_ptr(), out.data_ptr(), b, h, n, d,
-                          0 if mask is None else mask.shape[0], _DTYPE_CODES[q.dtype],
-                          torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_window_attention: CUDA launch failed with error {err} "
-                           f"(q {tuple(q.shape)} {q.dtype}, mask {None if mask is None else tuple(mask.shape)})")
-    count_launch(fused_window_attention)
-    return out
+    return _forward(q, k, v, bias, mask)[0]
 
 
 fused_window_attention.launches = 0
+
+
+def fused_window_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                                          mask: torch.Tensor | None, out: torch.Tensor,
+                                          grad_out: torch.Tensor) -> tuple:
+    """Plain-PyTorch version of ``fused_window_attention_backward``, in float32: P the
+    softmax of the scores, dV = round(P)ᵀ dO with P rounded to q's dtype as the forward
+    rounds it, D = Σ_d dO·O from the forward's output, dS = P ∘ (dO vᵀ − D), dQ = dS k,
+    dK = dSᵀ q, dbias the sum of dS over the windows. dq, dk, dv in q's dtype, dbias
+    float32."""
+    b, h, n, _ = q.shape
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s += bias.float()
+    if mask is not None:
+        nw = mask.shape[0]
+        s.view(b // nw, nw, h, n, n).add_(mask.float()[None, :, None])
+    p = torch.softmax(s, dim=-1)
+    del s
+    g = grad_out.float()
+    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), g)
+    ds = torch.matmul(g, v.float().transpose(-1, -2))
+    ds -= (g * out.float()).sum(-1, keepdim=True)
+    ds *= p
+    del p
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), ds.sum(0)
+
+
+@functools.cache
+def _bwd_fns():
+    lib = library()
+    plan, run = lib.monai_window_attention_bwd_plan, lib.monai_window_attention_bwd
+    plan.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    plan.restype = ctypes.c_int
+    run.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    run.restype = ctypes.c_int
+    return plan, run
+
+
+def _bwd_plan(b: int, h: int, n: int, d: int, nw: int, dtype: torch.dtype, device: torch.device) -> dict:
+    info = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        err = _bwd_fns()[0](b, h, n, d, nw, _DTYPE_CODES[dtype], ctypes.addressof(info))
+    if err == 1:
+        raise ValueError(f"fused_window_attention_backward: the kernel takes head dims up to 32 and N up to what two "
+                         f"(N, 33) float32 tiles leave of the shared memory; got (B, H, N, D) = ({b}, {h}, {n}, {d})")
+    if err != 0:
+        raise RuntimeError(f"window_attention_backward_plan: error {err} for ({b}, {h}, {n}, {d}) {dtype}")
+    return {"head_dim": info[0], "windows_per_block": info[1], "splits": info[2], "dq_blocks": info[3],
+            "dkdv_blocks": info[4], "dq_smem_bytes": info[5], "dq_blocks_per_sm": info[6]}
+
+
+def window_attention_backward_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                                   mask: torch.Tensor | None = None) -> dict:
+    """What ``fused_window_attention_backward`` launches for these CUDA tensors, without
+    launching it: the instance's head dim (D rounded up to 8, 16 or 32), the windows a dq
+    block walks over, the dbias partials (one a run of windows; 1 means no sum launch),
+    the dq and dkdv blocks, the dq launch's shared memory and the dq blocks an SM holds.
+    Raises ValueError naming the shape where the kernel refuses it."""
+    _check(q, k, v, bias, mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention_backward_plan describes a CUDA launch; got a tensor on {q.device}")
+    b, h, n, d = q.shape
+    return _bwd_plan(b, h, n, d, 0 if mask is None else mask.shape[0], q.dtype, q.device)
+
+
+def fused_window_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                                    mask: torch.Tensor | None, out: torch.Tensor, grad_out: torch.Tensor,
+                                    lse: torch.Tensor | None = None) -> tuple:
+    """dq, dk, dv (q's dtype) and dbias (float32) of ``fused_window_attention`` at output
+    grad ``grad_out``, given its output ``out`` and, on the card, the forward's
+    log-sum-exp ``lse`` (B, H, N) float32.
+
+    CPU tensors run the plain version; CUDA tensors run the kernels of
+    ``csrc/window_attention_bwd.cu`` (four launches: D, dK and dV, dQ with dbias's
+    partials, their sum) or raise, and add one to
+    ``fused_window_attention_backward.launches``. Deterministic: the same inputs give
+    the same bits."""
+    _check(q, k, v, bias, mask)
+    for name, t in (("out", out), ("grad_out", grad_out)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {tuple(q.shape)} {q.dtype} tensor on {q.device}")
+    if q.device.type == "cpu":
+        return fused_window_attention_backward_plain(q, k, v, bias, mask, out, grad_out)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_window_attention_backward runs on CPU or CUDA tensors, not {q.device}")
+    b, h, n, d = q.shape
+    if lse is None or tuple(lse.shape) != (b, h, n) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"fused_window_attention_backward needs the forward's ({b}, {h}, {n}) float32 log-sum-exp "
+                         f"on {q.device}")
+    plan = _bwd_plan(b, h, n, d, 0 if mask is None else mask.shape[0], q.dtype, q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    part = (torch.empty((plan["splits"], h, n, n), dtype=torch.float32, device=q.device)
+            if plan["splits"] > 1 else None)
+    with torch.cuda.device(q.device):
+        err = _bwd_fns()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                            None if mask is None else mask.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
+                            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                            dbias.data_ptr(), None if part is None else part.data_ptr(), b, h, n, d,
+                            0 if mask is None else mask.shape[0], _DTYPE_CODES[q.dtype],
+                            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_window_attention_backward: CUDA launch failed with error {err} "
+                           f"(q {tuple(q.shape)} {q.dtype}, mask {None if mask is None else tuple(mask.shape)})")
+    count_launch(fused_window_attention_backward)
+    return dq, dk, dv, dbias
+
+
+fused_window_attention_backward.launches = 0

@@ -1,11 +1,13 @@
 from .compose import Compose, execute_compose
-from .dictionary import (Activationsd, AsDiscreted, EnsureChannelFirstd, Invertd, LoadImaged, Orientationd,
+from .croppad_array import Crop, CropForeground, RandCropByPosNegLabel, SpatialCrop
+from .dictionary import (Activationsd, AsDiscreted, CropForegroundd, EnsureChannelFirstd, Invertd, LoadImaged,
+                         Orientationd, RandCropByPosNegLabeld, RandFlipd, RandRotate90d, RandShiftIntensityd,
                          SaveImaged, ScaleIntensityRanged, Spacingd)
-from .intensity_array import ScaleIntensityRange
+from .intensity_array import RandShiftIntensity, ScaleIntensityRange
 from .inverse import InvertibleTransform, TraceableTransform
 from .io_array import LoadImage, SaveImage
 from .lazy_executor import apply_pending
 from .post_array import Activations, AsDiscrete
-from .spatial_array import Orientation, Spacing
-from .transform import LazyTransform, MapTransform, Transform, apply_transform
+from .spatial_array import Flip, Orientation, RandFlip, RandRotate90, Rotate90, Spacing
+from .transform import LazyTransform, MapTransform, Randomizable, RandomizableTransform, Transform, apply_transform
 from .utility_array import EnsureChannelFirst

@@ -1,6 +1,7 @@
 """Dictionary versions of the ported transforms (counterpart of
 monai_tpu/transforms/dictionary.py): the ``<Name>d`` of each, ``Invertd`` and
-``SaveImaged``."""
+``SaveImaged``. A random one draws once a call, from its own ``R``, and applies the same
+draw to every key, in the JAX package's order of draws."""
 from __future__ import annotations
 
 from collections.abc import Mapping, Sequence
@@ -11,17 +12,20 @@ from ..data.meta_image import MetaImage
 from ..utils.enums import LazyAttr
 from ..utils.misc import ensure_tuple_rep
 from .compose import Compose
-from .intensity_array import ScaleIntensityRange
+from .croppad_array import CropForeground, RandCropByPosNegLabel
+from .intensity_array import RandShiftIntensity, ScaleIntensityRange
 from .inverse import InvertibleTransform
 from .io_array import LoadImage, SaveImage
 from .post_array import Activations, AsDiscrete
-from .spatial_array import Orientation, Spacing
+from .spatial_array import Orientation, RandFlip, RandRotate90, Spacing
 from .traits import LazyTrait
-from .transform import MapTransform
+from .transform import MapTransform, Randomizable, RandomizableTransform
 from .utility_array import EnsureChannelFirst
+from .utils import is_positive
 
 __all__ = ["LoadImaged", "EnsureChannelFirstd", "Orientationd", "Spacingd", "ScaleIntensityRanged", "Activationsd",
-           "AsDiscreted", "Invertd", "SaveImaged"]
+           "AsDiscreted", "CropForegroundd", "RandCropByPosNegLabeld", "RandFlipd", "RandRotate90d",
+           "RandShiftIntensityd", "Invertd", "SaveImaged"]
 
 
 def _mapped(name: str, array_cls, call_kwargs: tuple = ()):
@@ -61,7 +65,120 @@ Orientationd = _mapped("Orientationd", Orientation)
 ScaleIntensityRanged = _mapped("ScaleIntensityRanged", ScaleIntensityRange)
 EnsureChannelFirstd = _mapped("EnsureChannelFirstd", EnsureChannelFirst)
 Activationsd = _mapped("Activationsd", Activations, call_kwargs=("softmax",))
-AsDiscreted = _mapped("AsDiscreted", AsDiscrete, call_kwargs=("argmax",))
+AsDiscreted = _mapped("AsDiscreted", AsDiscrete, call_kwargs=("argmax", "to_onehot"))
+
+
+def _mapped_rand(name: str, array_cls, draw):
+    """A random ``<Name>d``: ``draw(t, data)`` draws the parameters of the one
+    ``array_cls`` ``t`` once a call, from the first key's data, and ``t`` applies them to
+    every key."""
+
+    class _RD(Randomizable, MapTransform):
+        def __init__(self, keys, allow_missing_keys: bool = False, **kwargs):
+            MapTransform.__init__(self, keys, allow_missing_keys)
+            self.t = array_cls(**kwargs)
+
+        def set_random_state(self, seed=None, state=None):
+            self.t.set_random_state(seed, state)
+            Randomizable.set_random_state(self, seed, state)
+            return self
+
+        def randomize(self, data=None) -> None:
+            draw(self.t, data)
+
+        def __call__(self, data: Mapping, lazy: bool | None = None) -> dict:
+            d = dict(data)
+            keys = list(self.key_iterator(d))
+            if not keys:
+                return d
+            first = d[keys[0]]
+            self.randomize(first.data if isinstance(first, MetaImage) else first)
+            for key in keys:
+                d[key] = (self.t(d[key], randomize=False, lazy=lazy) if isinstance(self.t, LazyTrait)
+                          else self.t(d[key], randomize=False))
+            return d
+
+    _RD.__name__ = _RD.__qualname__ = name
+    _RD.__doc__ = f"Dictionary wrapper of :class:`{array_cls.__name__}`: one draw a call, for every key."
+    return _RD
+
+
+def _rotate90_draw(t: RandRotate90, data) -> None:
+    """The dictionary form draws k first, then the probability (the array form the other
+    way round), as torch MONAI's and the JAX package's do."""
+    t._rand_k = t.R.randint(t.max_k) + 1
+    RandomizableTransform.randomize(t, None)
+
+
+RandFlipd = _mapped_rand("RandFlipd", RandFlip, lambda t, data: t.randomize(None))
+RandRotate90d = _mapped_rand("RandRotate90d", RandRotate90, _rotate90_draw)
+RandShiftIntensityd = _mapped_rand("RandShiftIntensityd", RandShiftIntensity, lambda t, data: t.randomize(data))
+
+
+class CropForegroundd(MapTransform, InvertibleTransform):
+    """Crop every key to the foreground box of ``source_key``'s image (``CropForeground``),
+    and keep the box under ``start_coord_key`` and ``end_coord_key``."""
+
+    def __init__(self, keys, source_key: str, select_fn=is_positive, channel_indices=None, margin=0,
+                 allow_smaller: bool = True, start_coord_key: str | None = "foreground_start_coord",
+                 end_coord_key: str | None = "foreground_end_coord", allow_missing_keys: bool = False,
+                 lazy: bool = False):
+        MapTransform.__init__(self, keys, allow_missing_keys)
+        self.source_key = source_key
+        self.start_coord_key = start_coord_key
+        self.end_coord_key = end_coord_key
+        self.cropper = CropForeground(select_fn=select_fn, channel_indices=channel_indices, margin=margin,
+                                      allow_smaller=allow_smaller, lazy=lazy)
+
+    def __call__(self, data: Mapping, lazy: bool | None = None) -> dict:
+        d = dict(data)
+        box_start, box_end = self.cropper.compute_bounding_box(d[self.source_key])
+        if self.start_coord_key is not None:
+            d[self.start_coord_key] = box_start
+        if self.end_coord_key is not None:
+            d[self.end_coord_key] = box_end
+        for key in self.key_iterator(d):
+            d[key] = self.cropper.crop_pad(d[key], box_start, box_end, lazy=lazy)
+        return d
+
+    def inverse(self, data: Mapping) -> dict:
+        d = dict(data)
+        for key in self.key_iterator(d):
+            d[key] = self.cropper.inverse(d[key])
+        return d
+
+
+class RandCropByPosNegLabeld(Randomizable, MapTransform):
+    """``RandCropByPosNegLabel`` of every key around the same centers, drawn from
+    ``label_key``'s label (and ``image_key``'s image for the background): a list of
+    ``num_samples`` dicts. The JAX package's precomputed ``fg_indices_key`` and
+    ``bg_indices_key`` are not ported."""
+
+    def __init__(self, keys, label_key: str, spatial_size, pos: float = 1.0, neg: float = 1.0,
+                 num_samples: int = 1, image_key: str | None = None, image_threshold: float = 0.0,
+                 allow_smaller: bool = False, allow_missing_keys: bool = False, lazy: bool = False):
+        MapTransform.__init__(self, keys, allow_missing_keys)
+        self.label_key = label_key
+        self.image_key = image_key
+        self.cropper = RandCropByPosNegLabel(spatial_size=spatial_size, pos=pos, neg=neg, num_samples=num_samples,
+                                             image_threshold=image_threshold, allow_smaller=allow_smaller, lazy=lazy)
+
+    def set_random_state(self, seed=None, state=None):
+        super().set_random_state(seed, state)
+        self.cropper.set_random_state(state=self.R)
+        return self
+
+    def randomize(self, label, image=None) -> None:
+        self.cropper.randomize(label, image)
+
+    def __call__(self, data: Mapping, lazy: bool | None = None) -> list[dict]:
+        d = dict(data)
+        self.randomize(d[self.label_key], d.get(self.image_key) if self.image_key else None)
+        ret = [dict(d) for _ in range(self.cropper.num_samples)]
+        for key in self.key_iterator(d):
+            for i, im in enumerate(self.cropper(d[key], randomize=False, lazy=lazy)):
+                ret[i][key] = im
+        return ret
 
 
 class LoadImaged(MapTransform):

@@ -1,4 +1,5 @@
-"""ScaleIntensityRange (counterpart of monai_tpu/transforms/intensity_array.py)."""
+"""ScaleIntensityRange and RandShiftIntensity (counterpart of
+monai_tpu/transforms/intensity_array.py)."""
 from __future__ import annotations
 
 from typing import Any
@@ -7,9 +8,9 @@ import torch
 
 from ..data.meta_image import MetaImage
 from ..utils.backend import get_torch_dtype
-from .transform import Transform
+from .transform import RandomizableTransform, Transform
 
-__all__ = ["ScaleIntensityRange"]
+__all__ = ["RandShiftIntensity", "ScaleIntensityRange"]
 
 
 class ScaleIntensityRange(Transform):
@@ -33,3 +34,32 @@ class ScaleIntensityRange(Transform):
                 x = x.clamp(self.b_min, self.b_max)
             x = x.to(get_torch_dtype(self.dtype))
         return img.new_like(x) if isinstance(img, MetaImage) else x
+
+
+class RandShiftIntensity(RandomizableTransform):
+    """With probability ``prob``, img + an offset drawn uniformly from ``offsets`` (a pair,
+    or ±a number), in the image's type. The JAX package's ``channel_wise`` is not ported."""
+
+    def __init__(self, offsets: tuple[float, float] | float, prob: float = 0.1):
+        RandomizableTransform.__init__(self, prob)
+        if isinstance(offsets, (int, float)):
+            self.offsets = (min(-offsets, offsets), max(-offsets, offsets))
+        elif len(offsets) != 2:
+            raise ValueError(f"offsets should be a number or pair of numbers, got {offsets}.")
+        else:
+            self.offsets = (min(offsets), max(offsets))
+        self._offset = self.offsets[0]
+
+    def randomize(self, data: Any = None) -> None:
+        super().randomize(None)
+        if self._do_transform:
+            self._offset = self.R.uniform(low=self.offsets[0], high=self.offsets[1])
+
+    def __call__(self, img: Any, randomize: bool = True):
+        if randomize:
+            self.randomize()
+        if not self._do_transform:
+            return img
+        x = img.data if isinstance(img, MetaImage) else img
+        out = (x + self._offset).to(x.dtype)
+        return img.new_like(out) if isinstance(img, MetaImage) else out

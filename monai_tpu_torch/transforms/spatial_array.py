@@ -1,11 +1,13 @@
-"""Spatial transforms, Spacing and Orientation (counterpart of
-monai_tpu/transforms/spatial_array.py).
+"""Spatial transforms: Spacing, Orientation, Flip, Rotate90 and their random forms
+RandFlip and RandRotate90 (counterpart of monai_tpu/transforms/spatial_array.py).
 
 Each transform describes its action as a float64 output-to-input voxel matrix, pushes it
 as a pending operation, and (not lazy) flushes it at once through
-``lazy_executor.apply_pending``, which resamples on the data's device: Orientation is an
-integer permutation and flip, Spacing a diagonal affine that runs the separable
-resample kernel. Both invert through ``InvertibleTransform.inverse``.
+``lazy_executor.apply_pending``, which resamples on the data's device and moves the
+affine: Orientation, a flip and a 90-degree rotation are integer permutations and flips,
+Spacing a diagonal affine that runs the separable resample kernel. They invert through
+``InvertibleTransform.inverse``. The random forms draw from their ``R`` as the JAX
+package's do; a skipped one returns its input and records nothing.
 """
 from __future__ import annotations
 
@@ -22,9 +24,10 @@ from ..utils.misc import ensure_tuple
 from .inverse import InvertibleTransform
 from .lazy_executor import apply_pending
 from .lazy_utils import apply_affine_to_data, resolve_mode
-from .transform import LazyTransform
+from .transform import LazyTransform, RandomizableTransform
+from .utils import map_spatial_axes
 
-__all__ = ["Spacing", "Orientation"]
+__all__ = ["Flip", "Orientation", "RandFlip", "RandRotate90", "Rotate90", "Spacing"]
 
 
 def resolves_modes(interp_mode, padding_mode) -> tuple[int, str]:
@@ -110,3 +113,92 @@ class Orientation(_SpatialLazyTransform):
             out_shape[int(out_ax)] = int(spatial_shape[in_ax])
         return self._op(img, inv_ornt_aff(spatial_ornt, spatial_shape), tuple(out_shape), mode="nearest",
                         padding_mode="zeros", lazy=lazy, extra_info={"original_affine": affine_.tolist()})
+
+
+def _spatial_shape(img: Any) -> tuple:
+    return img.peek_pending_shape() if isinstance(img, MetaImage) else tuple(img.shape[1:])
+
+
+class Flip(_SpatialLazyTransform):
+    """Flip along ``spatial_axis`` (None: every spatial axis)."""
+
+    def __init__(self, spatial_axis: Sequence[int] | int | None = None, lazy: bool = False):
+        super().__init__(lazy=lazy)
+        self.spatial_axis = spatial_axis
+
+    def __call__(self, img: Any, lazy: bool | None = None):
+        spatial_shape = _spatial_shape(img)
+        sr = len(spatial_shape)
+        matrix = np.eye(sr + 1, dtype=np.float64)
+        for ax in map_spatial_axes(sr + 1, self.spatial_axis):
+            matrix[ax - 1, ax - 1] = -1.0
+            matrix[ax - 1, sr] = float(spatial_shape[ax - 1] - 1)
+        return self._op(img, matrix, tuple(spatial_shape), mode="nearest", padding_mode="zeros", lazy=lazy)
+
+
+class Rotate90(_SpatialLazyTransform):
+    """Rotate by 90 degrees ``k`` times in the plane of ``spatial_axes``."""
+
+    def __init__(self, k: int = 1, spatial_axes: tuple[int, int] = (0, 1), lazy: bool = False):
+        super().__init__(lazy=lazy)
+        self.k = (4 + (k % 4)) % 4
+        self.spatial_axes = ensure_tuple(spatial_axes)
+        if len(self.spatial_axes) != 2:
+            raise ValueError(f"spatial_axes must be 2 numbers to define the plane, got {self.spatial_axes}.")
+
+    def __call__(self, img: Any, lazy: bool | None = None):
+        img = MetaImage.ensure_meta(img)
+        shape = list(img.peek_pending_shape())
+        sr = len(shape)
+        a, b = (ax % sr for ax in self.spatial_axes)
+        total = np.eye(sr + 1, dtype=np.float64)
+        for _ in range(self.k):  # one turn in plane (a, b): out[x_a, x_b] = in[x_b, n_b - 1 - x_a]
+            m = np.eye(sr + 1, dtype=np.float64)
+            m[a, a] = m[b, b] = 0.0
+            m[a, b], m[b, a] = 1.0, -1.0
+            m[b, sr] = float(shape[b] - 1)
+            total = total @ m
+            shape[a], shape[b] = shape[b], shape[a]
+        return self._op(img, total, tuple(shape), mode="nearest", padding_mode="zeros", lazy=lazy,
+                        extra_info={"k": self.k, "axes": [a, b]})
+
+
+class RandFlip(RandomizableTransform, LazyTransform):
+    """With probability ``prob``, ``Flip(spatial_axis)``."""
+
+    def __init__(self, prob: float = 0.1, spatial_axis: Sequence[int] | int | None = None, lazy: bool = False):
+        RandomizableTransform.__init__(self, prob)
+        LazyTransform.__init__(self, lazy=lazy)
+        self.flipper = Flip(spatial_axis=spatial_axis)
+
+    def __call__(self, img: Any, randomize: bool = True, lazy: bool | None = None):
+        if randomize:
+            self.randomize(None)
+        if not self._do_transform:
+            return img
+        return self.flipper(img, lazy=self.lazy if lazy is None else lazy)
+
+
+class RandRotate90(RandomizableTransform, LazyTransform):
+    """With probability ``prob``, ``Rotate90`` by k in 1..``max_k`` turns, k drawn after
+    the probability."""
+
+    def __init__(self, prob: float = 0.1, max_k: int = 3, spatial_axes: tuple[int, int] = (0, 1),
+                 lazy: bool = False):
+        RandomizableTransform.__init__(self, prob)
+        LazyTransform.__init__(self, lazy=lazy)
+        self.max_k = max_k
+        self.spatial_axes = spatial_axes
+        self._rand_k = 0
+
+    def randomize(self, data: Any = None) -> None:
+        super().randomize(None)
+        if self._do_transform:
+            self._rand_k = self.R.randint(self.max_k) + 1
+
+    def __call__(self, img: Any, randomize: bool = True, lazy: bool | None = None):
+        if randomize:
+            self.randomize()
+        if not self._do_transform:
+            return img
+        return Rotate90(self._rand_k, self.spatial_axes)(img, lazy=self.lazy if lazy is None else lazy)

@@ -1,7 +1,7 @@
 """Transform capability traits (counterpart of monai_tpu/transforms/traits.py)."""
 from __future__ import annotations
 
-__all__ = ["InvertibleTrait", "LazyTrait"]
+__all__ = ["InvertibleTrait", "LazyTrait", "RandomizableTrait"]
 
 
 class LazyTrait:
@@ -23,3 +23,8 @@ class LazyTrait:
 class InvertibleTrait:
     def inverse(self, data):
         raise NotImplementedError
+
+
+class RandomizableTrait:
+    """The transform draws random parameters: a cache of the deterministic transforms
+    before it ends here (``data.dataset.CacheDataset``)."""

@@ -1,16 +1,49 @@
 """Transform base classes (counterpart of monai_tpu/transforms/transform.py: Transform,
-MapTransform, LazyTransform and apply_transform; the randomized ones wait for the
-training slice)."""
+MapTransform, LazyTransform, Randomizable, RandomizableTransform and apply_transform).
+
+Random transforms draw their parameters on the host from a numpy ``RandomState`` of
+their own, ``R``, as the JAX package's do, and a ``Compose`` seeds them from
+``utils.set_determinism``'s seed in the same order: one seed gives the same draws, so
+the same crops, flips, rotations and offsets, in both packages."""
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
 from collections.abc import Callable, Generator, Hashable, Mapping
 from typing import Any
 
-from ..utils.misc import ensure_tuple
-from .traits import LazyTrait
+import numpy as np
 
-__all__ = ["Transform", "MapTransform", "LazyTransform", "apply_transform"]
+from ..utils.misc import ensure_tuple
+from .traits import LazyTrait, RandomizableTrait
+
+__all__ = ["MAX_SEED", "Transform", "MapTransform", "LazyTransform", "Randomizable", "RandomizableTransform",
+           "apply_transform"]
+
+MAX_SEED = np.iinfo(np.uint32).max + 1
+
+
+class Randomizable(RandomizableTrait):
+    """Keeps a numpy ``RandomState`` ``R`` that ``randomize`` draws from."""
+
+    R: np.random.RandomState = np.random.RandomState()
+
+    def set_random_state(self, seed: int | None = None,
+                         state: np.random.RandomState | None = None) -> "Randomizable":
+        """``R`` seeded with ``seed`` (modulo ``MAX_SEED``), else ``state`` itself, else a
+        fresh unseeded one."""
+        if seed is not None:
+            self.R = np.random.RandomState((int(seed) if isinstance(seed, (int, np.integer)) else id(seed))
+                                           % MAX_SEED)
+        elif state is not None:
+            if not isinstance(state, np.random.RandomState):
+                raise TypeError(f"state must be a RandomState, got {type(state).__name__}")
+            self.R = state
+        else:
+            self.R = np.random.RandomState()
+        return self
+
+    def randomize(self, data: Any) -> None:
+        raise NotImplementedError(f"Subclass {self.__class__.__name__} must implement this method.")
 
 
 class Transform(ABC):
@@ -41,6 +74,18 @@ class LazyTransform(Transform, LazyTrait):
     @property
     def requires_current_data(self):
         return False
+
+
+class RandomizableTransform(Randomizable, Transform):
+    """A random transform applied with probability ``prob``: ``randomize`` draws
+    ``R.rand() < prob`` first."""
+
+    def __init__(self, prob: float = 1.0, do_transform: bool = True):
+        self._do_transform = do_transform
+        self.prob = min(max(prob, 0.0), 1.0)
+
+    def randomize(self, data: Any) -> None:
+        self._do_transform = self.R.rand() < self.prob
 
 
 class MapTransform(Transform):

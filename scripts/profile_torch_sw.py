@@ -2,7 +2,7 @@
 """Where the time of the port's sliding-window eval, filtering and training goes, on one NVIDIA GPU.
 
 Runs a chip_smoke.py sliding-window path, filtering stage or training step and reports,
-per volume (per step for ``--net train``):
+per volume (per step for ``--net train`` and ``swin_train``):
 
 - ``--net unet`` or ``swinunetr``: the same network, inferer, 224x224x112 volume and
   bfloat16 weights as chip_smoke.py;
@@ -17,6 +17,9 @@ per volume (per step for ``--net train``):
 - ``--net train``: one ``SupervisedTrainer(amp=True)`` iteration of the bench UNet
   (chip_smoke.py phase 7: DiceCELoss, AdamW 1e-4 and 1e-4, a fixed batch of 4 96³
   patches), outside inference mode;
+- ``--net swin_train``: one float32 ``SupervisedTrainer`` iteration of the BTCV bundle's
+  ``SwinUNETR(1, 14, feature_size=48)`` (chip_smoke.py phase 9: DiceCELoss, AdamW 1e-4 and
+  1e-5, a fixed batch of 4 96³ patches), with cuDNN's TF32 allowed as by torch's default;
 
 and for each:
 
@@ -45,7 +48,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 OWN = {"window_attention": "window attention (CUDA)", "conv3d_3x3_same": "3x3x3 conv (CUDA)",
        "norm_persistent": "instance norm (CUDA)", "norm_onchip": "instance norm (CUDA)",
        "bilateral_2d_kernel": "bilateral 2-D (CUDA)", "bilateral_3d_kernel": "bilateral 3-D (CUDA)",
-       "conv3d_wgrad": "3x3x3 conv dw (CUDA)", "norm_bwd": "instance norm backward (CUDA)"}
+       "conv3d_wgrad": "3x3x3 conv dw (CUDA)", "norm_bwd": "instance norm backward (CUDA)",
+       "dkdv_kernel": "window attention backward (CUDA)", "dq_kernel": "window attention backward (CUDA)",
+       "delta_kernel": "window attention backward (CUDA)", "dbias_sum_kernel": "window attention backward (CUDA)"}
 
 
 def build(net_name: str, dev):
@@ -57,16 +62,21 @@ def build(net_name: str, dev):
 
     g = torch.Generator().manual_seed(0)
     gd = torch.Generator(device=dev).manual_seed(4)
-    if net_name == "train":
+    if net_name in ("train", "swin_train"):
         from monai_tpu_torch.engines import SupervisedTrainer
         from monai_tpu_torch.losses import DiceCELoss
 
-        net = UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2), num_res_units=2, generator=g,
-                   device=dev)
-        batch = {"image": torch.rand((4, 1, 96, 96, 96), generator=gd, device=dev),
-                 "label": (torch.rand((4, 1, 96, 96, 96), generator=gd, device=dev) > 0.5).float()}
-        trainer = SupervisedTrainer(device=dev, train_data_loader=[batch], network=net, amp=True,
-                                    optimizer=torch.optim.AdamW(net.parameters(), lr=1e-4, weight_decay=1e-4),
+        image = torch.rand((4, 1, 96, 96, 96), generator=gd, device=dev)
+        if net_name == "train":
+            net = UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2), num_res_units=2,
+                       generator=g, device=dev)
+            label, amp, decay = (torch.rand(image.shape, generator=gd, device=dev) > 0.5).float(), True, 1e-4
+        else:
+            net = SwinUNETR(1, 14, feature_size=48, generator=g, device=dev)
+            label, amp, decay = torch.randint(0, 14, image.shape, generator=gd, device=dev).float(), False, 1e-5
+            torch.backends.cudnn.allow_tf32 = True
+        trainer = SupervisedTrainer(device=dev, train_data_loader=[{"image": image, "label": label}], network=net,
+                                    amp=amp, optimizer=torch.optim.AdamW(net.parameters(), lr=1e-4, weight_decay=decay),
                                     loss_function=DiceCELoss(to_onehot_y=True, softmax=True))
 
         def step():
@@ -98,7 +108,8 @@ def build(net_name: str, dev):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--net", choices=("unet", "swinunetr", "spleen", "grid", "crf", "train"), default="swinunetr")
+    ap.add_argument("--net", choices=("unet", "swinunetr", "spleen", "grid", "crf", "train", "swin_train"),
+                    default="swinunetr")
     ap.add_argument("--volumes", type=int, default=5, help="volumes profiled, after 3 warm-ups")
     ap.add_argument("--top", type=int, default=25, help="kernels listed")
     ap.add_argument("--trace", help="write a chrome trace here")
@@ -110,7 +121,7 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip()
     torch.backends.cudnn.allow_tf32 = False
     n = args.volumes
-    with torch.inference_mode(args.net != "train"):
+    with torch.inference_mode(args.net not in ("train", "swin_train")):
         run = build(args.net, dev)
         for _ in range(3):
             run()

@@ -10,8 +10,8 @@ bfloat16 1e-2 (both versions round an f32 sum to bf16, so they may differ by one
 step, at most 2^-7 of the value); float16 2e-3 (one float16 step, 2^-10 of the value). The separable resample: 1e-5 at orders 1 and 3 (2 or 4
 taps a row, summed in another order than the dense product), bit-identical at order 0.
 The backward kernels (the conv's weight gradient, dx on the conv kernel, the norm's
-backward) take the same tolerances as the forward ones: sums in another order, rounded
-once to the output type.
+backward, the window attention's dq, dk, dv and dbias) take the same tolerances as the
+forward ones: sums in another order, rounded once to the output type.
 The bilateral stencil: 1e-5 (float32 sums of up to (2r+1)^sd taps in another order and
 exp on the card); a bfloat16 or float16 input is cast to float32 and its output back, so
 it may differ from the float32 result by one rounding of the output type.
@@ -33,8 +33,10 @@ from monai_tpu_torch.ops.conv3d import (conv3d_3x3_same, conv3d_3x3_same_plain, 
                                         conv3d_3x3_wgrad_plain, conv3d_3x3_wgrad_plan)
 from monai_tpu_torch.ops.filtering import bilateral_filter
 from monai_tpu_torch.ops.separable_resample import resample_plan, separable_resample_3d, separable_resample_3d_plain
-from monai_tpu_torch.ops.window_attention import (fused_window_attention, fused_window_attention_plain,
-                                                  window_attention_plan)
+from monai_tpu_torch.ops.window_attention import (_forward as _attention_forward, fused_window_attention,
+                                                  fused_window_attention_backward,
+                                                  fused_window_attention_backward_plain, fused_window_attention_plain,
+                                                  window_attention_backward_plan, window_attention_plan)
 
 pytestmark = pytest.mark.cuda
 
@@ -954,3 +956,147 @@ def test_float32_unet_and_blur_ignore_the_tf32_setting(cuda):
     (a, ga), (b, gb) = out[False]
     (c, gc), = out[True]
     assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(ga, gb) and torch.equal(ga, gc)
+
+
+# (windows, heads, N, D, mask rows or None): the BTCV bundle's SwinUNETR (feature size 48)
+# at batch 4 of 96^3 has D = 16 at (1372, 3, 343), (256, 6, 343), (32, 12, 343), (4, 24,
+# 216), one of each pair but the last masked; shrunk here in windows, not in N or D
+ATTN_BWD_SITES = [(12, 3, 343, 16, 4), (12, 3, 343, 16, None), (8, 6, 343, 16, 8), (4, 24, 216, 16, None),
+                  (12, 3, 343, 8, 4), (4, 24, 216, 8, None), (5, 2, 27, 8, 5), (7, 1, 64, 16, None)]
+
+
+def _attention_bwd_inputs(g, b, h, n, d, nw, dtype, device):
+    q, k, v, bias, mask = _attention_inputs(g, b, h, n, d, nw, dtype, device)
+    q = (q.float() * d ** -0.5).to(dtype)
+    out, lse = _attention_forward(q, k, v, bias, mask, with_lse=True)
+    dout = torch.randn((b, h, n, d), generator=g, device=device).to(dtype)
+    return q, k, v, bias, mask, out, dout, lse
+
+
+def _assert_grads_close(got, ref, dtype):
+    """dq, dk, dv (in the input type) and dbias (float32), each at the input type's gate."""
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype
+        _assert_close(a, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,n,d,nw", ATTN_BWD_SITES)
+def test_window_attention_backward_kernel_matches_plain(cuda, dtype, b, h, n, d, nw):
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    q, k, v, bias, mask, out, dout, lse = _attention_bwd_inputs(g, b, h, n, d, nw, dtype, cuda)
+    before = fused_window_attention_backward.launches
+    got = fused_window_attention_backward(q, k, v, bias, mask, out, dout, lse)
+    assert fused_window_attention_backward.launches == before + 1
+    ref = fused_window_attention_backward_plain(q, k, v, bias, mask, out, dout)
+    _assert_grads_close(got, ref, dtype)
+    again = fused_window_attention_backward(q, k, v, bias, mask, out, dout, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))  # deterministic: the same bits twice
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [4, 12, 20, 32])
+@pytest.mark.parametrize("n", [27, 125, 512, 729])
+@pytest.mark.parametrize("nw", [None, 3])
+def test_window_attention_backward_kernel_takes_any_head_dim_to_32(cuda, dtype, d, n, nw):
+    """Head dims up to 32 (each runs the instance of D rounded up to 8, 16 or 32) and any
+    N up to the 9^3 window, with and without a mask."""
+    g = torch.Generator(device=cuda).manual_seed(d * 1000 + n)
+    q, k, v, bias, mask, out, dout, lse = _attention_bwd_inputs(g, 6, 2, n, d, nw, dtype, cuda)
+    assert window_attention_backward_plan(q, k, v, bias, mask)["head_dim"] == (8 if d <= 8 else 16 if d <= 16 else 32)
+    got = fused_window_attention_backward(q, k, v, bias, mask, out, dout, lse)
+    _assert_grads_close(got, fused_window_attention_backward_plain(q, k, v, bias, mask, out, dout), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,n", [(8, 343), (16, 216), (12, 729)])
+@pytest.mark.parametrize("nw", [None, 2])
+def test_window_attention_forward_writes_the_log_sum_exp(cuda, dtype, d, n, nw):
+    """Each forward instance (tensor-core, FMA, generic) writes the rows' log-sum-exp
+    under autograd, and the same output as without it."""
+    g = torch.Generator(device=cuda).manual_seed(d + n)
+    q, k, v, bias, mask = _attention_inputs(g, 4, 3, n, d, nw, dtype, cuda)
+    out, lse = _attention_forward(q, k, v, bias, mask, with_lse=True)
+    assert torch.equal(out, _attention_forward(q, k, v, bias, mask)[0])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) + bias
+    if mask is not None:
+        s = (s.view(-1, nw, 3, n, n) + mask[None, :, None]).view(4, 3, n, n)
+    ref = torch.logsumexp(s, dim=-1)
+    assert (lse - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nw", [None, 2])
+def test_window_attention_autograd_on_the_kernels(cuda, dtype, nw):
+    """Autograd through the wrapper: one forward and one backward launch, the grads of q,
+    k, v and bias against the plain backward on the forward's output (the JAX rule's D =
+    sum dO.O; autograd of the plain forward would take D = sum P dP, which in bfloat16
+    differs from it by more than the gate), and against autograd of the plain forward in
+    float32, where the two agree; no grad to the mask."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, bias, mask = _attention_inputs(g, 8, 3, 343, 16, nw, dtype, cuda)
+    params = [t.requires_grad_() for t in (q, k, v, bias)]
+    dout = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+    before = fused_window_attention.launches, fused_window_attention_backward.launches
+    out = fused_window_attention(q, k, v, bias, mask)
+    got = torch.autograd.grad(out, params, dout)
+    assert (fused_window_attention.launches, fused_window_attention_backward.launches) == (before[0] + 1,
+                                                                                           before[1] + 1)
+    plain = [t.detach() for t in (q, k, v, bias)]
+    _assert_grads_close(got, fused_window_attention_backward_plain(*plain, mask, out.detach(), dout), dtype)
+    if dtype == torch.float32:
+        _assert_grads_close(got, torch.autograd.grad(fused_window_attention_plain(q, k, v, bias, mask), params, dout),
+                            dtype)
+
+
+def test_window_attention_backward_refuses_a_head_dim_past_32(cuda):
+    """D = 64 (past the backward's instances): the plan and the wrapper raise naming the
+    shape, and no launch is counted."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, bias, mask, out, dout, lse = _attention_bwd_inputs(g, 2, 1, 27, 64, None, torch.float32, cuda)
+    before = fused_window_attention_backward.launches
+    with pytest.raises(ValueError, match=r"\(2, 1, 27, 64\)"):
+        window_attention_backward_plan(q, k, v, bias)
+    with pytest.raises(ValueError, match=r"\(2, 1, 27, 64\)"):
+        fused_window_attention_backward(q, k, v, bias, None, out, dout, lse)
+    assert fused_window_attention_backward.launches == before
+
+
+def test_window_attention_backward_plan_at_the_btcv_sites(cuda):
+    """The first stage's site (1372 windows, 343 masks): the dq blocks' runs cover every
+    window once, and there are at least as many dq blocks as fill the card once."""
+    q = torch.empty((1372, 3, 343, 16), device=cuda)
+    bias, mask = torch.empty((3, 343, 343), device=cuda), torch.empty((343, 343, 343), device=cuda)
+    plan = window_attention_backward_plan(q, q, q, bias, mask)
+    assert plan["head_dim"] == 16 and plan["splits"] * plan["windows_per_block"] >= 1372
+    assert (plan["splits"] - 1) * plan["windows_per_block"] < 1372
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan["dq_blocks"] >= sms * plan["dq_blocks_per_sm"]
+    assert plan["dkdv_blocks"] == 1372 * 3 * 11
+
+
+def test_float32_swin_decoder_step_ignores_the_tf32_setting(cuda):
+    """Every grad of the decoder (the UNETR blocks and the output conv: their 1x1 and
+    transposed cuDNN convs, forward and backward) in a float32 step of a SwinUNETR is the
+    same bits whether torch lets cuDNN use TF32 (its default) or not; torch leaves the
+    float32 Linear layers in full float32 by default."""
+    net = SwinUNETR(1, 3, feature_size=24, generator=torch.Generator().manual_seed(0), device=cuda)
+    x = torch.rand((2, 1, 64, 64, 64), generator=torch.Generator().manual_seed(1)).to(cuda)
+    y = torch.rand((2, 3, 64, 64, 64), generator=torch.Generator().manual_seed(2)).to(cuda)
+    grads = {}
+    torch.backends.cudnn.deterministic = True  # the same algorithms, run to run
+    try:
+        for tf32 in (False, True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            net.zero_grad(set_to_none=True)
+            torch.nn.functional.mse_loss(net(x), y).backward()
+            grads.setdefault(tf32, []).append({k: p.grad.clone() for k, p in net.named_parameters()})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, False
+    assert torch.backends.cuda.matmul.allow_tf32 is False  # torch's default: Linear layers in full float32
+    (a, b), (c,) = grads[False], grads[True]
+    decoder = [k for k in a if not k.startswith("swinViT.")]
+    assert len(decoder) > 50
+    for k in decoder:
+        assert torch.equal(a[k], b[k]) and torch.equal(a[k], c[k]), k

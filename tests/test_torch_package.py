@@ -136,8 +136,8 @@ def test_norm_wrapper_rejects_unsupported(kwargs, error):
 
 
 def test_wrappers_refuse_grad():
-    """The bilateral stencil has no backward; the conv and norm wrappers have one (below),
-    and window attention's refusal is tests/test_torch_window_attention.py's."""
+    """The bilateral stencil has no backward; the conv, norm and window attention wrappers
+    have one (below; the attention's in tests/test_torch_window_attention_bwd.py)."""
     with pytest.raises(RuntimeError, match="forward-only"):
         bilateral_stencil(torch.zeros(1, 1, 4, 4, 4, requires_grad=True))
 
@@ -451,6 +451,39 @@ def test_full_float32_turns_tf32_off_for_float32_cuda_calls_only():
         assert seen == [False] * 4 and torch.backends.cudnn.allow_tf32 is True
     finally:
         torch.backends.cudnn.allow_tf32 = before
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_float32_conv_backward_runs_in_full_float32_too(monkeypatch, transposed):
+    """A float32 cuDNN conv's backward (dx, dw and db in one ``aten.convolution_backward``)
+    runs inside ``full_float32`` as its forward does: TF32 is off inside it and the
+    caller's setting is back after; the grads are autograd's own. A float32 CUDA tensor is
+    stood in for by ``full_float32`` seeing one."""
+    import monai_tpu_torch.networks.layers.factories as factories
+    from monai_tpu_torch.utils import full_float32
+
+    monkeypatch.setattr(factories, "full_float32", lambda x: full_float32(_CudaFloat32()))
+    seen = []
+    backward = factories._conv_backward
+    monkeypatch.setattr(factories, "_conv_backward",
+                        lambda *a: seen.append(torch.backends.cudnn.allow_tf32) or backward(*a))
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        gen = torch.Generator().manual_seed(0)
+        x = torch.randn((1, 2, 5, 6, 7), generator=gen, requires_grad=True)
+        w = torch.randn((2, 3, 2, 2, 2) if transposed else (3, 2, 2, 2, 2), generator=gen, requires_grad=True)
+        b = torch.randn((3,), generator=gen, requires_grad=True)
+        y = factories._Float32Conv.apply(x, w, b, [2, 2, 2], [0, 0, 0], [1, 1, 1], transposed, [0, 0, 0], 1)
+        g = torch.randn(y.shape, generator=gen)
+        got = torch.autograd.grad(y, (x, w, b), g)
+        assert seen == [False] and torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    ref_fn = torch.nn.functional.conv_transpose3d if transposed else torch.nn.functional.conv3d
+    ref = torch.autograd.grad(ref_fn(x, w, b, stride=2), (x, w, b), g)
+    assert torch.equal(y.detach(), ref_fn(x, w, b, stride=2).detach())
+    assert all(torch.allclose(a, r, rtol=1e-6, atol=1e-6) for a, r in zip(got, ref))
 
 
 def test_every_cudnn_conv_of_the_spleen_unet_and_the_blur_runs_in_full_float32(monkeypatch):

@@ -113,9 +113,15 @@ def test_plan_describes_only_cuda_launches():
 
 
 def test_wrapper_refuses_grad():
+    """The wrapper takes a first derivative (the JAX custom VJP's; its backward is held in
+    tests/test_torch_window_attention_bwd.py) and refuses a second: its backward kernels
+    have none."""
     q = torch.zeros(4, 2, 27, 8, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        fused_window_attention(q, q.detach(), q.detach(), torch.zeros(2, 27, 27))
+    out = fused_window_attention(q, q.detach(), q.detach(), torch.zeros(2, 27, 27))
+    (dq,) = torch.autograd.grad(out.sum(), q, create_graph=True)
+    assert dq.shape == q.shape
+    with pytest.raises(RuntimeError):
+        dq.sum().backward()
 
 
 @pytest.mark.parametrize("window,n_tokens,with_mask", [((3, 3, 3), 27, True), ((3, 3, 3), 27, False),
