@@ -96,8 +96,11 @@ Drives the port's paths, each at full width with random weights from a seed:
      dim 16) and the bench SwinUNETR's (head dim 8), masked and unmasked, in float32,
      bfloat16 and float16, two calls bit for bit, float32 timed against the plain version,
      autograd of SDPA and the bound; the conv's and the norm's backward kernels at the Swin
-     sites in float32 and bfloat16; one batch-1 32³ step on the card against the port's CPU
-     step; then ``SupervisedTrainer`` in float32 at batch 4, 2 warm-up iterations and 10
+     sites in float32 and bfloat16, each site's line with dw's plan, float32 timed against
+     the plain versions, cuDNN's convolution backward and autograd of ``F.instance_norm``
+     in full float32, and the bound at the float32 peak (their sums a step go into the
+     kernels line under ``swin_train_float32``); one batch-1 32³ step on the card against
+     the port's CPU step; then ``SupervisedTrainer`` in float32 at batch 4, 2 warm-up iterations and 10
      timed with cuDNN's TF32 allowed as by default: steps/s, the median step, the peak
      memory, the launches a step of each kernel against the sites, each loss
   10. (last) the BTCV bundle's ``train.json`` through the port's runner, overriding its
@@ -1012,15 +1015,18 @@ def _conv_backward_library(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor, ma
                                                        [0, 0, 0], 1, mask)
 
 
-def check_conv_backward(sites: Counter, batch: int, dev, checked=None, timed: bool = True) -> tuple[dict, dict]:
+def check_conv_backward(sites: Counter, batch: int, dev, checked=None,
+                        timed: torch.dtype | None = torch.bfloat16) -> tuple[dict, dict]:
     """At every conv site of the training step, in bfloat16, float32 and float16 (or the
     ``checked`` types): the weight gradient kernel (dw of x and g) and dx on the conv
-    kernel (g and the flipped, transposed weights) against their plain versions; where
-    ``timed``, bfloat16 also timed against the plain versions and cuDNN's
-    ``aten.convolution_backward`` with dw's or dx's output mask. Returns the kernels-line
-    numbers of dw and of dx, summed over a step's sites."""
+    kernel (g and the flipped, transposed weights) against their plain versions; in the
+    ``timed`` type (the step's own) also timed against the plain versions and cuDNN's
+    ``aten.convolution_backward`` with dw's or dx's output mask (float32 in full float32,
+    ``full_float32``), with the bound at that type's peak. Returns the kernels-line numbers
+    of dw and of dx, summed over a step's sites."""
     from monai_tpu_torch.ops.conv3d import (conv3d_3x3_same, conv3d_3x3_same_plain, conv3d_3x3_wgrad,
                                             conv3d_3x3_wgrad_plain, conv3d_3x3_wgrad_plan)
+    from monai_tpu_torch.utils.backend import full_float32
 
     g = torch.Generator(device=dev).manual_seed(7)
     dw_rows, dx_rows = [], []
@@ -1036,36 +1042,42 @@ def check_conv_backward(sites: Counter, batch: int, dev, checked=None, timed: bo
             err_x, rel_x = rel_err(dx, conv3d_3x3_same_plain(gy, wf))
             require(rel_w <= tol, f"conv dw {ci}->{co} @{sp} {dtype}: max err {err_w:.3g} = {rel_w:.3g} x max|ref|")
             require(rel_x <= tol, f"conv dx {ci}->{co} @{sp} {dtype}: max err {err_x:.3g} = {rel_x:.3g} x max|ref|")
-            plan = conv3d_3x3_wgrad_plan(x, gy)
+            p = conv3d_3x3_wgrad_plan(x, gy)
             msg = (f"conv backward {ci:3d}->{co:3d} @{sp} x{count} {str(dtype)[6:]:8s} dw max_abs_err {err_w:.4g} "
-                   f"({rel_w:.3g} of max|ref|), dx {err_x:.4g} ({rel_x:.3g}), tol {tol}; dw plan {plan['route']}, "
-                   f"{plan['chunks']} chunks, {plan['blocks']} blocks of {plan['threads']}")
-            if timed and dtype == torch.bfloat16:
+                   f"({rel_w:.3g} of max|ref|), dx {err_x:.4g} ({rel_x:.3g}), tol {tol}; dw plan {p['route']} "
+                   f"{p['rc']}x{p['ro']} a thread, tiles {p['tiles_ci']}x{p['tiles_co']} of "
+                   f"{p['rc'] * p['pci']}x{p['ro'] * p['pco']}, brick {p['bd']}x{p['bh']}x{p['bw']}, {p['chunks']} "
+                   f"chunks of {p['per_chunk']}, {p['blocks']} blocks of {p['threads']} ({p['per_sm']} an SM, "
+                   f"{p['smem']} B), {p['launches']} launches")
+            if dtype == timed:
                 flops = 2.0 * batch * np.prod(sp) * 27 * ci * co
                 size = x.element_size()
                 k_ms, p_ms = paired_ms(lambda: conv3d_3x3_wgrad(x, gy), lambda: conv3d_3x3_wgrad_plain(x, gy), iters=10)
-                lib_ms = cuda_ms(_conv_backward_library(x, gy, w, [False, True, False]), iters=10)
+                with full_float32(x):
+                    lib_ms = cuda_ms(_conv_backward_library(x, gy, w, [False, True, False]), iters=10)
                 b_ms, o_ms = bound((x.numel() + gy.numel() + dw.numel()) * size, flops, dtype)
                 dw_rows.append((count, err_w, k_ms, p_ms, lib_ms, b_ms, o_ms))
                 kx_ms, px_ms = paired_ms(lambda: conv3d_3x3_same(gy, wf), lambda: conv3d_3x3_same_plain(gy, wf),
                                          iters=10)
-                lx_ms = cuda_ms(_conv_backward_library(x, gy, w, [True, False, False]), iters=10)
+                with full_float32(x):
+                    lx_ms = cuda_ms(_conv_backward_library(x, gy, w, [True, False, False]), iters=10)
                 bx_ms, ox_ms = bound((gy.numel() + wf.numel() + dx.numel()) * size, flops, dtype)
                 dx_rows.append((count, err_x, kx_ms, px_ms, lx_ms, bx_ms, ox_ms))
                 msg += (f"  dw kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  cuDNN {lib_ms:.4f} ms  bound "
-                        f"{max(b_ms, o_ms):.4f} ms;  dx kernel {kx_ms:.4f} ms  plain {px_ms:.4f} ms  cuDNN "
-                        f"{lx_ms:.4f} ms  bound {max(bx_ms, ox_ms):.4f} ms")
+                        f"{max(b_ms, o_ms):.4f} ms ({max(b_ms, o_ms) / k_ms * 100:.1f}% of it);  dx kernel "
+                        f"{kx_ms:.4f} ms  plain {px_ms:.4f} ms  cuDNN {lx_ms:.4f} ms  bound {max(bx_ms, ox_ms):.4f} ms")
             print(msg, flush=True)
     return _summary(dw_rows), _summary(dx_rows)
 
 
-def check_norm_backward(sites: Counter, batch: int, dev, checked=None, timed: bool = True) -> dict:
+def check_norm_backward(sites: Counter, batch: int, dev, checked=None,
+                        timed: torch.dtype | None = torch.bfloat16) -> dict:
     """At every norm site of the training step, in bfloat16, float32 and float16 (or the
     ``checked`` types): the backward kernel against its plain version, from the forward
     kernel's statistics (dx, and the three float32 sums the parameter grads come from,
-    1e-4 of max|ref|: sums in another order); where ``timed``, bfloat16 also timed against
-    the plain version and autograd's backward of ``F.instance_norm`` without the slope (the
-    library call). The bound: x and g read once, dx written once."""
+    1e-4 of max|ref|: sums in another order); in the ``timed`` type (the step's own) also
+    timed against the plain version and autograd's backward of ``F.instance_norm`` without
+    the slope (the library call). The bound: x and g read once, dx written once."""
     from monai_tpu_torch.networks.layers.fast_norm import (_card, _forward, instance_norm_backward_plan,
                                                            instance_norm_prelu_backward,
                                                            instance_norm_prelu_backward_plain)
@@ -1094,7 +1106,7 @@ def check_norm_backward(sites: Counter, batch: int, dev, checked=None, timed: bo
             msg = (f"norm backward C={c:3d} @{sp} x{count} {str(dtype)[6:]:8s} dx max_abs_err {err:.4g} ({rel:.3g} of "
                    f"max|ref|, tol {tol}), sums {sum_rel:.3g} (tol {TOL_F32}); plan {plan['path']}, {plan['blocks']} "
                    f"blocks of {plan['threads']}, {plan['launches']} launches")
-            if timed and dtype == torch.bfloat16:
+            if dtype == timed:
                 k_ms, p_ms = paired_ms(lambda: instance_norm_prelu_backward(gy, x, stats, w, b, a),
                                        lambda: instance_norm_prelu_backward_plain(gy, x, stats, w, b, a), iters=10)
                 xl = x.detach().requires_grad_()
@@ -1800,9 +1812,10 @@ def swin_train_path(net_cpu, per_step: dict, dev) -> dict:
 
 def swin_training_phase(dev) -> tuple[dict, dict]:
     """Phase 9: the BTCV SwinUNETR's training step: the backward kernel of the window
-    attention at the step's sites, the conv and norm kernels' backward at the Swin sites,
-    the batch-1 step against the CPU, and the float32 trainer. Returns the trainer's
-    launch counts and the attention backward's kernels-line numbers."""
+    attention at the step's sites, the conv and norm kernels' backward at the Swin sites
+    (timed in float32), the batch-1 step against the CPU, and the float32 trainer. Returns
+    the trainer's launch counts and the kernels-line numbers of the attention backward, dw,
+    dx and the norm's backward, each summed over a float32 step's sites."""
     from monai_tpu_torch.networks.nets import SwinUNETR
 
     net_cpu = SwinUNETR(1, 14, feature_size=48, generator=torch.Generator().manual_seed(0), device="cpu")
@@ -1821,16 +1834,17 @@ def swin_training_phase(dev) -> tuple[dict, dict]:
           f"window attentions (each a forward and a backward)", flush=True)
     attn_bwd = check_attention_backward(masks, dev)
     del masks
-    # the conv and norm backward kernels at the Swin sites, in the step's float32 and in bfloat16
+    # the conv and norm backward kernels at the Swin sites, in the step's float32 (timed) and
+    # in bfloat16
     checked = ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16))
-    check_conv_backward(conv_sites, TRAIN_BATCH, dev, checked, timed=False)
-    check_norm_backward(norm_sites, TRAIN_BATCH, dev, checked, timed=False)
+    dw, dx = check_conv_backward(conv_sites, TRAIN_BATCH, dev, checked, timed=torch.float32)
+    norm_bwd = check_norm_backward(norm_sites, TRAIN_BATCH, dev, checked, timed=torch.float32)
     torch.cuda.empty_cache()
     swin_step_check(net_cpu, dev)
     torch.cuda.empty_cache()
     counts = swin_train_path(net_cpu, per_step, dev)
     torch.cuda.empty_cache()
-    return counts, attn_bwd
+    return counts, {"attention_backward": attn_bwd, "dw": dw, "dx": dx, "norm_backward": norm_bwd}
 
 
 # Phase 10: the BTCV bundle's train.json through the port's runner, overriding its bundle
@@ -2057,7 +2071,8 @@ def main() -> None:
     train_counts, train = training_phase(dev)
 
     # 9. the BTCV SwinUNETR's float32 training step
-    swin_counts, attn_bwd = swin_training_phase(dev)
+    swin_counts, swin = swin_training_phase(dev)
+    attn_bwd = swin["attention_backward"]
 
     # 8. the Spleen bundle's inference.json through the port's runner, file to file (after the
     # paths above: its set_determinism changes cuDNN's global settings)
@@ -2068,14 +2083,21 @@ def main() -> None:
     btcv_counts = btcv_bundle_phase(dev)
     trained = {k: swin_counts[k] + btcv_counts[k] for k in swin_counts}  # phases 9 and 10
 
+    def swin_f32(k: str) -> dict:
+        """A kernel's numbers summed over the float32 Swin step's sites, for the kernels line."""
+        return {key: v for key, v in swin[k].items() if key not in ("bytes_ms", "ops_ms")}
+
+    # dw and the norm's backward: the bfloat16 UNet step's numbers, and the float32 Swin step's
+    # under swin_train_float32 (dx's there too, under conv3d_3x3_same)
     training = [
         {"name": "conv3d_3x3_wgrad", "route": "cuda", "source": "monai_tpu_torch/csrc/conv3d_3x3_wgrad.cu",
          "replaces": "monai_tpu/ops/pallas_conv3d.py:200",
-         "launches": train_counts["conv3d_3x3_wgrad"] + trained["conv3d_3x3_wgrad"], **train["dw"]},
+         "launches": train_counts["conv3d_3x3_wgrad"] + trained["conv3d_3x3_wgrad"], **train["dw"],
+         "swin_train_float32": swin_f32("dw")},
         {"name": "instance_norm_prelu_backward", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
          "replaces": "monai_tpu/networks/layers/fast_norm.py:74",
          "launches": train_counts["instance_norm_prelu_backward"] + trained["instance_norm_prelu_backward"],
-         **train["norm_backward"]},
+         **train["norm_backward"], "swin_train_float32": swin_f32("norm_backward")},
         {"name": "fused_window_attention_backward", "route": "cuda",
          "source": "monai_tpu_torch/csrc/window_attention_bwd.cu",
          "replaces": "monai_tpu/ops/pallas_window_attention.py:159",
@@ -2088,8 +2110,8 @@ def main() -> None:
         return f"{s['ms']:.4f} / {s['plain_ms']:.4f} / {lib} / {s['bound_ms']:.4f} ({side})"
 
     print("per training step at batch 4 (ms, kernel / plain / library / bound): " + "; ".join(
-        f"{k} {line(train[k])}" for k in ("dw", "dx", "norm_backward"))
-          + f"; float32 swin attention backward {line(attn_bwd)}", flush=True)
+        f"{k} {line(train[k])}" for k in ("dw", "dx", "norm_backward")) + "; float32 swin " + "; ".join(
+        f"{k} {line(swin[k])}" for k in ("dw", "dx", "norm_backward", "attention_backward")), flush=True)
 
     def merged(i: int) -> dict:
         """The per-forward sums of kernel i over the UNet and SwinUNETR paths (bfloat16)."""
@@ -2105,7 +2127,7 @@ def main() -> None:
          "replaces": "monai_tpu/ops/pallas_conv3d.py:91",
          "launches": unet_counts[0] + swin_sw_counts[0] + spleen_counts[0] + train_counts["conv3d_3x3_same"]
          + bundle_counts[0] + trained["conv3d_3x3_same"],
-         **merged(0)},
+         **merged(0), "swin_train_float32_dx": swin_f32("dx")},
         {"name": "instance_norm_prelu", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
          "replaces": "monai_tpu/networks/layers/fast_norm.py:44",
          "launches": unet_counts[1] + swin_sw_counts[1] + train_counts["instance_norm_prelu"]

@@ -30,13 +30,15 @@ from monai_tpu_torch.networks.nets import SwinUNETR, UNet
 from monai_tpu_torch.ops.bilateral import (PAIR_RADIUS, PAIR_RESIDENT, bilateral_exps, bilateral_plan,
                                            bilateral_stencil, bilateral_stencil_plain, card_resident)
 from monai_tpu_torch.ops.conv3d import (conv3d_3x3_same, conv3d_3x3_same_plain, conv3d_3x3_wgrad,
-                                        conv3d_3x3_wgrad_plain, conv3d_3x3_wgrad_plan)
+                                        conv3d_3x3_wgrad_plain, conv3d_3x3_wgrad_plan, wgrad_plan)
 from monai_tpu_torch.ops.filtering import bilateral_filter
 from monai_tpu_torch.ops.separable_resample import resample_plan, separable_resample_3d, separable_resample_3d_plain
 from monai_tpu_torch.ops.window_attention import (_forward as _attention_forward, fused_window_attention,
                                                   fused_window_attention_backward,
                                                   fused_window_attention_backward_plain, fused_window_attention_plain,
                                                   window_attention_backward_plan, window_attention_plan)
+
+from test_torch_conv3d_wgrad_plan import STEP_SITES  # every conv site of the two training steps
 
 pytestmark = pytest.mark.cuda
 
@@ -729,12 +731,13 @@ def _wgrad_inputs(g, shape, ci, co, dtype, device):
 @pytest.mark.parametrize("co", [2, 8, 16, 256])
 def test_conv_wgrad_kernel_grid(cuda, dtype, shape, ci, co):
     """Every CI and CO class of the weight-gradient kernel: the tensor-core route where
-    both are multiples of 8 in bfloat16 and float16, the FMA route (no padded lanes at 1
-    and 2 channels) elsewhere."""
+    both are multiples of 8 in bfloat16 and float16, the small route where both are 1 or
+    2, the FMA route (register tiles of 1, 2 or 4 by 2 or 8 channels) elsewhere."""
     g = torch.Generator(device=cuda).manual_seed(ci * 1000 + co)
     x, gy = _wgrad_inputs(g, shape, ci, co, dtype, cuda)
     plan = conv3d_3x3_wgrad_plan(x, gy)
-    assert plan["route"] == ("mma" if dtype != torch.float32 and ci % 8 == 0 and co % 8 == 0 else "fma")
+    assert plan["route"] == ("mma" if dtype != torch.float32 and ci % 8 == 0 and co % 8 == 0 else
+                             "small" if ci <= 2 and co <= 2 else "fma")
     before = conv3d_3x3_wgrad.launches
     got = conv3d_3x3_wgrad(x, gy)
     assert conv3d_3x3_wgrad.launches == before + 1
@@ -755,6 +758,48 @@ def test_conv_wgrad_kernel_at_many_bricks(cuda, dtype, ci, co):
     assert torch.equal(got, again)
     assert conv3d_3x3_wgrad_plan(x, gy)["chunks"] > 1
     _assert_close(got, conv3d_3x3_wgrad_plain(x, gy), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ci,co", [(1, 48), (48, 48), (96, 48), (192, 96), (768, 768)])
+def test_conv_wgrad_kernel_at_the_swin_channels(cuda, dtype, ci, co):
+    """The float32 SwinUNETR step's channel classes (its 1 -> 48 input conv, the 48- to
+    768-channel layers) at a ragged shape that no brick divides (lines of 37 split into 19
+    and 18), in all three types, with several chunks where the tiles leave room."""
+    g = torch.Generator(device=cuda).manual_seed(ci + 7 * co)
+    shape = (1, 5, 3, 37) if ci * co > 10000 else (2, 9, 7, 37)
+    x, gy = _wgrad_inputs(g, shape, ci, co, dtype, cuda)
+    got = conv3d_3x3_wgrad(x, gy)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (3, 3, 3, ci, co)
+    _assert_close(got, conv3d_3x3_wgrad_plain(x, gy), dtype)
+
+
+def test_conv_wgrad_kernel_float32_gives_the_same_bits_twice(cuda):
+    """Float32 96 -> 48 over 2 x 40 x 48 x 96 voxels: the FMA route over many chunks of many
+    bricks, their partials added in a fixed order."""
+    g = torch.Generator(device=cuda).manual_seed(96)
+    x, gy = _wgrad_inputs(g, (2, 40, 48, 96), 96, 48, torch.float32, cuda)
+    plan = conv3d_3x3_wgrad_plan(x, gy)
+    assert plan["route"] == "fma" and plan["chunks"] > 8 and plan["per_chunk"] > 4
+    got = conv3d_3x3_wgrad(x, gy)
+    again = conv3d_3x3_wgrad(x, gy)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_close(got, conv3d_3x3_wgrad_plain(x, gy), torch.float32)
+
+
+@pytest.mark.parametrize("dtype,ci,co,spatial", STEP_SITES)
+def test_conv_wgrad_host_plan_is_the_cards(cuda, dtype, ci, co, spatial):
+    """``wgrad_plan`` on the host, given the card's SM count and the blocks an SM holds as
+    the card's plan says, is the card's own plan at every site of both training steps
+    (batch 4), and for unaligned inputs at the same shapes."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for offset in (0, 1):
+        x = torch.empty(4 * math.prod(spatial) * ci + offset, dtype=dtype, device=cuda)[offset:].view(4, *spatial, ci)
+        gy = torch.empty(4 * math.prod(spatial) * co + offset, dtype=dtype, device=cuda)[offset:].view(4, *spatial, co)
+        card = conv3d_3x3_wgrad_plan(x, gy)
+        assert card == wgrad_plan(x.shape, co, dtype, offset == 0, sms, card["per_sm"]), offset
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
