@@ -94,8 +94,11 @@ Drives the port's paths, each at full width with random weights from a seed:
   9. (run after 7, before 8) the BTCV SwinUNETR's float32 training step: the window
      attention's backward kernel against its plain version at the step's eight sites (head
      dim 16) and the bench SwinUNETR's (head dim 8), masked and unmasked, in float32,
-     bfloat16 and float16, two calls bit for bit, float32 timed against the plain version,
-     autograd of SDPA and the bound; the conv's and the norm's backward kernels at the Swin
+     bfloat16 and float16, two calls bit for bit, each site's plan (route, tile, cluster
+     size, runs, partials), float32 timed against the plain version, autograd of SDPA
+     (which it must beat at every site) and the bound, with its share of the FLOP bound;
+     the forward kernel in float32 at the step's eight sites against its plain version,
+     timed beside ``F.scaled_dot_product_attention`` and its bound; the conv's and the norm's backward kernels at the Swin
      sites in float32 and bfloat16, each site's line with dw's plan, float32 timed against
      the plain versions, cuDNN's convolution backward and autograd of ``F.instance_norm``
      in full float32, and the bound at the float32 peak (their sums a step go into the
@@ -1631,12 +1634,14 @@ def check_attention_backward(masks: dict, dev) -> dict:
     """The backward kernel at each site of the BTCV step (head dim 16) and of the bench
     SwinUNETR (head dim 8), masked and unmasked, in float32, bfloat16 and float16: dq, dk,
     dv and dbias against the plain backward on the kernel forward's output, each at the
-    type's gate of its max|ref|, and two calls bit for bit. In float32 (the step's type)
-    also timed against the plain version and, as the library call, autograd's backward of
-    ``F.scaled_dot_product_attention`` with bias + mask as one additive mask that requires
-    a grad (its forward run once before). The bound: q, k, v, dO, O, bias, mask and the
-    log-sum-exp read once and dq, dk, dv, dbias written once; the five N^2 D products at
-    the type's peak; one exp a score at the card's exp rate. Returns the kernels-line
+    type's gate of its max|ref|, and two calls bit for bit; each line gives the plan's
+    route, tile (keys x query rows a step), cluster size, runs and partials. In float32 (the
+    step's type) also timed against the plain version and, as the library call, autograd's
+    backward of ``F.scaled_dot_product_attention`` with bias + mask as one additive mask
+    that requires a grad (its forward run once before), which the kernel must beat at every
+    site. The bound: q, k, v, dO, O, bias, mask and the log-sum-exp read once and dq, dk,
+    dv, dbias written once; the five N^2 D products at the type's peak (the line gives the
+    kernel's share of it); one exp a score at the card's exp rate. Returns the kernels-line
     numbers of the step's (head dim 16) sites, summed over a step."""
     from monai_tpu_torch.ops.window_attention import (_forward, fused_window_attention_backward,
                                                       fused_window_attention_backward_plain,
@@ -1664,9 +1669,11 @@ def check_attention_backward(masks: dict, dev) -> dict:
             plan = window_attention_backward_plan(q, k, v, bias, mask)
             msg = (f"attention backward windows {site[0]} heads {site[1]} N {site[2]} D {site[3]} mask rows {site[4]} "
                    f"x{count} {str(dtype)[6:]:8s} max err over max|ref| dq {errs[0][1]:.3g} dk {errs[1][1]:.3g} dv "
-                   f"{errs[2][1]:.3g} dbias {errs[3][1]:.3g} (tol {tol}); same bits twice; plan: instance D "
-                   f"{plan['head_dim']}, {plan['windows_per_block']} windows a dq block, {plan['splits']} dbias "
-                   f"partials, {plan['dq_blocks']} dq and {plan['dkdv_blocks']} dkdv blocks")
+                   f"{errs[2][1]:.3g} dbias {errs[3][1]:.3g} (tol {tol}); same bits twice; plan: route "
+                   f"{plan['route']}, instance D {plan['head_dim']}, tile {plan['key_tile']} keys x "
+                   f"{plan['query_rows']} rows, cluster {plan['cluster']}, {plan['splits']} runs of "
+                   f"{plan['windows_per_block']} windows, {plan['blocks']} blocks ({plan['blocks_per_sm']} an SM), "
+                   f"{plan['dq_partials']} dq and {plan['dbias_partials']} dbias partials, {plan['launches']} launches")
             if dtype == torch.float32:
                 b, h, n, d, nw = site
                 k_ms, p_ms = paired_ms(lambda: fused_window_attention_backward(q, k, v, bias, mask, out, dout, lse),
@@ -1691,11 +1698,62 @@ def check_attention_backward(masks: dict, dev) -> dict:
                 sides = {"bytes": b_ms, "FLOP": o_ms, "exp": e_ms}
                 side = max(sides, key=sides.get)
                 msg += (f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  SDPA autograd {lib_ms:.4f} ms  bound "
-                        f"{sides[side]:.4f} ms ({side}; bytes {b_ms:.4f}, FLOP {o_ms:.4f}, exp {e_ms:.4f})")
-            print(msg, flush=True)
+                        f"{sides[side]:.4f} ms ({side}; bytes {b_ms:.4f}, FLOP {o_ms:.4f}, exp {e_ms:.4f}); "
+                        f"{o_ms / k_ms:.1%} of the FLOP bound")
+                print(msg, flush=True)
+                require(k_ms < lib_ms, f"attention backward {site} float32: the kernel's {k_ms:.4f} ms is not below "
+                                       f"SDPA autograd's {lib_ms:.4f} ms")
+            else:
+                print(msg, flush=True)
             del q, k, v, bias, dout, out, lse, got
     torch.cuda.empty_cache()
     return _summary(rows)
+
+
+def check_attention_forward_f32(masks: dict, dev) -> dict:
+    """The forward kernel (its float32 FMA instance, as the float32 step runs it) at each
+    site of the BTCV step, against its plain version at the float32 gate, timed beside the
+    plain version and ``F.scaled_dot_product_attention`` with bias + mask as one additive
+    float32 mask (built before the timing). The bound, as phase 2's: q, k, v, out, bias
+    and mask once, the two N^2 D products at the float32 peak, one exp a score. Returns the
+    kernels-line numbers summed over a step's sites."""
+    from monai_tpu_torch.ops.window_attention import (fused_window_attention, fused_window_attention_plain,
+                                                      window_attention_plan)
+
+    rate = exp_per_s()
+    exp_total = 0.0
+    g = torch.Generator(device=dev).manual_seed(10)
+    rows = []
+    for (b, h, n, d, nw), count in SWIN_ATTN_SITES.items():
+        q, k, v = (torch.randn((b, h, n, d), generator=g, device=dev) for _ in range(3))
+        q *= d ** -0.5
+        bias = torch.randn((h, n, n), generator=g, device=dev) * 0.5
+        mask = None if nw is None else masks[nw]
+        plan = window_attention_plan(q, k, v, bias, mask)
+        with torch.no_grad():
+            err, rel = rel_err(fused_window_attention(q, k, v, bias, mask),
+                               fused_window_attention_plain(q, k, v, bias, mask))
+            require(rel <= TOL_F32, f"attention forward {(b, h, n, d, nw)} float32: {rel:.3g} of max|ref| > {TOL_F32}")
+            k_ms, p_ms = paired_ms(lambda: fused_window_attention(q, k, v, bias, mask),
+                                   lambda: fused_window_attention_plain(q, k, v, bias, mask), iters=10)
+            groups = 1 if nw is None else nw
+            add = bias if nw is None else bias[None] + mask[:, None]
+            qs, ks, vs = (t.view(b // groups, groups, h, n, d) if nw else t for t in (q, k, v))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=add, scale=1.0), iters=10)
+        nbytes = 4 * q.numel() * 4 + bias.numel() * 4 + (0 if mask is None else mask.numel() * 4)
+        b_ms, o_ms = bound(nbytes, 4.0 * b * h * n * n * d, torch.float32)
+        e_ms = b * h * n * n / rate * 1e3
+        rows.append((count, err, k_ms, p_ms, lib_ms, b_ms, max(o_ms, e_ms)))
+        exp_total += count * e_ms
+        print(f"attention forward windows {b} heads {h} N {n} D {d} mask rows {nw} x{count} float32 instance "
+              f"{plan['instance']}: max err {rel:.3g} of max|ref| (tol {TOL_F32})  kernel {k_ms:.4f} ms  plain "
+              f"{p_ms:.4f} ms  SDPA {lib_ms:.4f} ms  bound {max(b_ms, o_ms, e_ms):.4f} ms (bytes {b_ms:.4f}, FLOP "
+              f"{o_ms:.4f}, exp {e_ms:.4f}); {max(o_ms, e_ms) / k_ms:.1%} of the bound", flush=True)
+        del q, k, v, bias, add, qs, ks, vs
+    torch.cuda.empty_cache()
+    out = _summary(rows)
+    out["bound_side"] = "exp" if exp_total >= out["bytes_ms"] else out["bound_by"]
+    return out
 
 
 def _swin_grads(net, x, y, loss_fn) -> tuple[float, dict]:
@@ -1814,8 +1872,8 @@ def swin_training_phase(dev) -> tuple[dict, dict]:
     """Phase 9: the BTCV SwinUNETR's training step: the backward kernel of the window
     attention at the step's sites, the conv and norm kernels' backward at the Swin sites
     (timed in float32), the batch-1 step against the CPU, and the float32 trainer. Returns
-    the trainer's launch counts and the kernels-line numbers of the attention backward, dw,
-    dx and the norm's backward, each summed over a float32 step's sites."""
+    the trainer's launch counts and the kernels-line numbers of the attention backward and
+    forward, dw, dx and the norm's backward, each summed over a float32 step's sites."""
     from monai_tpu_torch.networks.nets import SwinUNETR
 
     net_cpu = SwinUNETR(1, 14, feature_size=48, generator=torch.Generator().manual_seed(0), device="cpu")
@@ -1833,6 +1891,7 @@ def swin_training_phase(dev) -> tuple[dict, dict]:
           f"the first and a dw), {n_norm} instance norms (each a forward and a backward; affine, LeakyReLU 0.01 or none), {n_attn} "
           f"window attentions (each a forward and a backward)", flush=True)
     attn_bwd = check_attention_backward(masks, dev)
+    attn_fwd = check_attention_forward_f32(masks, dev)
     del masks
     # the conv and norm backward kernels at the Swin sites, in the step's float32 (timed) and
     # in bfloat16
@@ -1844,7 +1903,8 @@ def swin_training_phase(dev) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     counts = swin_train_path(net_cpu, per_step, dev)
     torch.cuda.empty_cache()
-    return counts, {"attention_backward": attn_bwd, "dw": dw, "dx": dx, "norm_backward": norm_bwd}
+    return counts, {"attention_backward": attn_bwd, "attention_forward": attn_fwd, "dw": dw, "dx": dx,
+                    "norm_backward": norm_bwd}
 
 
 # Phase 10: the BTCV bundle's train.json through the port's runner, overriding its bundle
@@ -2085,7 +2145,7 @@ def main() -> None:
 
     def swin_f32(k: str) -> dict:
         """A kernel's numbers summed over the float32 Swin step's sites, for the kernels line."""
-        return {key: v for key, v in swin[k].items() if key not in ("bytes_ms", "ops_ms")}
+        return {key: v for key, v in swin[k].items() if key not in ("bytes_ms", "ops_ms", "bound_side")}
 
     # dw and the norm's backward: the bfloat16 UNet step's numbers, and the float32 Swin step's
     # under swin_train_float32 (dx's there too, under conv3d_3x3_same)
@@ -2111,7 +2171,8 @@ def main() -> None:
 
     print("per training step at batch 4 (ms, kernel / plain / library / bound): " + "; ".join(
         f"{k} {line(train[k])}" for k in ("dw", "dx", "norm_backward")) + "; float32 swin " + "; ".join(
-        f"{k} {line(swin[k])}" for k in ("dw", "dx", "norm_backward", "attention_backward")), flush=True)
+        f"{k} {line(swin[k])}" for k in ("dw", "dx", "norm_backward", "attention_backward", "attention_forward")),
+        flush=True)
 
     def merged(i: int) -> dict:
         """The per-forward sums of kernel i over the UNet and SwinUNETR paths (bfloat16)."""
@@ -2134,7 +2195,8 @@ def main() -> None:
          + trained["instance_norm_prelu"], **merged(1)},
         {"name": "fused_window_attention", "route": "cuda", "source": "monai_tpu_torch/csrc/window_attention.cu",
          "replaces": "monai_tpu/ops/pallas_window_attention.py:106",
-         "launches": swin_sw_counts[2] + trained["fused_window_attention"], **summaries["swinunetr"][2]},
+         "launches": swin_sw_counts[2] + trained["fused_window_attention"], **summaries["swinunetr"][2],
+         "swin_train_float32": swin_f32("attention_forward")},
         {"name": "separable_resample_3d", "route": "cuda", "source": "monai_tpu_torch/csrc/separable_resample_3d.cu",
          "replaces": "monai_tpu/ops/pallas_resample.py:117", "launches": spleen_counts[3] + bundle_counts[3],
          **spleen["resample"]},

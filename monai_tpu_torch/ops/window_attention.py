@@ -14,7 +14,8 @@ Under autograd the wrapper is the counterpart of the JAX custom VJP (``_vjp_fwd`
 backward is ``fused_window_attention_backward``, the kernels of
 ``csrc/window_attention_bwd.cu`` (its plain version
 ``fused_window_attention_backward_plain``), which give dq, dk, dv and dbias; the mask gets
-no grad, as in the JAX rule.
+no grad, as in the JAX rule. ``attention_bwd_plan`` makes the backward's launch plan on the
+host, as the kernel makes it on the card (``window_attention_backward_plan``).
 """
 from __future__ import annotations
 
@@ -27,8 +28,9 @@ from torch.autograd.function import once_differentiable
 from ._build import library
 from ..utils.counters import count_launch
 
-__all__ = ["fused_window_attention", "fused_window_attention_backward", "fused_window_attention_backward_plain",
-           "fused_window_attention_plain", "window_attention_backward_plan", "window_attention_plan"]
+__all__ = ["attention_bwd_plan", "fused_window_attention", "fused_window_attention_backward",
+           "fused_window_attention_backward_plain", "fused_window_attention_plain", "window_attention_backward_plan",
+           "window_attention_plan"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _INSTANCES = ("mma", "fma", "generic")
@@ -174,28 +176,118 @@ fused_window_attention.launches = 0
 def fused_window_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
                                           mask: torch.Tensor | None, out: torch.Tensor,
                                           grad_out: torch.Tensor) -> tuple:
-    """Plain-PyTorch version of ``fused_window_attention_backward``, in float32: P the
-    softmax of the scores, dV = round(P)ᵀ dO with P rounded to q's dtype as the forward
-    rounds it, D = Σ_d dO·O from the forward's output, dS = P ∘ (dO vᵀ − D), dQ = dS k,
-    dK = dSᵀ q, dbias the sum of dS over the windows. dq, dk, dv in q's dtype, dbias
-    float32."""
+    """Plain-PyTorch version of ``fused_window_attention_backward``, in float32 (float64
+    for float64 tensors): P the softmax of the scores, dV = round(P)ᵀ dO with P rounded to
+    q's dtype as the forward rounds it, D = Σ_d dO·O from the forward's output, dS = P ∘
+    (dO vᵀ − D), dQ = dS k, dK = dSᵀ q, dbias the sum of dS over the windows. dq, dk, dv in
+    q's dtype, dbias float32 (float64)."""
     b, h, n, _ = q.shape
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    s += bias.float()
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2))
+    s += bias.to(acc)
     if mask is not None:
         nw = mask.shape[0]
-        s.view(b // nw, nw, h, n, n).add_(mask.float()[None, :, None])
+        s.view(b // nw, nw, h, n, n).add_(mask.to(acc)[None, :, None])
     p = torch.softmax(s, dim=-1)
     del s
-    g = grad_out.float()
-    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), g)
-    ds = torch.matmul(g, v.float().transpose(-1, -2))
-    ds -= (g * out.float()).sum(-1, keepdim=True)
+    g = grad_out.to(acc)
+    dv = torch.matmul(p.to(q.dtype).to(acc).transpose(-1, -2), g)
+    ds = torch.matmul(g, v.to(acc).transpose(-1, -2))
+    ds -= (g * out.to(acc)).sum(-1, keepdim=True)
     ds *= p
     del p
-    dq = torch.matmul(ds, k.float())
-    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dq = torch.matmul(ds, k.to(acc))
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(acc))
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), ds.sum(0)
+
+
+# The backward's launch plan (csrc/window_attention_bwd.cu, ``make_plan``): its keys, in
+# the order the kernel's plan function writes them, and its routes by code.
+_BWD_PLAN_KEYS = ("route", "head_dim", "key_tile", "query_rows", "key_tiles", "chunks", "threads", "smem_bytes",
+                  "blocks_per_sm", "windows_per_block", "splits", "blocks", "dq_partials", "dbias_partials", "cluster",
+                  "launches")
+_BWD_ROUTES = ("tf32x3",)
+_BWD_THREADS, _BWD_SCORES = 256, 2048  # a main block's threads; the scores of its step (query rows x key tile)
+H100_SMS = 132
+# an H100 SM's shared memory (1 KB of it reserved a block) and registers; a block's most
+# shared memory; about the registers ptxas gives a main thread (175-249 by instance)
+_SM_SHARED, _SM_REGISTERS, _BLOCK_SHARED, _BWD_REGS = 233472, 65536, 232448, 192
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _bwd_smem(n: int, kt: int, dp: int) -> int:
+    """The main launch's shared memory in bytes (``main_smem_bytes``): the (N, KT) addend and
+    dbias tiles; k, v, q and dO (rows of the padded D + 4 floats), two buffers each; round(P)
+    and dS; dQ's partials of each key split (rows of 24 floats at D = 8, else D + 8); lse
+    and D, two buffers each."""
+    qt = _BWD_SCORES // kt
+    tiles = qt // 16 * (dp // 8)  # dQ's 16 x 8 tiles a step, over 8 warps
+    return 4 * (2 * n * kt + 4 * kt * (dp + 4) + 4 * qt * (dp + 4) + 2 * _BWD_SCORES
+                + (1 if tiles >= 8 else 8 // tiles) * qt * (24 if dp == 8 else dp + 8) + 4 * qt)
+
+
+def _pick_runs(windows: int, base: int, slots: int) -> int:
+    """The runs of windows (``pick_splits``) with the fewest waves of ``base`` x runs blocks
+    over ``slots`` times the windows a run plus one (a block's fixed costs); the fewest runs
+    of those."""
+    best, splits = None, 1
+    for s in range(1, windows + 1):
+        run = _cdiv(windows, s)
+        if _cdiv(windows, run) != s:
+            continue
+        cost = _cdiv(base * s, slots) * (run + 1)
+        if best is None or cost < best:
+            best, splits = cost, s
+    return splits
+
+
+def _bwd_refused(b: int, h: int, n: int, d: int) -> ValueError:
+    return ValueError(f"fused_window_attention_backward: the kernel takes head dims up to 32 and N up to what its "
+                      f"(N, 16) float32 tiles leave of the shared memory; got (B, H, N, D) = ({b}, {h}, {n}, {d})")
+
+
+def attention_bwd_plan(b: int, h: int, n: int, d: int, nw: int, dtype: torch.dtype, sms: int = H100_SMS,
+                       resident: int | None = None) -> dict:
+    """What ``fused_window_attention_backward`` launches for (B, H, N, D) = (b, h, n, d) under
+    ``nw`` mask rows (0: no mask), without a card: the plan csrc/window_attention_bwd.cu
+    makes (``make_plan``). ``sms``: the card's SMs; ``resident``: the main blocks an SM holds
+    (the card's occupancy; by default a model of the H100 from the shared memory and
+    ``_BWD_REGS`` registers a thread).
+
+    Returns the keys of ``window_attention_backward_plan``: the ``route`` ("tf32x3": D, the
+    main launch with its products on mma.sync in 3xTF32, the partials' sum); ``head_dim``,
+    D rounded up to 8, 16 or 32; the ``key_tile`` of a block (64, else 32 or 16, the widest whose (N, KT) addend and dbias
+    tiles fit the block's shared memory) and the ``query_rows`` of its step (2048 scores
+    a step); the ``key_tiles`` over N and the ``chunks`` of query rows a window; the
+    ``threads`` and shared memory (``smem_bytes``) of a main block and the
+    ``blocks_per_sm``; the ``windows_per_block`` of a run and the runs (``splits``); the
+    main ``blocks`` (heads x key tiles x runs); the ``dq_partials`` (the key tiles where
+    more than one, else 0) and ``dbias_partials`` (the runs where more than one, else 0)
+    that the last launch adds in order; the ``cluster`` size (1: no clusters); and the
+    CUDA ``launches`` (2 where there are no partials, else 3). Raises ValueError for a
+    shape the kernel refuses."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_window_attention_backward takes float32, bfloat16 or float16, not {dtype}")
+    nw = nw or 1
+    if min(b, h, n, d, nw) <= 0 or b % nw:
+        raise ValueError(f"attention_bwd_plan: no plan for (B, H, N, D) = ({b}, {h}, {n}, {d}) under {nw} mask rows")
+    dp = 8 if d <= 8 else 16 if d <= 16 else 32 if d <= 32 else 0
+    kt = next((t for t in (64, 32, 16) if dp and _bwd_smem(n, t, dp) <= _BLOCK_SHARED), 0)
+    if not kt:
+        raise _bwd_refused(b, h, n, d)
+    smem, nkt = _bwd_smem(n, kt, dp), _cdiv(n, kt)
+    per_sm = resident if resident is not None else max(1, min(_SM_SHARED // (smem + 1024),
+                                                               _SM_REGISTERS // (_BWD_REGS * _BWD_THREADS)))
+    splits = _pick_runs(b, h * nkt, sms * per_sm)
+    return {"route": "tf32x3", "head_dim": dp, "key_tile": kt, "query_rows": _BWD_SCORES // kt, "key_tiles": nkt,
+            "chunks": _cdiv(n, _BWD_SCORES // kt), "threads": _BWD_THREADS, "smem_bytes": smem,
+            "blocks_per_sm": per_sm, "windows_per_block": _cdiv(b, splits), "splits": splits,
+            "blocks": h * nkt * splits, "dq_partials": nkt if nkt > 1 else 0,
+            "dbias_partials": splits if splits > 1 else 0, "cluster": 1,
+            "launches": 3 if nkt > 1 or splits > 1 else 2}
 
 
 @functools.cache
@@ -204,31 +296,30 @@ def _bwd_fns():
     plan, run = lib.monai_window_attention_bwd_plan, lib.monai_window_attention_bwd
     plan.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     plan.restype = ctypes.c_int
-    run.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    run.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
     run.restype = ctypes.c_int
     return plan, run
 
 
 def _bwd_plan(b: int, h: int, n: int, d: int, nw: int, dtype: torch.dtype, device: torch.device) -> dict:
-    info = (ctypes.c_int * 7)()
+    info = (ctypes.c_longlong * len(_BWD_PLAN_KEYS))()
     with torch.cuda.device(device):
         err = _bwd_fns()[0](b, h, n, d, nw, _DTYPE_CODES[dtype], ctypes.addressof(info))
     if err == 1:
-        raise ValueError(f"fused_window_attention_backward: the kernel takes head dims up to 32 and N up to what two "
-                         f"(N, 33) float32 tiles leave of the shared memory; got (B, H, N, D) = ({b}, {h}, {n}, {d})")
+        raise _bwd_refused(b, h, n, d)
     if err != 0:
         raise RuntimeError(f"window_attention_backward_plan: error {err} for ({b}, {h}, {n}, {d}) {dtype}")
-    return {"head_dim": info[0], "windows_per_block": info[1], "splits": info[2], "dq_blocks": info[3],
-            "dkdv_blocks": info[4], "dq_smem_bytes": info[5], "dq_blocks_per_sm": info[6]}
+    plan = dict(zip(_BWD_PLAN_KEYS, info))
+    plan["route"] = _BWD_ROUTES[plan["route"]]
+    return plan
 
 
 def window_attention_backward_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
                                    mask: torch.Tensor | None = None) -> dict:
-    """What ``fused_window_attention_backward`` launches for these CUDA tensors, without
-    launching it: the instance's head dim (D rounded up to 8, 16 or 32), the windows a dq
-    block walks over, the dbias partials (one a run of windows; 1 means no sum launch),
-    the dq and dkdv blocks, the dq launch's shared memory and the dq blocks an SM holds.
-    Raises ValueError naming the shape where the kernel refuses it."""
+    """What ``fused_window_attention_backward`` launches for these CUDA tensors, as the
+    kernel's own plan on their card says, without launching it: the keys of
+    ``attention_bwd_plan``, which makes the same plan on the host from the card's SM count
+    and ``blocks_per_sm``. Raises ValueError naming the shape where the kernel refuses it."""
     _check(q, k, v, bias, mask)
     if q.device.type != "cuda":
         raise ValueError(f"window_attention_backward_plan describes a CUDA launch; got a tensor on {q.device}")
@@ -244,9 +335,10 @@ def fused_window_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.T
     log-sum-exp ``lse`` (B, H, N) float32.
 
     CPU tensors run the plain version; CUDA tensors run the kernels of
-    ``csrc/window_attention_bwd.cu`` (four launches: D, dK and dV, dQ with dbias's
-    partials, their sum) or raise, and add one to
-    ``fused_window_attention_backward.launches``. Deterministic: the same inputs give
+    ``csrc/window_attention_bwd.cu`` on the route their plan names (D; the main launch,
+    which gives dK, dV and dQ's and dbias's partials or themselves; the partials' sum where
+    there are any) or raise, add one to ``fused_window_attention_backward.launches`` and
+    the CUDA launches made to its ``cuda_launches``. Deterministic: the same inputs give
     the same bits."""
     _check(q, k, v, bias, mask)
     for name, t in (("out", out), ("grad_out", grad_out)):
@@ -264,20 +356,29 @@ def fused_window_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.T
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    part = (torch.empty((plan["splits"], h, n, n), dtype=torch.float32, device=q.device)
-            if plan["splits"] > 1 else None)
+    dq_part = (torch.empty((plan["dq_partials"], b, h, n, d), dtype=torch.float32, device=q.device)
+               if plan["dq_partials"] else None)
+    db_part = (torch.empty((plan["dbias_partials"], h, n, n), dtype=torch.float32, device=q.device)
+               if plan["dbias_partials"] else None)
+    ran = (ctypes.c_int * 2)()
     with torch.cuda.device(q.device):
         err = _bwd_fns()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                             None if mask is None else mask.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
                             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                            dbias.data_ptr(), None if part is None else part.data_ptr(), b, h, n, d,
+                            dbias.data_ptr(), None if dq_part is None else dq_part.data_ptr(),
+                            None if db_part is None else db_part.data_ptr(), b, h, n, d,
                             0 if mask is None else mask.shape[0], _DTYPE_CODES[q.dtype],
-                            torch.cuda.current_stream(q.device).cuda_stream)
+                            torch.cuda.current_stream(q.device).cuda_stream, ctypes.addressof(ran))
     if err != 0:
         raise RuntimeError(f"fused_window_attention_backward: CUDA launch failed with error {err} "
                            f"(q {tuple(q.shape)} {q.dtype}, mask {None if mask is None else tuple(mask.shape)})")
+    if _BWD_ROUTES[ran[0]] != plan["route"] or ran[1] != plan["launches"]:
+        raise RuntimeError(f"fused_window_attention_backward: ran route {ran[0]} with {ran[1]} launches, the plan "
+                           f"names {plan['route']} with {plan['launches']}")
     count_launch(fused_window_attention_backward)
+    count_launch(fused_window_attention_backward, ran[1], "cuda_launches")
     return dq, dk, dv, dbias
 
 
 fused_window_attention_backward.launches = 0
+fused_window_attention_backward.cuda_launches = 0

@@ -49,8 +49,8 @@ OWN = {"window_attention": "window attention (CUDA)", "conv3d_3x3_same": "3x3x3 
        "norm_persistent": "instance norm (CUDA)", "norm_onchip": "instance norm (CUDA)",
        "bilateral_2d_kernel": "bilateral 2-D (CUDA)", "bilateral_3d_kernel": "bilateral 3-D (CUDA)",
        "conv3d_wgrad": "3x3x3 conv dw (CUDA)", "norm_bwd": "instance norm backward (CUDA)",
-       "dkdv_kernel": "window attention backward (CUDA)", "dq_kernel": "window attention backward (CUDA)",
-       "delta_kernel": "window attention backward (CUDA)", "dbias_sum_kernel": "window attention backward (CUDA)"}
+       "attn_bwd_kernel": "window attention backward (CUDA)", "attn_bwd_sum_kernel": "window attention backward (CUDA)",
+       "delta_kernel": "window attention backward (CUDA)"}
 
 
 def build(net_name: str, dev):

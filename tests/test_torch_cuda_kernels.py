@@ -33,12 +33,14 @@ from monai_tpu_torch.ops.conv3d import (conv3d_3x3_same, conv3d_3x3_same_plain, 
                                         conv3d_3x3_wgrad_plain, conv3d_3x3_wgrad_plan, wgrad_plan)
 from monai_tpu_torch.ops.filtering import bilateral_filter
 from monai_tpu_torch.ops.separable_resample import resample_plan, separable_resample_3d, separable_resample_3d_plain
-from monai_tpu_torch.ops.window_attention import (_forward as _attention_forward, fused_window_attention,
-                                                  fused_window_attention_backward,
+from monai_tpu_torch.ops.window_attention import (_forward as _attention_forward, attention_bwd_plan,
+                                                  fused_window_attention, fused_window_attention_backward,
                                                   fused_window_attention_backward_plain, fused_window_attention_plain,
                                                   window_attention_backward_plan, window_attention_plan)
 
 from test_torch_conv3d_wgrad_plan import STEP_SITES  # every conv site of the two training steps
+# every attention site of the float32 Swin step and of the bench SwinUNETR (head dim 8)
+from test_torch_window_attention_bwd_plan import BENCH_ATTN_SITES, STEP_D8_SITES, SWIN_ATTN_SITES
 
 pytestmark = pytest.mark.cuda
 
@@ -1005,9 +1007,12 @@ def test_float32_unet_and_blur_ignore_the_tf32_setting(cuda):
 
 # (windows, heads, N, D, mask rows or None): the BTCV bundle's SwinUNETR (feature size 48)
 # at batch 4 of 96^3 has D = 16 at (1372, 3, 343), (256, 6, 343), (32, 12, 343), (4, 24,
-# 216), one of each pair but the last masked; shrunk here in windows, not in N or D
+# 216), one of each pair but the last masked; shrunk here in windows, not in N or D. The
+# last two: four windows a mask row as at the step's masked sites, with runs over several
+# mask rows and several runs; and many windows without a mask.
 ATTN_BWD_SITES = [(12, 3, 343, 16, 4), (12, 3, 343, 16, None), (8, 6, 343, 16, 8), (4, 24, 216, 16, None),
-                  (12, 3, 343, 8, 4), (4, 24, 216, 8, None), (5, 2, 27, 8, 5), (7, 1, 64, 16, None)]
+                  (12, 3, 343, 8, 4), (4, 24, 216, 8, None), (5, 2, 27, 8, 5), (7, 1, 64, 16, None),
+                  (384, 3, 343, 16, 96), (200, 2, 216, 8, None)]
 
 
 def _attention_bwd_inputs(g, b, h, n, d, nw, dtype, device):
@@ -1052,6 +1057,9 @@ def test_window_attention_backward_kernel_takes_any_head_dim_to_32(cuda, dtype, 
     assert window_attention_backward_plan(q, k, v, bias, mask)["head_dim"] == (8 if d <= 8 else 16 if d <= 16 else 32)
     got = fused_window_attention_backward(q, k, v, bias, mask, out, dout, lse)
     _assert_grads_close(got, fused_window_attention_backward_plain(q, k, v, bias, mask, out, dout), dtype)
+    again = fused_window_attention_backward(q, k, v, bias, mask, out, dout, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1095,6 +1103,19 @@ def test_window_attention_autograd_on_the_kernels(cuda, dtype, nw):
                             dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,offset", [(16, 1), (10, 0), (10, 1)])
+def test_window_attention_backward_kernel_unaligned_rows(cuda, dtype, d, offset):
+    """q, k, v and dO one element into their storage (not 16-byte aligned), or with rows of
+    D = 10 (not whole 16-byte pieces): the kernel copies them an element at a time."""
+    g = torch.Generator(device=cuda).manual_seed(d + offset)
+    b, h, n, nw = 8, 3, 343, 4
+    q, k, v, bias, mask, out, dout, lse = _attention_bwd_inputs(g, b, h, n, d, nw, dtype, cuda)
+    q, k, v, dout = (torch.cat([x.new_zeros(offset), x.flatten()])[offset:].view(x.shape) for x in (q, k, v, dout))
+    got = fused_window_attention_backward(q, k, v, bias, mask, out, dout, lse)
+    _assert_grads_close(got, fused_window_attention_backward_plain(q, k, v, bias, mask, out, dout), dtype)
+
+
 def test_window_attention_backward_refuses_a_head_dim_past_32(cuda):
     """D = 64 (past the backward's instances): the plan and the wrapper raise naming the
     shape, and no launch is counted."""
@@ -1109,16 +1130,51 @@ def test_window_attention_backward_refuses_a_head_dim_past_32(cuda):
 
 
 def test_window_attention_backward_plan_at_the_btcv_sites(cuda):
-    """The first stage's site (1372 windows, 343 masks): the dq blocks' runs cover every
-    window once, and there are at least as many dq blocks as fill the card once."""
+    """The first stage's site (1372 windows, 343 masks): the runs cover every window once,
+    64 keys a block, one block an SM, and at least as many main blocks as fill the card
+    once."""
     q = torch.empty((1372, 3, 343, 16), device=cuda)
     bias, mask = torch.empty((3, 343, 343), device=cuda), torch.empty((343, 343, 343), device=cuda)
     plan = window_attention_backward_plan(q, q, q, bias, mask)
     assert plan["head_dim"] == 16 and plan["splits"] * plan["windows_per_block"] >= 1372
     assert (plan["splits"] - 1) * plan["windows_per_block"] < 1372
+    assert (plan["route"], plan["key_tile"], plan["blocks_per_sm"]) == ("tf32x3", 64, 1)
+    assert plan["key_tiles"] == 6 and plan["blocks"] == 3 * 6 * plan["splits"]  # every (window, head, key) once
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert plan["dq_blocks"] >= sms * plan["dq_blocks_per_sm"]
-    assert plan["dkdv_blocks"] == 1372 * 3 * 11
+    assert plan["blocks"] >= sms * plan["blocks_per_sm"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,n,d,nw", list(SWIN_ATTN_SITES) + list(BENCH_ATTN_SITES) + STEP_D8_SITES)
+def test_window_attention_backward_host_plan_is_the_cards(cuda, dtype, b, h, n, d, nw):
+    """``attention_bwd_plan`` on the host, given the card's SM count and the blocks an SM
+    holds as the card's plan says, is the card's own plan at every attention site of the
+    float32 Swin step and of the bench SwinUNETR, for aligned inputs and for inputs one
+    element into their storage."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    bias = torch.empty((h, n, n), device=cuda)
+    mask = None if nw is None else torch.empty((nw, n, n), device=cuda)
+    for offset in (0, 1):
+        q = torch.empty(b * h * n * d + offset, dtype=dtype, device=cuda)[offset:].view(b, h, n, d)
+        card = window_attention_backward_plan(q, q, q, bias, mask)
+        assert card == attention_bwd_plan(b, h, n, d, nw or 0, dtype, sms, card["blocks_per_sm"]), offset
+
+
+@pytest.mark.parametrize("b,h,n,d,nw", [(12, 3, 343, 16, 4), (4, 24, 216, 8, None), (5, 2, 27, 8, None),
+                                        (1, 2, 27, 8, None), (6, 2, 729, 32, 3)])
+def test_window_attention_backward_runs_the_route_its_plan_names(cuda, b, h, n, d, nw):
+    """The route the plan names is the one the kernel ran, with the plan's CUDA launches:
+    three with partials, two where one key tile and one run leave none."""
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    q, k, v, bias, mask, out, dout, lse = _attention_bwd_inputs(g, b, h, n, d, nw, torch.float32, cuda)
+    plan = window_attention_backward_plan(q, k, v, bias, mask)
+    assert plan["route"] == "tf32x3"
+    before = fused_window_attention_backward.launches, fused_window_attention_backward.cuda_launches
+    got = fused_window_attention_backward(q, k, v, bias, mask, out, dout, lse)
+    assert (fused_window_attention_backward.launches,
+            fused_window_attention_backward.cuda_launches) == (before[0] + 1, before[1] + plan["launches"])
+    assert plan["launches"] == (3 if plan["dq_partials"] or plan["dbias_partials"] else 2)
+    _assert_grads_close(got, fused_window_attention_backward_plain(q, k, v, bias, mask, out, dout), torch.float32)
 
 
 def test_float32_swin_decoder_step_ignores_the_tf32_setting(cuda):
