@@ -96,9 +96,12 @@ Drives the port's paths, each at full width with random weights from a seed:
      dim 16) and the bench SwinUNETR's (head dim 8), masked and unmasked, in float32,
      bfloat16 and float16, two calls bit for bit, each site's plan (route, tile, cluster
      size, runs, partials), float32 timed against the plain version, autograd of SDPA
-     (which it must beat at every site) and the bound, with its share of the FLOP bound;
-     the forward kernel in float32 at the step's eight sites against its plain version,
-     timed beside ``F.scaled_dot_product_attention`` and its bound; the conv's and the norm's backward kernels at the Swin
+     (which it must beat at every site) and the bound (its products as 3xTF32 on the
+     tensor cores), with the kernel's share of it;
+     the forward kernel's float32 tensor-core instance ("tf32x3", which the plan must
+     name) at the step's eight sites and their head-dim-8 twins against its plain version,
+     two calls bit for bit, timed beside ``F.scaled_dot_product_attention`` and its bound
+     (the products as 3xTF32), the old FMA-pipe bound beside it; the conv's and the norm's backward kernels at the Swin
      sites in float32 and bfloat16, each site's line with dw's plan, float32 timed against
      the plain versions, cuDNN's convolution backward and autograd of ``F.instance_norm``
      in full float32, and the bound at the float32 peak (their sums a step go into the
@@ -218,6 +221,7 @@ STEP_FLOOR_RATIO, STEP_COSINE_RATIO = 10.0, 2.0
 # The card's peaks (NVIDIA H100 SXM data sheet): memory 3.35 TB/s; dense bf16 989 TFLOP/s
 # on the tensor cores, float32 67 TFLOP/s outside them.
 HBM_BYTES_S, PEAK_FLOPS = 3.35e12, {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_FLOPS = 495e12  # the tensor cores' dense TF32 rate
 
 
 def require(cond: bool, msg: str) -> None:
@@ -252,6 +256,13 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
 def bound(nbytes: float, flops: float, dtype: torch.dtype) -> tuple[float, float]:
     """(ms for the bytes at the memory rate, ms for the operations at the type's peak)."""
     return nbytes / HBM_BYTES_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+
+
+def bound_tf32x3(nbytes: float, flops: float) -> tuple[float, float]:
+    """(ms for the bytes at the memory rate, ms for float32 products run as 3xTF32, three
+    TF32 products each, at the tensor cores' TF32 peak): the bound of a float32 kernel whose
+    products run on the tensor cores."""
+    return nbytes / HBM_BYTES_S * 1e3, 3 * flops / TF32_FLOPS * 1e3
 
 
 def _wrappers():
@@ -1640,9 +1651,10 @@ def check_attention_backward(masks: dict, dev) -> dict:
     backward of ``F.scaled_dot_product_attention`` with bias + mask as one additive mask
     that requires a grad (its forward run once before), which the kernel must beat at every
     site. The bound: q, k, v, dO, O, bias, mask and the log-sum-exp read once and dq, dk,
-    dv, dbias written once; the five N^2 D products at the type's peak (the line gives the
-    kernel's share of it); one exp a score at the card's exp rate. Returns the kernels-line
-    numbers of the step's (head dim 16) sites, summed over a step."""
+    dv, dbias written once; the five N^2 D products as 3xTF32 on the tensor cores (the
+    kernel's arithmetic; the line gives its share of the bound, and the old bound at the
+    float32 FMA pipe's 67 TFLOP/s); one exp a score at the card's exp rate. Returns the
+    kernels-line numbers of the step's (head dim 16) sites, summed over a step."""
     from monai_tpu_torch.ops.window_attention import (_forward, fused_window_attention_backward,
                                                       fused_window_attention_backward_plain,
                                                       window_attention_backward_plan)
@@ -1691,15 +1703,16 @@ def check_attention_backward(masks: dict, dev) -> dict:
                 # q, k, v, dO, O read and dq, dk, dv written; bias read, dbias written; lse; mask
                 nbytes = (8 * q.numel() * q.element_size() + 2 * bias.numel() * 4 + b * h * n * 4
                           + (0 if mask is None else mask.numel() * 4))
-                b_ms, o_ms = bound(nbytes, 5 * 2.0 * b * h * n * n * d, dtype)
+                b_ms, o_ms = bound_tf32x3(nbytes, 5 * 2.0 * b * h * n * n * d)
+                fma_ms = bound(0, 5 * 2.0 * b * h * n * n * d, dtype)[1]
                 e_ms = b * h * n * n / rate * 1e3
                 if count:
                     rows.append((count, err, k_ms, p_ms, lib_ms, b_ms, max(o_ms, e_ms)))
                 sides = {"bytes": b_ms, "FLOP": o_ms, "exp": e_ms}
                 side = max(sides, key=sides.get)
                 msg += (f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  SDPA autograd {lib_ms:.4f} ms  bound "
-                        f"{sides[side]:.4f} ms ({side}; bytes {b_ms:.4f}, FLOP {o_ms:.4f}, exp {e_ms:.4f}); "
-                        f"{o_ms / k_ms:.1%} of the FLOP bound")
+                        f"{sides[side]:.4f} ms ({side}; bytes {b_ms:.4f}, 3xTF32 FLOP {o_ms:.4f}, exp {e_ms:.4f}); "
+                        f"{sides[side] / k_ms:.1%} of the bound; old FMA-pipe FLOP bound {fma_ms:.4f} ms")
                 print(msg, flush=True)
                 require(k_ms < lib_ms, f"attention backward {site} float32: the kernel's {k_ms:.4f} ms is not below "
                                        f"SDPA autograd's {lib_ms:.4f} ms")
@@ -1711,29 +1724,38 @@ def check_attention_backward(masks: dict, dev) -> dict:
 
 
 def check_attention_forward_f32(masks: dict, dev) -> dict:
-    """The forward kernel (its float32 FMA instance, as the float32 step runs it) at each
-    site of the BTCV step, against its plain version at the float32 gate, timed beside the
-    plain version and ``F.scaled_dot_product_attention`` with bias + mask as one additive
-    float32 mask (built before the timing). The bound, as phase 2's: q, k, v, out, bias
-    and mask once, the two N^2 D products at the float32 peak, one exp a score. Returns the
-    kernels-line numbers summed over a step's sites."""
+    """The forward kernel's float32 tensor-core instance ("tf32x3", as the float32 step runs
+    it) at each site of the BTCV step and at its head-dim-8 twins: the instance the plan
+    names, the result against the plain version at the float32 gate, two calls bit for bit,
+    timed beside the plain version and ``F.scaled_dot_product_attention`` with bias + mask
+    as one additive float32 mask (built before the timing). The bound: q, k, v, out, bias
+    and mask once, the two N^2 D products as 3xTF32 on the tensor cores (the instance's
+    arithmetic), one exp a score; beside it the old bound's products at the float32 FMA
+    pipe's 67 TFLOP/s, which the instance no longer runs on. Returns the kernels-line
+    numbers of the step's (head dim 16) sites, summed over a step."""
     from monai_tpu_torch.ops.window_attention import (fused_window_attention, fused_window_attention_plain,
                                                       window_attention_plan)
 
     rate = exp_per_s()
-    exp_total = 0.0
+    exp_total = flop_total = fma_total = 0.0
     g = torch.Generator(device=dev).manual_seed(10)
     rows = []
-    for (b, h, n, d, nw), count in SWIN_ATTN_SITES.items():
+    sites = list(SWIN_ATTN_SITES.items()) + [((b, h, n, 8, nw), 0) for (b, h, n, _, nw) in SWIN_ATTN_SITES]
+    for (b, h, n, d, nw), count in sites:
         q, k, v = (torch.randn((b, h, n, d), generator=g, device=dev) for _ in range(3))
         q *= d ** -0.5
         bias = torch.randn((h, n, n), generator=g, device=dev) * 0.5
         mask = None if nw is None else masks[nw]
         plan = window_attention_plan(q, k, v, bias, mask)
+        require(plan["instance"] == "tf32x3", f"attention forward {(b, h, n, d, nw)} float32 runs the "
+                                              f"{plan['instance']} instance, not tf32x3")
         with torch.no_grad():
-            err, rel = rel_err(fused_window_attention(q, k, v, bias, mask),
-                               fused_window_attention_plain(q, k, v, bias, mask))
+            got = fused_window_attention(q, k, v, bias, mask)
+            err, rel = rel_err(got, fused_window_attention_plain(q, k, v, bias, mask))
             require(rel <= TOL_F32, f"attention forward {(b, h, n, d, nw)} float32: {rel:.3g} of max|ref| > {TOL_F32}")
+            require(torch.equal(got, fused_window_attention(q, k, v, bias, mask)),
+                    f"attention forward {(b, h, n, d, nw)} float32: two calls differ")
+            del got
             k_ms, p_ms = paired_ms(lambda: fused_window_attention(q, k, v, bias, mask),
                                    lambda: fused_window_attention_plain(q, k, v, bias, mask), iters=10)
             groups = 1 if nw is None else nw
@@ -1741,18 +1763,27 @@ def check_attention_forward_f32(masks: dict, dev) -> dict:
             qs, ks, vs = (t.view(b // groups, groups, h, n, d) if nw else t for t in (q, k, v))
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=add, scale=1.0), iters=10)
         nbytes = 4 * q.numel() * 4 + bias.numel() * 4 + (0 if mask is None else mask.numel() * 4)
-        b_ms, o_ms = bound(nbytes, 4.0 * b * h * n * n * d, torch.float32)
+        b_ms, o_ms = bound_tf32x3(nbytes, 4.0 * b * h * n * n * d)
+        fma_ms = bound(0, 4.0 * b * h * n * n * d, torch.float32)[1]
         e_ms = b * h * n * n / rate * 1e3
-        rows.append((count, err, k_ms, p_ms, lib_ms, b_ms, max(o_ms, e_ms)))
-        exp_total += count * e_ms
+        if count:
+            rows.append((count, err, k_ms, p_ms, lib_ms, b_ms, max(o_ms, e_ms)))
+            exp_total += count * e_ms
+            flop_total += count * o_ms
+            fma_total += count * max(b_ms, fma_ms, e_ms)
         print(f"attention forward windows {b} heads {h} N {n} D {d} mask rows {nw} x{count} float32 instance "
-              f"{plan['instance']}: max err {rel:.3g} of max|ref| (tol {TOL_F32})  kernel {k_ms:.4f} ms  plain "
-              f"{p_ms:.4f} ms  SDPA {lib_ms:.4f} ms  bound {max(b_ms, o_ms, e_ms):.4f} ms (bytes {b_ms:.4f}, FLOP "
-              f"{o_ms:.4f}, exp {e_ms:.4f}); {max(o_ms, e_ms) / k_ms:.1%} of the bound", flush=True)
+              f"{plan['instance']} ({plan['rows_per_block']} rows and {plan['windows_per_block']} windows a block, "
+              f"{plan['blocks']} blocks): max err {rel:.3g} of max|ref| (tol {TOL_F32}), two calls bit for bit  "
+              f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  SDPA {lib_ms:.4f} ms  bound "
+              f"{max(b_ms, o_ms, e_ms):.4f} ms (bytes {b_ms:.4f}, 3xTF32 FLOP {o_ms:.4f}, exp {e_ms:.4f}); "
+              f"{max(b_ms, o_ms, e_ms) / k_ms:.1%} of the bound; old FMA-pipe bound {max(b_ms, fma_ms, e_ms):.4f} ms",
+              flush=True)
         del q, k, v, bias, add, qs, ks, vs
     torch.cuda.empty_cache()
     out = _summary(rows)
-    out["bound_side"] = "exp" if exp_total >= out["bytes_ms"] else out["bound_by"]
+    out["bound_side"] = "exp" if exp_total >= max(out["bytes_ms"], flop_total) else out["bound_by"]
+    print(f"attention forward float32 a step: kernel {out['ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_ms'] / out['ms']:.1%}; 3xTF32 products), old FMA-pipe bound {fma_total:.4f} ms", flush=True)
     return out
 
 

@@ -1,12 +1,15 @@
 // Inline PTX for Hopper's asynchronous copies and warp-level tensor-core products,
 // shared by the kernels that stage tiles by cp.async and multiply them by mma.sync:
-// the 3x3x3 conv (conv3d_3x3_same.cu) and window attention (window_attention.cu); the
-// resample (separable_resample_3d.cu) takes its cp.async helpers.
+// the 3x3x3 conv (conv3d_3x3_same.cu) and window attention's forward and backward
+// (window_attention.cu, window_attention_bwd.cu, which take the 3xTF32 products below);
+// the resample (separable_resample_3d.cu) takes its cp.async helpers.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -14,7 +17,8 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes from global to shared memory; src_bytes = 0 fills the 16 bytes with zeros
+// 16 bytes from global to shared memory (both 16-byte aligned); the first src_bytes (0 to 16)
+// are read and the rest filled with zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
 }
@@ -72,6 +76,39 @@ template <> __device__ __forceinline__ void mma_k8<__half>(float (&d)[4], unsign
                "{%0, %1, %2, %3};\n"
                : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
                : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// x as big + small, each a TF32 value (a float's low 13 bits cleared, which mma.sync
+// ignores): the 3xTF32 split, by masks and a subtraction (x - big is exact)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An m16n8k8 operand pair, split: A (16 x 8, a[0..3] at (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4) of lane 4 g + t) and B (8 x 8, b[0..1] at (t, g), (t + 4, g)); C (16 x 8)
+// at (g, 2 t), (g, 2 t + 1), (g + 8, 2 t), (g + 8, 2 t + 1).
+struct FragA {
+  uint32_t big[4], small[4];
+};
+struct FragB {
+  uint32_t big[2], small[2];
+};
+
+// a b in 3xTF32 into two accumulators, main += a.big b.big and corr += a.small b.big +
+// a.big b.small, so that a product's three mma form two short chains and not one long one
+__device__ __forceinline__ void mma3(float (&main)[4], float (&corr)[4], const FragA& a, const FragB& b) {
+  mma_tf32(corr, a.small, b.big[0], b.big[1]);
+  mma_tf32(main, a.big, b.big[0], b.big[1]);
+  mma_tf32(corr, a.big, b.small[0], b.small[1]);
 }
 
 }  // namespace

@@ -16,14 +16,14 @@
 // scores never went to HBM, and let the WB windows of a grid step share one bias tile and
 // one mask tile (_pick_wb). Here the scores never leave registers.
 //
-// What bounds it on the card: the exps. SwinUNETR at feature size 24 (D = 8, N = 343)
-// computes 2.1e9 scores a 6-window forward, one exp each; the special-function units
-// give 16 a clock an SM, 4.2e12/s on an H100, so 0.51 ms a forward. The bytes (q, k, v,
-// out, bias and mask read or written once) take 0.19 ms, the products 0.07 ms. Per
-// score a kernel also adds the bias and mask, takes the max, subtracts, sums, scales and
-// rounds: about as many FP32 issue slots as the exp unit's.
+// What bounds it on the card in bfloat16 and float16: the exps. SwinUNETR at feature
+// size 24 (D = 8, N = 343) computes 2.1e9 scores a 6-window forward, one exp each; the
+// special-function units give 16 a clock an SM, 4.2e12/s on an H100, so 0.51 ms a
+// forward. The bytes (q, k, v, out, bias and mask read or written once) take 0.19 ms,
+// the products 0.07 ms. Per score a kernel also adds the bias and mask, takes the max,
+// subtracts, sums, scales and rounds: about as many FP32 issue slots as the exp unit's.
 //
-// Three instances, routed by launch_d:
+// Four instances, routed by launch_d (pick_instance):
 //
 // - The tensor-core one (bfloat16 and float16, D in {8, 16, 32}, N <= 512, q, k, v and
 //   out 16-byte aligned; every SwinUNETR site at feature sizes 24 and 48). A block owns a
@@ -61,12 +61,45 @@
 //   one window's work, with at least two blocks an SM where the shape allows. The grid
 //   runs the query tiles, then the heads, of one mask row together, so the row stays in
 //   L2.
-// - The FMA one (float32, and a bfloat16 or float16 shape of the first kind that is not
-//   16-byte aligned): a warp owns one query row at a time, each lane holds the scores of
-//   keys lane, lane + 32, ... (up to kMaxN / 32 of them), and the max and the sum are
-//   warp shuffles. K and V of the block's (window, head) sit in shared memory as f32,
-//   rows padded to D + 1 words. One block per (query tile of kQTile rows, head, window).
-//   float32 stays on the FMA units in full precision: TF32 would miss its tolerance.
+// - The float32 tensor-core one ("tf32x3": float32, D in {8, 16, 32}, N <= 512, q, k, v
+//   and out 16-byte aligned; every site of the float32 SwinUNETR step and of its sliding
+//   window). It replaces, on those shapes, the FMA instance below, which took 15.1-17.0 ms
+//   a float32 BTCV training step (batch 4 of 96^3, eight sites, 1.43e9 scores at D = 16;
+//   PERF.md §6): its K and V were restaged for each 64-row tile, the addend read from L2
+//   for every window and row, and every multiply-add of both products read one word of
+//   shared memory, which held them to the shared memory's rate. What bounds float32 here:
+//   the two N^2 D products, 4 D flops a score, 1.37 ms a step at the FMA pipe's 67
+//   TFLOP/s; the exps take 0.34. On the tensor cores in 3xTF32 they are 3 x 91.5 GFLOP,
+//   0.55 ms at the TF32 rate of 495 TFLOP/s (wgmma's; mma.sync reaches less), and this
+//   instance is built against that floor. It keeps the block structure above (the addend
+//   tile once a block, K and V of the mask row's windows double-buffered by cp.async, the
+//   windows a block by split_rows, the softmax in registers with the row max exchanged by
+//   the warps of a row group), in key chunks of 8: both products run on mma.sync m16n8k8
+//   in TF32 three times, each float32 operand x split into big (x with its low 13 bits
+//   cleared, which mma.sync ignores) and small (x - big, exact, likewise cleared), a
+//   product big.big + big.small + small.big accumulated in float32 (an error of ~2^-20 of
+//   the product: float32's precision, not TF32's). The split is two masks and a
+//   subtraction (not cvt.rna.tf32, which runs at the conversion unit's rate, PERF.md §6);
+//   Q's fragments are split once a window (the next window's Q in registers
+//   meanwhile), K's and V's at each fragment load (split once at staging they would take
+//   twice the shared memory, which does not fit beside a 64-row addend tile). The
+//   fragment layouts and the order each contraction takes (window_attention_tf32_kernel)
+//   make a lane's K row one float2 or float4 load and let S's accumulator serve as the A
+//   fragment of E V as it stands; K rows of 8, 16 or 48 floats and V rows of D + 4 put a
+//   warp's reads in distinct banks. The warps multiply the unnormalised exps by V and
+//   the group's first warp scales the sum by 1/sum (p is float32, the input type), so a
+//   window takes two barriers of the group, not three. At the 7^3 windows (D = 16) a block
+//   of 64 rows and 8 warps holds 192 KB of shared memory (the 88 KB addend tile, K and V
+//   twice), one block an SM; at D = 8 four warps share a row group's keys, 16 warps a
+//   block. 3.18 ms a step at D = 16, 2.24 at D = 8, on an H100 SXM at 700 W (PERF.md §6,
+//   which also lists what was measured and dropped: four warps a group at D = 16, which
+//   spilled; Q staged by cp.async; the addend staged several rows a warp at once).
+// - The FMA one (a shape of either tensor-core kind, in any type, whose q, k, v or out is
+//   not 16-byte aligned): a warp owns one query row at a time, each lane holds the scores
+//   of keys lane, lane + 32, ... (up to kMaxN / 32 of them), and the max and the sum are
+//   warp shuffles. K and V of the block's (window, head) sit in shared memory as f32, rows
+//   padded to D + 1 words. One block per (query tile of kQTile rows, head, window).
+//   float32 stays on the FMA units in full precision.
 // - The generic one (every other D and N): D is a loop bound, and the keys stream
 //   through shared memory in chunks of 32, one key a lane. A row takes two passes over
 //   the chunks: the first finds its max and its sum (per lane, merged by shuffles at
@@ -74,8 +107,8 @@
 //   the input type, and accumulates p.v into a float32 tile in shared memory, each lane
 //   owning dims lane, lane + 32, ... This instance is for correctness, not speed.
 //
-// Left for later: wgmma (D = 8 is below its depth of 16), TMA for K, V and the addend
-// tile, and a persistent grid.
+// Left for later: wgmma (D = 8 is below its bfloat16 depth of 16), TMA for K, V and the
+// addend tile, and a persistent grid.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -687,8 +720,313 @@ window_attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, co
   }
 }
 
-// The launch of one shape on the tensor-core instance, or which instance runs it.
-enum Instance { kMma = 0, kFma = 1, kGeneric = 2 };
+// The float32 tensor-core instance ("tf32x3"). The block structure is the one above: a
+// block of RG row groups owns a tile of 16 RG query rows of one head and walks the windows
+// of one mask row, with the addend tile in shared memory and K and V double-buffered by
+// cp.async; but a row group is KS warps, each holding one KS-th of the keys: 4 at D = 8 and
+// N <= 352 (16 warps a block, 128 registers a thread), else 2 (at D = 16 a quarter of the
+// keys and the fragments do not fit 128 registers without a spill). Both products run on
+// mma.sync m16n8k8 in TF32, three times (3xTF32), so a key chunk is 8 keys. Shared memory: the addend tile (16 RG rows x lda float32), `stages`
+// buffers of K (np rows of LDK floats) and V (np rows of LDV floats), np = N rounded up to 8,
+// then each warp's row max and sum ([KS][16 RG] float32 each) and the partial outputs of
+// the group's warps but its first ([KS - 1][RG][D / 8][4][32] float32).
+//
+// The contraction of Q K^T may take the head dims in any order, and that of P V the keys:
+// - Q K^T: lane (g, t) supplies, for k8 step kk, the dims e(2 kk) and e(2 kk + 1) of its
+//   row of Q (A's columns t and t + 4) and of its key's row of K (B's rows t and t + 4),
+//   where e lists the dims 2t, 2t + 1 at D = 8, 4t..4t + 3 at D = 16, and 4t..4t + 3,
+//   16 + 4t..16 + 4t + 3 at D = 32: one float2 or float4 load a row (tf32_row).
+// - P V: S's accumulator holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1) of its
+//   8 keys, and A's fragment is (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4). Taking A's
+//   column t as key 2t and column t + 4 as key 2t + 1, P's A fragment is the accumulator's
+//   registers 0, 2, 1, 3, and V's B fragment is the rows of keys 2t and 2t + 1 at column g.
+// The warps multiply the exps e by V as they are and the first warp of a group scales the
+// sum of their outputs by 1/sum: in float32 p is not rounded, and the sum is then needed
+// only at the end.
+template <int D> __host__ __device__ constexpr int tf32_k_ld() { return D == 32 ? 48 : D; }
+template <int D> __host__ __device__ constexpr int tf32_v_ld() { return D + 4; }
+
+// the D / 4 elements of a row that lane t supplies to Q K^T, in the order of the k8 steps
+template <int D>
+__device__ __forceinline__ void tf32_row(const float* x, int t, float (&r)[D / 4]) {
+  if constexpr (D == 8) {
+    const float2 a = *reinterpret_cast<const float2*>(x + 2 * t);
+    r[0] = a.x;
+    r[1] = a.y;
+  } else {
+#pragma unroll
+    for (int u = 0; u < D / 16; ++u) {
+      const float4 a = *reinterpret_cast<const float4*>(x + 16 * u + 4 * t);
+      r[4 * u] = a.x;
+      r[4 * u + 1] = a.y;
+      r[4 * u + 2] = a.z;
+      r[4 * u + 3] = a.w;
+    }
+  }
+}
+
+// the KS warps of a row group wait for each other; named barrier 1 + group
+template <int KS>
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(32 * KS) : "memory");
+}
+
+// KS: warps a row group (one a part of the keys); CH: the most 8-key chunks a warp holds
+// (its part of N rounded up to 8); FULL: every warp holds CH or CH - 1 chunks, so that only
+// the last chunk needs a bound.
+template <int D, int CH, bool FULL, int KS>
+__global__ void __launch_bounds__(128 * KS, 1)
+window_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                             const float* __restrict__ bias, const float* __restrict__ mask, float* __restrict__ out,
+                             float* __restrict__ lse, MmaGeom g) {
+  constexpr int LDK = tf32_k_ld<D>(), LDV = tf32_v_ld<D>();
+  constexpr int NT = D / 8;  // n8 tiles of the output, and k8 steps of Q K^T
+  constexpr int E = D / 4;   // elements a lane supplies from a row of Q or K
+  const int RG = blockDim.x / (32 * KS), kTile = 16 * RG, n_warps = KS * RG;
+  const int N = g.N, np = (N + 7) & ~7;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* addend = reinterpret_cast<float*>(smem_raw);
+  float* kv = addend + kTile * g.lda;
+  const int stage = np * (LDK + LDV);
+  float* rmax = kv + g.stages * stage;
+  float* rsum = rmax + KS * kTile;
+  float* xo = rsum + KS * kTile;
+
+  int blk = blockIdx.x;
+  const int qt = blk % g.n_qtiles;
+  blk /= g.n_qtiles;
+  const int h = blk % g.H;
+  blk /= g.H;
+  const int split = blk % g.splits, w = blk / g.splits;
+  const int j0 = split * g.wb, count = min(g.wb, g.per_row - j0);
+  const int q0 = qt * kTile;
+  auto window = [&](int j) -> long long { return ((long long)w + (long long)g.nW * (j0 + j)) * g.H + h; };
+
+  // K and V of the block's j-th window into buffer st; rows past N zero-filled
+  auto issue = [&](int j, int st) {
+    constexpr int P = D / 4;  // 16-byte pieces a row
+    const long long base = window(j) * N * D;
+    float* ks = kv + st * stage;
+    float* vs = ks + np * LDK;
+    for (int i = threadIdx.x; i < np * P; i += blockDim.x) {
+      const int r = i / P, c = (i % P) * 4;
+      const long long src = r < N ? base + (long long)r * D + c : 0;
+      cp_async16(ks + r * LDK + c, k + src, r < N ? 16 : 0);
+      cp_async16(vs + r * LDV + c, v + src, r < N ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  issue(0, 0);
+
+  // the addend tile: bias[h] + mask[w] for the tile's rows, 0 in rows past N, -inf in
+  // the keys from N up to np
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  {
+    const float* brows = bias + ((long long)h * N + q0) * N;
+    const float* mrows = mask != nullptr ? mask + ((long long)w * N + q0) * N : nullptr;
+    for (int r = warp; r < kTile; r += n_warps) {  // every load of a row in flight at once
+      const bool row_in = q0 + r < N;
+      const float* br = brows + (long long)r * N;
+      const float* mr = mrows != nullptr ? mrows + (long long)r * N : nullptr;
+      float a[kMaxN / 32];
+#pragma unroll
+      for (int u = 0; u < kMaxN / 32; ++u) {
+        const int j = lane + 32 * u;
+        a[u] = -INFINITY;
+        if (j < N) a[u] = row_in ? br[j] + (mr != nullptr ? mr[j] : 0.0f) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kMaxN / 32; ++u) {
+        const int j = lane + 32 * u;
+        if (j < np) addend[r * g.lda + j] = a[u];
+      }
+    }
+  }
+
+  const int rg = warp % RG, part = warp / RG;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int r0 = rg * 16;
+  const bool live = q0 + r0 < N;  // the row group has a row in the window (warp-uniform)
+  // this warp's chunks of 8 keys: the first nc % KS parts take one more
+  const int nc = np / 8, base_nc = nc / KS, extra = nc % KS;
+  const int my_nc = base_nc + (part < extra), c_begin = part * base_nc + min(part, extra);
+  const int row_a = q0 + r0 + g8, row_b = row_a + 8;
+  const float* arow_a = addend + (r0 + g8) * g.lda + 2 * t4;
+  const float* arow_b = arow_a + 8 * g.lda;
+  auto has = [&](int c) { return FULL ? (c < CH - 1 || my_nc == CH) : c < my_nc; };
+
+  // the warp's rows g8 and g8 + 8 of Q in window j, the elements this lane supplies
+  auto load_q = [&](int j, float (&qa)[E], float (&qb)[E]) {
+    const float* qw = q + window(j) * N * D;
+#pragma unroll
+    for (int e = 0; e < E; ++e) qa[e] = qb[e] = 0.0f;
+    if (row_a < N) tf32_row<D>(qw + (long long)row_a * D, t4, qa);
+    if (row_b < N) tf32_row<D>(qw + (long long)row_b * D, t4, qb);
+  };
+  float qa[E], qb[E];
+  if (live) load_q(0, qa, qb);
+
+  for (int j = 0; j < count; ++j) {
+    const int st = g.stages == 2 ? (j & 1) : 0;
+    cp_async_wait<0>();
+    __syncthreads();  // window j's K and V (and, the first time, the addend tile) are in
+    if (g.stages == 2 && j + 1 < count) issue(j + 1, st ^ 1);
+    if (live) {  // warp-uniform, and the same for all warps of a group
+      const float* ks = kv + st * stage;
+      const float* vs = ks + np * LDK;
+      FragA qf[NT];  // Q's A fragments, split once a window
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        split_tf32(qa[2 * kk], qf[kk].big[0], qf[kk].small[0]);
+        split_tf32(qb[2 * kk], qf[kk].big[1], qf[kk].small[1]);
+        split_tf32(qa[2 * kk + 1], qf[kk].big[2], qf[kk].small[2]);
+        split_tf32(qb[2 * kk + 1], qf[kk].big[3], qf[kk].small[3]);
+      }
+      if (j + 1 < count) load_q(j + 1, qa, qb);  // in flight through the products and the softmax
+
+      // S = Q K^T + addend, this warp's key chunks
+      float s[CH][4];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        if (has(c)) {
+          const int key0 = (c_begin + c) * 8;
+          const float2 a = *reinterpret_cast<const float2*>(arow_a + key0);
+          const float2 b = *reinterpret_cast<const float2*>(arow_b + key0);
+          s[c][0] = a.x;
+          s[c][1] = a.y;
+          s[c][2] = b.x;
+          s[c][3] = b.y;
+          float kr[E], corr[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          tf32_row<D>(ks + (key0 + g8) * LDK, t4, kr);
+#pragma unroll
+          for (int kk = 0; kk < NT; ++kk) {
+            FragB fb;
+            split_tf32(kr[2 * kk], fb.big[0], fb.small[0]);
+            split_tf32(kr[2 * kk + 1], fb.big[1], fb.small[1]);
+            mma3(s[c], corr, qf[kk], fb);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[c][e] += corr[e];
+        }
+      }
+
+      // the row max (rows g8 and g8 + 8 of the group): the quad, then the group's warps
+      float ma = -INFINITY, mb = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        if (has(c)) {
+          ma = fmaxf(ma, fmaxf(s[c][0], s[c][1]));
+          mb = fmaxf(mb, fmaxf(s[c][2], s[c][3]));
+        }
+      }
+#pragma unroll
+      for (int sh = 1; sh < 4; sh <<= 1) {
+        ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, sh));
+        mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, sh));
+      }
+      if (t4 == 0) {
+        rmax[part * kTile + r0 + g8] = ma;
+        rmax[part * kTile + r0 + g8 + 8] = mb;
+      }
+      group_sync<KS>(1 + rg);
+#pragma unroll
+      for (int x = 0; x < KS; ++x) {
+        ma = fmaxf(ma, rmax[x * kTile + r0 + g8]);
+        mb = fmaxf(mb, rmax[x * kTile + r0 + g8 + 8]);
+      }
+
+      // e = exp(s - max), its row sum, and O = E V over this warp's keys: A's column t is
+      // key 2t, column t + 4 key 2t + 1
+      const float la = ma * kLog2e, lb = mb * kLog2e;
+      float sa = 0.0f, sb = 0.0f;
+      float o[NT][4], oc[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nt][e] = oc[nt][e] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        if (has(c)) {
+          const float e0 = ex2(fmaf(s[c][0], kLog2e, -la)), e1 = ex2(fmaf(s[c][1], kLog2e, -la));
+          const float e2 = ex2(fmaf(s[c][2], kLog2e, -lb)), e3 = ex2(fmaf(s[c][3], kLog2e, -lb));
+          sa += e0 + e1;
+          sb += e2 + e3;
+          FragA fa;
+          split_tf32(e0, fa.big[0], fa.small[0]);
+          split_tf32(e2, fa.big[1], fa.small[1]);
+          split_tf32(e1, fa.big[2], fa.small[2]);
+          split_tf32(e3, fa.big[3], fa.small[3]);
+          const float* vrow = vs + ((c_begin + c) * 8 + 2 * t4) * LDV + g8;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            FragB fb;
+            split_tf32(vrow[nt * 8], fb.big[0], fb.small[0]);
+            split_tf32(vrow[LDV + nt * 8], fb.big[1], fb.small[1]);
+            mma3(o[nt], oc[nt], fa, fb);
+          }
+        }
+      }
+#pragma unroll
+      for (int sh = 1; sh < 4; sh <<= 1) {
+        sa += __shfl_xor_sync(0xffffffffu, sa, sh);
+        sb += __shfl_xor_sync(0xffffffffu, sb, sh);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nt][e] += oc[nt][e];
+
+      // the other warps hand their sums and partial outputs to the first, which adds them in
+      // order, scales by 1/sum and stores
+      if (part) {
+        if (t4 == 0) {
+          rsum[part * kTile + r0 + g8] = sa;
+          rsum[part * kTile + r0 + g8 + 8] = sb;
+        }
+        float* xw = xo + ((part - 1) * RG + rg) * (NT * 4 * 32);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xw[(nt * 4 + e) * 32 + lane] = o[nt][e];
+      }
+      group_sync<KS>(1 + rg);
+      if (!part) {
+#pragma unroll
+        for (int x = 1; x < KS; ++x) {
+          sa += rsum[x * kTile + r0 + g8];
+          sb += rsum[x * kTile + r0 + g8 + 8];
+          const float* xw = xo + ((x - 1) * RG + rg) * (NT * 4 * 32);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[nt][e] += xw[(nt * 4 + e) * 32 + lane];
+        }
+        const float ia = 1.0f / sa, ib = 1.0f / sb;
+        if (lse != nullptr && t4 == 0) {
+          float* lw = lse + window(j) * N;
+          if (row_a < N) lw[row_a] = ma + logf(sa);
+          if (row_b < N) lw[row_b] = mb + logf(sb);
+        }
+        float* ow = out + window(j) * N * D;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = nt * 8 + 2 * t4;
+          if (row_a < N)
+            *reinterpret_cast<float2*>(ow + (long long)row_a * D + col) = make_float2(o[nt][0] * ia, o[nt][1] * ia);
+          if (row_b < N)
+            *reinterpret_cast<float2*>(ow + (long long)row_b * D + col) = make_float2(o[nt][2] * ib, o[nt][3] * ib);
+        }
+      }
+    }
+    if (g.stages == 1 && j + 1 < count) {
+      __syncthreads();  // everyone is done with the one buffer
+      issue(j + 1, 0);
+    }
+  }
+}
+
+// The launch of one shape on a tensor-core instance, or which instance runs it.
+enum Instance { kMma = 0, kFma = 1, kGeneric = 2, kTf32 = 3 };
 
 struct MmaPlan {
   cudaError_t (*run)(const MmaPlan&, const void*, const void*, const void*, const float*, const float*, void*,
@@ -800,7 +1138,98 @@ cudaError_t plan_mma_d(MmaPlan& p, long long B, int H, int N, int D, int nW) {
   return plan_mma_ch<T, 32>(p, B, H, N, nW);
 }
 
-// The plan of a shape on the current device, made at its first launch and kept.
+template <int D, int CH, bool FULL, int KS>
+cudaError_t run_tf32(const MmaPlan& p, const void* q, const void* k, const void* v, const float* bias,
+                     const float* mask, void* out, float* lse, cudaStream_t stream) {
+  window_attention_tf32_kernel<D, CH, FULL, KS><<<p.blocks, 2 * KS * p.rows, p.smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), bias, mask,
+      static_cast<float*>(out), lse, p.g);
+  return cudaGetLastError();
+}
+
+// The float32 instance's shared memory: the addend tile (rows x lda), `stages` buffers of
+// K and V (np rows each) and the groups' exchange (each warp's row max and sum, the partial
+// outputs of all warps of a group but its first).
+size_t tf32_smem(int rows, int lda, int np, int D, int stages, int ks) {
+  const int kv_ld = (D == 32 ? 48 : D) + D + 4;
+  return ((size_t)rows * lda + (size_t)stages * np * kv_ld + 2 * ks * rows +
+          (size_t)(ks - 1) * (rows / 16) * (D / 8) * 4 * 32) * sizeof(float);
+}
+
+// The float32 plan: the most query rows a block (64, 32, 16) whose addend tile fits beside K
+// and V double-buffered, else beside one buffer of them; windows a block as split_rows.
+template <int D, int CH, bool FULL, int KS>
+cudaError_t plan_tf32(MmaPlan& p, long long B, int H, int N, int nW) {
+  const auto kernel = window_attention_tf32_kernel<D, CH, FULL, KS>;
+  p.run = run_tf32<D, CH, FULL, KS>;
+  const int np = (N + 7) & ~7;
+  MmaGeom& g = p.g;
+  g.H = H;
+  g.N = N;
+  g.nW = nW;
+  g.per_row = (int)(B / nW);
+  g.lda = np % 16 == 0 ? np + 8 : np;  // 8 rows' float2 reads in distinct banks
+  int dev = 0, optin = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  p.rows = 0;
+  for (int rows = 64; rows >= 16 && p.rows == 0; rows /= 2)
+    for (int stages = 2; stages >= 1 && p.rows == 0; --stages)
+      if (tf32_smem(rows, g.lda, np, D, stages, KS) <= (size_t)optin) {
+        p.rows = rows;
+        g.stages = stages;
+      }
+  if (p.rows == 0) return cudaErrorInvalidValue;
+  p.smem = tf32_smem(p.rows, g.lda, np, D, g.stages, KS);
+  g.n_qtiles = (N + p.rows - 1) / p.rows;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.per_sm, kernel, 2 * KS * p.rows, p.smem);
+  if (err != cudaSuccess) return err;
+  if (p.per_sm < 1) return cudaErrorInvalidValue;
+  split_rows(g, (long long)sms * p.per_sm);
+  const long long blocks = (long long)g.n_qtiles * H * nW * g.splits;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  p.blocks = (unsigned)blocks;
+  return cudaSuccess;
+}
+
+// Four warps a row group where a warp's quarter of the keys, its Q fragments and its
+// outputs fit 128 registers without a spill (D = 8, N <= 352: 16 warps a block), else two.
+template <int D>
+cudaError_t plan_tf32_ch(MmaPlan& p, long long B, int H, int N, int nW) {
+  const int nc = (N + 7) / 8;  // 8-key chunks
+  if constexpr (D == 8) {
+    const int part = (nc + 3) / 4;  // the chunks of the first quarter
+    if (part <= 2) return plan_tf32<D, 2, false, 4>(p, B, H, N, nW);
+    if (part == 7) return plan_tf32<D, 7, true, 4>(p, B, H, N, nW);  // N in (192, 224]: the 6^3 windows
+    if (part <= 7) return plan_tf32<D, 7, false, 4>(p, B, H, N, nW);
+    if (part == 11) return plan_tf32<D, 11, true, 4>(p, B, H, N, nW);  // N in (320, 352]: the 7^3 windows
+    if (part <= 11) return plan_tf32<D, 11, false, 4>(p, B, H, N, nW);
+    return plan_tf32<D, 32, false, 2>(p, B, H, N, nW);  // N in (352, 512]
+  } else {
+    const int half = (nc + 1) / 2;  // the chunks of the first half
+    if (half <= 4) return plan_tf32<D, 4, false, 2>(p, B, H, N, nW);
+    if (half == 14) return plan_tf32<D, 14, true, 2>(p, B, H, N, nW);
+    if (half <= 14) return plan_tf32<D, 14, false, 2>(p, B, H, N, nW);
+    if (half == 22) return plan_tf32<D, 22, true, 2>(p, B, H, N, nW);
+    if (half <= 22) return plan_tf32<D, 22, false, 2>(p, B, H, N, nW);
+    return plan_tf32<D, 32, false, 2>(p, B, H, N, nW);
+  }
+}
+
+cudaError_t plan_tf32_d(MmaPlan& p, long long B, int H, int N, int D, int nW) {
+  if (D == 8) return plan_tf32_ch<8>(p, B, H, N, nW);
+  if (D == 16) return plan_tf32_ch<16>(p, B, H, N, nW);
+  return plan_tf32_ch<32>(p, B, H, N, nW);
+}
+
+// The plan of a shape on the current device (either tensor-core instance), made at its
+// first launch and kept.
 cudaError_t find_mma_plan(MmaPlan& p, long long B, int H, int N, int D, int nW, int dtype) {
   static std::mutex mu;
   static std::map<std::array<long long, 6>, MmaPlan> plans;
@@ -814,8 +1243,9 @@ cudaError_t find_mma_plan(MmaPlan& p, long long B, int H, int N, int D, int nW, 
     p = it->second;
     return cudaSuccess;
   }
-  const cudaError_t made = dtype == 1 ? plan_mma_d<__nv_bfloat16>(p, B, H, N, D, nW)
-                                      : plan_mma_d<__half>(p, B, H, N, D, nW);
+  const cudaError_t made = dtype == 0   ? plan_tf32_d(p, B, H, N, D, nW)
+                           : dtype == 1 ? plan_mma_d<__nv_bfloat16>(p, B, H, N, D, nW)
+                                        : plan_mma_d<__half>(p, B, H, N, D, nW);
   if (made == cudaSuccess) plans.emplace(key, p);
   return made;
 }
@@ -824,7 +1254,8 @@ bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 
 
 Instance pick_instance(int N, int D, int dtype, bool aligned) {
   if (N > kMaxN || (D != 8 && D != 16 && D != 32)) return kGeneric;
-  return dtype != 0 && aligned ? kMma : kFma;
+  if (!aligned) return kFma;
+  return dtype == 0 ? kTf32 : kMma;
 }
 
 template <typename T>
@@ -832,7 +1263,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const float* b
                      float* lse, long long B, int H, int N, int D, int nW, int dtype, cudaStream_t stream) {
   const Instance inst = pick_instance(N, D, dtype, aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out));
   if (inst == kGeneric) return launch_generic<T>(q, k, v, bias, mask, out, lse, B, H, N, D, nW, stream);
-  if (inst == kMma) {
+  if (inst == kMma || inst == kTf32) {
     MmaPlan p;
     const cudaError_t err = find_mma_plan(p, B, H, N, D, nW, dtype);
     if (err != cudaSuccess) return err;
@@ -870,7 +1301,7 @@ extern "C" int monai_window_attention(const void* q, const void* k, const void* 
 }
 
 // What a launch of this shape runs, without launching it: info[0] the instance (0
-// tensor-core, 1 FMA, 2 generic), info[1] the windows a block walks over, info[2] the
+// tensor-core, 1 FMA, 2 generic, 3 float32 tensor-core), info[1] the windows a block walks over, info[2] the
 // blocks, info[3] the blocks an SM holds (0 where not worked out), info[4] the dynamic
 // shared memory in bytes, info[5] the query rows a block. nW = 0 means no mask. Returns a
 // cudaError_t.
@@ -881,7 +1312,7 @@ extern "C" int monai_window_attention_plan(long long B, int H, int N, int D, int
   info[0] = inst;
   info[1] = 1;
   info[3] = 0;
-  if (inst == kMma) {
+  if (inst == kMma || inst == kTf32) {
     MmaPlan p;
     const cudaError_t err = find_mma_plan(p, B, H, N, D, nW > 0 ? nW : 1, dtype);
     if (err != cudaSuccess) return (int)err;

@@ -72,6 +72,8 @@
 #include <mutex>
 #include <type_traits>
 
+#include "mma_sync.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -96,39 +98,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// x as big + small, each a TF32 value (a float's low 13 bits cleared, which mma.sync
-// ignores): the 3xTF32 split, by masks and a subtraction (x - big is exact)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = __float_as_uint(x) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An m16n8k8 operand pair, split: A (16 x 8, a[0..3] at (g, t), (g + 8, t), (g, t + 4),
-// (g + 8, t + 4) of lane 4 g + t) and B (8 x 8, b[0..1] at (t, g), (t + 4, g)); C (16 x 8)
-// at (g, 2 t), (g, 2 t + 1), (g + 8, 2 t), (g + 8, 2 t + 1).
-struct FragA {
-  uint32_t big[4], small[4];
-};
-struct FragB {
-  uint32_t big[2], small[2];
-};
-
-// a b in 3xTF32 into two accumulators, main += a.big b.big and corr += a.small b.big +
-// a.big b.small, so that a product's three mma form two short chains and not one long one
-__device__ __forceinline__ void mma3(float (&main)[4], float (&corr)[4], const FragA& a, const FragB& b) {
-  mma_tf32(corr, a.small, b.big[0], b.big[1]);
-  mma_tf32(main, a.big, b.big[0], b.big[1]);
-  mma_tf32(corr, a.big, b.small[0], b.small[1]);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 delta_kernel(const T* __restrict__ out, const T* __restrict__ dout, float* __restrict__ delta, long long rows,
@@ -146,11 +115,6 @@ delta_kernel(const T* __restrict__ out, const T* __restrict__ dout, float* __res
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 4 : 0));
-}
-// 16 bytes likewise, `bytes` of them read (0 to 16), the rest zeros; 16-byte aligned
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
 }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 

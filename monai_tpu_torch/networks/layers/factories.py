@@ -12,8 +12,9 @@ to the CPU's float32. (torch's float32 matrix products, the ``Linear`` layers, r
 full float32 by default: ``torch.backends.cuda.matmul.allow_tf32`` is False.)
 ``Norm``: instance runs the CUDA kernel of ``fast_norm.py``; batch is
 ``nn.BatchNorm{n}d`` (eps 1e-5, plain PyTorch, as the JAX package has no kernel for
-it); layer is ``nn.LayerNorm`` with the JAX package's eps of 1e-6 (torch MONAI uses
-1e-5). ``Act``:
+it) whose train mode adds the biased batch variance to ``running_var``, as
+``nnx.BatchNorm`` does (torch adds the unbiased one); layer is ``nn.LayerNorm`` with the
+JAX package's eps of 1e-6 (torch MONAI uses 1e-5). ``Act``:
 the learnable PReLU (init 0.25), LeakyReLU (slope 0.01) and GELU in the tanh
 approximation, which is ``jax.nn.gelu``'s default (torch MONAI uses the exact erf).
 ``Dropout``: torch's dropouts.
@@ -176,7 +177,37 @@ class Conv3d(_exact_float32(nn.Conv3d)):
 _CONV = {1: _exact_float32(nn.Conv1d), 2: _exact_float32(nn.Conv2d), 3: Conv3d}
 _CONVTRANS = {1: _exact_float32(nn.ConvTranspose1d), 2: _exact_float32(nn.ConvTranspose2d), 3: ConvTranspose3d}
 _DROPOUT = {1: nn.Dropout, 2: nn.Dropout2d, 3: nn.Dropout3d}
-_BATCHNORM = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
+
+
+def _biased_batch_norm(base: type) -> type:
+    """``base``, a torch batch norm, whose train mode folds the biased batch variance into
+    ``running_var``, as the JAX package's ``nnx.BatchNorm`` does (torch folds the unbiased
+    one, n/(n−1) times it). The normalisation, the momentum, ``eps`` and the state names
+    are torch's; eval mode, and a norm that keeps no running statistics, is torch's call as
+    it stands."""
+
+    class Biased(base):
+        def forward(self, x: torch.Tensor) -> torch.Tensor:
+            if not (self.training and self.track_running_stats):
+                return super().forward(x)
+            old = self.running_var.detach().clone()
+            y = super().forward(x)
+            # torch added factor * var * n/(n-1) to (1 - factor) * old; take the n/(n-1) out. The
+            # op saved running_var for its backward (which train mode does not read), so the
+            # update goes through .data, past autograd's version check.
+            n = x.numel() // x.shape[1]
+            factor = 1.0 / float(self.num_batches_tracked) if self.momentum is None else self.momentum
+            kept = old.mul_(1.0 - factor)
+            self.running_var.data.sub_(kept).mul_((n - 1) / n).add_(kept)
+            return y
+
+    Biased.__name__ = Biased.__qualname__ = base.__name__
+    Biased.__doc__ = (f"``nn.{base.__name__}`` whose train mode adds the biased batch variance to "
+                      f"``running_var``, as ``nnx.BatchNorm`` does.")
+    return Biased
+
+
+_BATCHNORM = {n: _biased_batch_norm(cls) for n, cls in ((1, nn.BatchNorm1d), (2, nn.BatchNorm2d), (3, nn.BatchNorm3d))}
 
 
 @Conv.factory_function("conv")

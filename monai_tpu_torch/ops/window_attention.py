@@ -7,7 +7,9 @@ in plain PyTorch, and not the XLA formulation: the scores and the softmax are fl
 the normalised probabilities are rounded to the input type, and p·v accumulates in
 float32, as the TPU kernel does. The wrapper runs it for tensors on the CPU, and it is
 the oracle the kernel is held to on the card. For a CUDA tensor the wrapper launches the
-kernel or raises; it never falls back.
+kernel or raises; it never falls back. ``window_attention_plan`` says which of the kernel's
+instances a launch runs; ``attention_fwd_plan`` makes the float32 tensor-core instance's
+plan on the host, as the kernel makes it on the card.
 
 Under autograd the wrapper is the counterpart of the JAX custom VJP (``_vjp_fwd`` and
 ``_vjp_bwd``): the forward kernel also writes each score row's log-sum-exp, and the
@@ -28,12 +30,18 @@ from torch.autograd.function import once_differentiable
 from ._build import library
 from ..utils.counters import count_launch
 
-__all__ = ["attention_bwd_plan", "fused_window_attention", "fused_window_attention_backward",
+__all__ = ["attention_bwd_plan", "attention_fwd_plan", "fused_window_attention", "fused_window_attention_backward",
            "fused_window_attention_backward_plain", "fused_window_attention_plain", "window_attention_backward_plan",
            "window_attention_plan"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_INSTANCES = ("mma", "fma", "generic")
+H100_SMS = 132
+# an H100 SM's shared memory (1 KB of it reserved a block) and registers; a block's most
+# shared memory; about the registers ptxas gives a thread of the backward's main launch
+# (175-249 by instance)
+_SM_SHARED, _SM_REGISTERS, _BLOCK_SHARED, _BWD_REGS = 233472, 65536, 232448, 192
+_FWD_REGS = {4: 128, 2: 255}  # the float32 forward's registers a thread by key splits (its launch bounds)
+_INSTANCES = ("mma", "fma", "generic", "tf32x3")
 
 
 def fused_window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
@@ -91,10 +99,11 @@ def _planner():
 def window_attention_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
                           mask: torch.Tensor | None = None) -> dict:
     """What ``fused_window_attention`` launches for these CUDA tensors, without launching
-    it: the kernel's instance ("mma" on the tensor cores, "fma" the float32 one, "generic"),
-    the windows a block walks over, the blocks, the blocks an SM holds (0 where the
-    instance does not work it out), the dynamic shared memory in bytes and the query rows
-    a block."""
+    it: the kernel's instance ("mma" on the tensor cores in bfloat16 and float16, "tf32x3"
+    on the tensor cores in float32, "fma" for inputs that are not 16-byte aligned,
+    "generic"), the windows a block walks over, the blocks, the blocks an SM holds (0 where
+    the instance does not work it out), the dynamic shared memory in bytes and the query
+    rows a block. ``attention_fwd_plan`` makes the float32 instance's plan on the host."""
     _check(q, k, v, bias, mask)
     if q.device.type != "cuda":
         raise ValueError(f"window_attention_plan describes a CUDA launch; got a tensor on {q.device}")
@@ -107,6 +116,62 @@ def window_attention_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bia
         raise RuntimeError(f"window_attention_plan: error {err} for q {tuple(q.shape)} {q.dtype}")
     return {"instance": _INSTANCES[info[0]], "windows_per_block": info[1], "blocks": info[2],
             "blocks_per_sm": info[3], "smem_bytes": info[4], "rows_per_block": info[5]}
+
+
+# The float32 tensor-core instance's plan (csrc/window_attention.cu, ``plan_tf32``). Each 16
+# query rows of a block are a group of 4 warps, one a quarter of the keys, at D = 8 and N <=
+# 352, else of 2.
+_FWD_HEAD_DIMS, _FWD_MAX_N, _FWD_ROWS = (8, 16, 32), 512, (64, 32, 16)
+
+
+def _fwd_key_splits(n: int, d: int) -> int:
+    return 4 if d == 8 and _cdiv(n, 8) <= 44 else 2
+
+
+def _fwd_smem(rows: int, n: int, d: int, stages: int) -> int:
+    """The float32 instance's shared memory in bytes (``tf32_smem``): the addend tile (rows x
+    lda floats, lda N rounded up to 8, plus 8 where that is a multiple of 16), ``stages``
+    buffers of K (rows of 8, 16 or 48 floats at D = 8, 16, 32) and V (rows of D + 4) for N
+    rounded up to 8 keys, and the groups' exchange (each warp's row max and sum; the partial
+    outputs of all warps of a group but its first)."""
+    keys, ks = _cdiv(n, 8) * 8, _fwd_key_splits(n, d)
+    lda = keys + 8 if keys % 16 == 0 else keys
+    kv_ld = (48 if d == 32 else d) + d + 4
+    return 4 * (rows * lda + stages * keys * kv_ld + 2 * ks * rows + (ks - 1) * (rows // 16) * (d // 8) * 128)
+
+
+def attention_fwd_plan(b: int, h: int, n: int, d: int, nw: int, sms: int = H100_SMS,
+                       resident: int | None = None) -> dict:
+    """What ``fused_window_attention`` launches for float32 q, k, v (B, H, N, D) = (b, h, n,
+    d), 16-byte aligned, under ``nw`` mask rows (0: no mask), without a card: the plan of the
+    float32 tensor-core instance that csrc/window_attention.cu makes (``plan_tf32``).
+    ``sms``: the card's SMs; ``resident``: the blocks an SM holds (the card's occupancy; by
+    default a model of the H100 from the shared memory and ``_FWD_REGS`` registers a
+    thread).
+
+    Returns the keys of ``window_attention_plan`` (``instance`` "tf32x3", the
+    ``rows_per_block``: 64, or 32 or 16 where a 64-row addend tile does not fit beside one
+    buffer of K and V; ``windows_per_block``, ``blocks``, ``blocks_per_sm`` and
+    ``smem_bytes``), the ``stages`` of K and V (2: double-buffered) and the ``key_splits``
+    (warps a group of 16 query rows, each a part of the keys; a block has 2 x key_splits x
+    rows_per_block threads). A block owns ``rows_per_block`` query rows of one head and one
+    mask row (its windows b with b % nW that row) and walks ``windows_per_block`` of that
+    row's windows; without a mask the windows are one row. Raises ValueError for a shape
+    the instance does not take."""
+    nw = nw or 1
+    if d not in _FWD_HEAD_DIMS or not 0 < n <= _FWD_MAX_N or min(b, h, nw) <= 0 or b % nw:
+        raise ValueError(f"attention_fwd_plan: the float32 tensor-core instance takes D in {_FWD_HEAD_DIMS} and N up "
+                         f"to {_FWD_MAX_N}; got (B, H, N, D) = ({b}, {h}, {n}, {d}) under {nw} mask rows")
+    rows, stages = next((r, st) for r in _FWD_ROWS for st in (2, 1) if _fwd_smem(r, n, d, st) <= _BLOCK_SHARED)
+    ks = _fwd_key_splits(n, d)
+    smem = _fwd_smem(rows, n, d, stages)
+    per_sm = resident if resident is not None else max(1, min(_SM_SHARED // (smem + 1024),
+                                                               _SM_REGISTERS // (_FWD_REGS[ks] * 2 * ks * rows)))
+    n_qtiles, per_row = _cdiv(n, rows), b // nw
+    wb, splits = _pick_runs(per_row, n_qtiles * h * nw, sms * per_sm, fill=True)
+    return {"instance": "tf32x3", "windows_per_block": wb, "blocks": n_qtiles * h * nw * splits,
+            "blocks_per_sm": per_sm, "smem_bytes": smem, "rows_per_block": rows, "stages": stages,
+            "key_splits": ks}
 
 
 def _forward(q, k, v, bias, mask, with_lse: bool = False):
@@ -208,10 +273,6 @@ _BWD_PLAN_KEYS = ("route", "head_dim", "key_tile", "query_rows", "key_tiles", "c
                   "launches")
 _BWD_ROUTES = ("tf32x3",)
 _BWD_THREADS, _BWD_SCORES = 256, 2048  # a main block's threads; the scores of its step (query rows x key tile)
-H100_SMS = 132
-# an H100 SM's shared memory (1 KB of it reserved a block) and registers; a block's most
-# shared memory; about the registers ptxas gives a main thread (175-249 by instance)
-_SM_SHARED, _SM_REGISTERS, _BLOCK_SHARED, _BWD_REGS = 233472, 65536, 232448, 192
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -229,19 +290,22 @@ def _bwd_smem(n: int, kt: int, dp: int) -> int:
                 + (1 if tiles >= 8 else 8 // tiles) * qt * (24 if dp == 8 else dp + 8) + 4 * qt)
 
 
-def _pick_runs(windows: int, base: int, slots: int) -> int:
-    """The runs of windows (``pick_splits``) with the fewest waves of ``base`` x runs blocks
-    over ``slots`` times the windows a run plus one (a block's fixed costs); the fewest runs
-    of those."""
-    best, splits = None, 1
+def _pick_runs(windows: int, base: int, slots: int, fill: bool = False) -> tuple[int, int]:
+    """The runs of windows (the backward's ``pick_splits``, the float32 forward's
+    ``split_rows``) with the fewest waves of ``base`` x runs blocks over ``slots`` times the
+    windows a run plus one (a block's fixed costs: its first staging, its addend tile or
+    dbias partial); the fewest runs of those. ``fill`` (the forward's rule): no fewer than
+    ``slots`` blocks where ``base`` x ``windows`` blocks would be that many. Returns
+    (windows a run, runs)."""
+    best, out = None, (windows, 1)
     for s in range(1, windows + 1):
         run = _cdiv(windows, s)
-        if _cdiv(windows, run) != s:
+        if _cdiv(windows, run) != s or (fill and base * s < slots <= base * windows):
             continue
         cost = _cdiv(base * s, slots) * (run + 1)
         if best is None or cost < best:
-            best, splits = cost, s
-    return splits
+            best, out = cost, (run, s)
+    return out
 
 
 def _bwd_refused(b: int, h: int, n: int, d: int) -> ValueError:
@@ -281,7 +345,7 @@ def attention_bwd_plan(b: int, h: int, n: int, d: int, nw: int, dtype: torch.dty
     smem, nkt = _bwd_smem(n, kt, dp), _cdiv(n, kt)
     per_sm = resident if resident is not None else max(1, min(_SM_SHARED // (smem + 1024),
                                                                _SM_REGISTERS // (_BWD_REGS * _BWD_THREADS)))
-    splits = _pick_runs(b, h * nkt, sms * per_sm)
+    splits = _pick_runs(b, h * nkt, sms * per_sm)[1]
     return {"route": "tf32x3", "head_dim": dp, "key_tile": kt, "query_rows": _BWD_SCORES // kt, "key_tiles": nkt,
             "chunks": _cdiv(n, _BWD_SCORES // kt), "threads": _BWD_THREADS, "smem_bytes": smem,
             "blocks_per_sm": per_sm, "windows_per_block": _cdiv(b, splits), "splits": splits,

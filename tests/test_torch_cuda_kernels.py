@@ -34,7 +34,7 @@ from monai_tpu_torch.ops.conv3d import (conv3d_3x3_same, conv3d_3x3_same_plain, 
 from monai_tpu_torch.ops.filtering import bilateral_filter
 from monai_tpu_torch.ops.separable_resample import resample_plan, separable_resample_3d, separable_resample_3d_plain
 from monai_tpu_torch.ops.window_attention import (_forward as _attention_forward, attention_bwd_plan,
-                                                  fused_window_attention, fused_window_attention_backward,
+                                                  attention_fwd_plan, fused_window_attention, fused_window_attention_backward,
                                                   fused_window_attention_backward_plain, fused_window_attention_plain,
                                                   window_attention_backward_plan, window_attention_plan)
 
@@ -291,17 +291,22 @@ def _attention_inputs(g, b, h, n, d, nw, dtype, device):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [8, 16, 32])
-@pytest.mark.parametrize("n", [27, 64, 125, 216, 343, 512])
+@pytest.mark.parametrize("n", [27, 64, 100, 125, 216, 343, 512])
 @pytest.mark.parametrize("b,nw", WINDOW_GROUPS)
 def test_window_attention_kernel_matches_plain(cuda, dtype, d, n, b, nw):
+    """The tensor-core instances (float32's and the others'), at the gate, and the same
+    bits from two calls."""
     g = torch.Generator(device=cuda).manual_seed(3)
     q, k, v, bias, mask = _attention_inputs(g, b, 3, n, d, nw, dtype, cuda)
     with torch.inference_mode():
+        assert window_attention_plan(q, k, v, bias, mask)["instance"] == ("tf32x3" if dtype == torch.float32
+                                                                          else "mma")
         before = fused_window_attention.launches
         got = fused_window_attention(q, k, v, bias, mask)
         assert fused_window_attention.launches == before + 1
         assert got.shape == q.shape and got.dtype == dtype
         _assert_close(got, fused_window_attention_plain(q, k, v, bias, mask), dtype)
+        assert torch.equal(got, fused_window_attention(q, k, v, bias, mask))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -365,10 +370,10 @@ def test_window_attention_kernel_rows_masked_everywhere(cuda, dtype, d, n):
         _assert_close(got, fused_window_attention_plain(q, k, v, bias, mask), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [8, 16, 32])
 def test_window_attention_kernel_unaligned_inputs_take_the_fma_instance(cuda, dtype, d):
-    """q, k and v that start 2 bytes past a 16-byte boundary cannot be copied by
+    """q, k and v that start one element past a 16-byte boundary cannot be copied by
     cp.async: such a launch runs the FMA instance, and agrees with the plain version."""
     g = torch.Generator(device=cuda).manual_seed(11)
     args = _attention_inputs(g, 6, 3, 125, d, 3, dtype, cuda)
@@ -379,7 +384,7 @@ def test_window_attention_kernel_unaligned_inputs_take_the_fma_instance(cuda, dt
         moved.append(flat[1:].view(t.shape))
     with torch.inference_mode():
         assert window_attention_plan(*moved, *args[3:])["instance"] == "fma"
-        assert window_attention_plan(*args)["instance"] == "mma"
+        assert window_attention_plan(*args)["instance"] == ("tf32x3" if dtype == torch.float32 else "mma")
         _assert_close(fused_window_attention(*moved, *args[3:]), fused_window_attention_plain(*args), dtype)
 
 
@@ -387,23 +392,31 @@ def test_window_attention_kernel_unaligned_inputs_take_the_fma_instance(cuda, dt
     (2058, 3, 343, 8, 343, "mma"), (2058, 3, 343, 8, None, "mma"), (384, 6, 343, 8, 64, "mma"),
     (48, 12, 343, 8, None, "mma"), (6, 24, 216, 8, None, "mma"), (2058, 6, 343, 16, 343, "mma"),
     (96, 3, 729, 12, 8, "generic"), (12, 3, 343, 4, None, "generic"),
+    # the float32 step's sites and their head-dim-8 twins; a few shapes the card tests give
+    *[(*site, "mma") for site in list(SWIN_ATTN_SITES) + STEP_D8_SITES],
+    (12, 3, 512, 32, 4, "mma"), (12, 3, 343, 32, None, "mma"), (5, 3, 27, 8, 5, "mma"), (96, 3, 100, 16, None, "mma"),
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_window_attention_plan_at_the_swin_sites(cuda, b, h, n, d, nw, instance, dtype):
-    """The Swin sites run the tensor-core instance in bfloat16 and float16 (float32 the FMA
-    one), with at least one block an SM and the windows of a mask row split so that every
-    window is covered once."""
+    """The Swin sites run the tensor-core instances (bfloat16 and float16 "mma", float32
+    "tf32x3"), with at least one block an SM and the windows of a mask row split so that
+    every window is covered once; float32's plan is the one ``attention_fwd_plan`` makes
+    on the host from the card's SMs and blocks an SM."""
     q = torch.zeros((b, h, n, d), device=cuda, dtype=dtype)
     bias = torch.zeros((h, n, n), device=cuda)
     mask = None if nw is None else torch.zeros((nw, n, n), device=cuda)
     plan = window_attention_plan(q, q, q, bias, mask)
-    expected = "fma" if dtype == torch.float32 and instance == "mma" else instance
+    expected = "tf32x3" if dtype == torch.float32 and instance == "mma" else instance
     assert plan["instance"] == expected
-    if expected == "mma":
+    if expected in ("mma", "tf32x3"):
         per_row = b // (nw or 1)
         splits = -(-per_row // plan["windows_per_block"])
         assert plan["blocks"] == -(-n // plan["rows_per_block"]) * h * (nw or 1) * splits
         assert plan["blocks_per_sm"] >= 1 and 0 < plan["smem_bytes"] <= 232448
+    if expected == "tf32x3":
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        host = attention_fwd_plan(b, h, n, d, nw or 0, sms, plan["blocks_per_sm"])
+        assert {key: host[key] for key in plan} == plan
 
 
 def test_window_attention_kernel_rejects_a_head_dim_past_shared_memory(cuda):
