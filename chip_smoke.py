@@ -76,7 +76,9 @@ Drives the port's paths, each at full width with random weights from a seed:
   7. the training path, outside inference mode: each backward kernel (the conv's weight
      gradient, dx on the conv kernel, the norm's backward) against its plain version at
      every site of the training step (read off by hooks), in bfloat16, float32 and float16,
-     with the kernel's, the plain version's and the library call's times and the bound;
+     with the kernel's, the plain version's and the library call's times and the bound
+     (each norm site's line with the backward's plan: its path, channel group, units a
+     group, stash, and one launch, which it requires);
      one batch-1 step on a 96³ patch against the port's CPU float32 step (the loss and
      every grad, in float32 and in the bfloat16 amp step) and two card steps from one state
      bit for bit; then ``SupervisedTrainer(amp=True)`` at batch 4, 3 warm-up iterations and
@@ -102,13 +104,14 @@ Drives the port's paths, each at full width with random weights from a seed:
      name) at the step's eight sites and their head-dim-8 twins against its plain version,
      two calls bit for bit, timed beside ``F.scaled_dot_product_attention`` and its bound
      (the products as 3xTF32), the old FMA-pipe bound beside it; the conv's and the norm's backward kernels at the Swin
-     sites in float32 and bfloat16, each site's line with dw's plan, float32 timed against
+     sites in float32 and bfloat16, each site's line with dw's or the norm backward's plan, float32 timed against
      the plain versions, cuDNN's convolution backward and autograd of ``F.instance_norm``
      in full float32, and the bound at the float32 peak (their sums a step go into the
      kernels line under ``swin_train_float32``); one batch-1 32³ step on the card against
      the port's CPU step; then ``SupervisedTrainer`` in float32 at batch 4, 2 warm-up iterations and 10
      timed with cuDNN's TF32 allowed as by default: steps/s, the median step, the peak
-     memory, the launches a step of each kernel against the sites, each loss
+     memory, the grads copied to channels-last a step, the launches a step of each kernel
+     against the sites, each loss
   10. (last) the BTCV bundle's ``train.json`` through the port's runner, overriding its
      bundle root, imports and initialize (the port's), its optimizer (``torch.optim.AdamW``,
      the file's rates) and its datalists (the file's expressions at 160x160x200, which its
@@ -1117,9 +1120,11 @@ def check_norm_backward(sites: Counter, batch: int, dev, checked=None,
                                                        f"{rel:.3g} x max|ref|, sums {sum_rel:.3g}")
             card, occupancy = _card(dev.index or 0)
             plan = instance_norm_backward_plan(batch, c, int(np.prod(sp)), dtype, True, card, occupancy)
+            require(plan["launches"] == 1, f"norm backward C={c} @{sp} {dtype}: {plan['launches']} launches a call")
             msg = (f"norm backward C={c:3d} @{sp} x{count} {str(dtype)[6:]:8s} dx max_abs_err {err:.4g} ({rel:.3g} of "
-                   f"max|ref|, tol {tol}), sums {sum_rel:.3g} (tol {TOL_F32}); plan {plan['path']}, {plan['blocks']} "
-                   f"blocks of {plan['threads']}, {plan['launches']} launches")
+                   f"max|ref|, tol {tol}), sums {sum_rel:.3g} (tol {TOL_F32}); plan {plan['path']}, G {plan['group']}, "
+                   f"{plan['units_per_group']} units a group x {plan['unit_groups']}, {plan['blocks']} blocks of "
+                   f"{plan['threads']}, stash {plan['stash_bytes']} B a block, {plan['launches']} launch")
             if dtype == timed:
                 k_ms, p_ms = paired_ms(lambda: instance_norm_prelu_backward(gy, x, stats, w, b, a),
                                        lambda: instance_norm_prelu_backward_plain(gy, x, stats, w, b, a), iters=10)
@@ -1133,7 +1138,9 @@ def check_norm_backward(sites: Counter, batch: int, dev, checked=None,
                 msg += (f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  F.instance_norm backward (no slope) "
                         f"{lib_ms:.4f} ms  bound {max(b_ms, o_ms):.4f} ms ({max(b_ms, o_ms) / k_ms * 100:.1f}% of it)")
             print(msg, flush=True)
-    return _summary(rows)
+    out = _summary(rows)
+    out["bound_share"] = out["bound_ms"] / out["ms"] if out["ms"] else None  # the kernel's share of its bound
+    return out
 
 
 def _normed_biases(net) -> set[str]:
@@ -1850,6 +1857,8 @@ def swin_train_path(net_cpu, per_step: dict, dev) -> dict:
 
     from monai_tpu_torch.engines import Events, SupervisedTrainer
     from monai_tpu_torch.losses import DiceCELoss
+    from monai_tpu_torch.networks.layers.fast_norm import _InstanceNormPReLU
+    from monai_tpu_torch.ops.conv3d import _Conv3x3Same
 
     net = copy.deepcopy(net_cpu).to(dev)
     gen = torch.Generator(device=dev).manual_seed(22)
@@ -1870,6 +1879,7 @@ def swin_train_path(net_cpu, per_step: dict, dev) -> dict:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
             reset_launch_counts()
+            _Conv3x3Same.copied_bytes = _InstanceNormPReLU.copied_bytes = 0
             start["t"] = time.perf_counter()
 
     tf32 = torch.backends.cudnn.allow_tf32
@@ -1885,13 +1895,15 @@ def swin_train_path(net_cpu, per_step: dict, dev) -> dict:
     step_ms = [ends[i].elapsed_time(ends[i + 1]) for i in range(SWIN_TRAIN_WARMUP - 1, len(ends) - 1)]
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     got = {k: v / SWIN_TRAIN_TIMED for k, v in counts.items() if k in per_step}
+    copied = (_Conv3x3Same.copied_bytes / SWIN_TRAIN_TIMED, _InstanceNormPReLU.copied_bytes / SWIN_TRAIN_TIMED)
     print(f"swin_train SupervisedTrainer float32 SwinUNETR(1, 14, feature_size=48) batch {TRAIN_BATCH} @96^3 "
           f"(cudnn.allow_tf32 True, matmul TF32 {torch.backends.cuda.matmul.allow_tf32}): "
           f"{SWIN_TRAIN_TIMED / wall:.4f} steps/s, {TRAIN_BATCH * SWIN_TRAIN_TIMED / wall:.3f} patches/s "
           f"({SWIN_TRAIN_TIMED} steps after {SWIN_TRAIN_WARMUP} warm-up, one synchronise at the end); step median "
           f"{statistics.median(step_ms):.3f} ms (min {min(step_ms):.3f}, max {max(step_ms):.3f}, CUDA events at each "
-          f"iteration's end); peak memory {peak_gb:.2f} GB; launches a step {got} (the sites give {per_step}); "
-          f"loss by step: " + ", ".join(f"{v:.6f}" for v in losses), flush=True)
+          f"iteration's end); peak memory {peak_gb:.2f} GB; grads that came back channel-first and were copied a "
+          f"step: conv {copied[0] / 1e6:.2f} MB, norm {copied[1] / 1e6:.2f} MB; launches a step {got} (the sites give "
+          f"{per_step}); loss by step: " + ", ".join(f"{v:.6f}" for v in losses), flush=True)
     require(all(np.isfinite(v) for v in losses), "swin_train: a loss is not finite")
     require(losses[SWIN_TRAIN_TIMED] < losses[0], f"swin_train: the loss after {SWIN_TRAIN_TIMED} steps "
                                                   f"{losses[SWIN_TRAIN_TIMED]:.6f} is not below the first {losses[0]:.6f}")

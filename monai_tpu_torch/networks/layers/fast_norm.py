@@ -46,9 +46,14 @@ __all__ = ["InstanceNorm", "instance_norm_backward_plan", "instance_norm_plan", 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _PATHS = {"onchip": 0, "persistent": 1, "general": 1}
+_BWD_PATHS = {"onchip": 2, "persistent": 3, "general": 3}  # the backward's kernels (csrc kernel_of)
 _CHANNELS_LAST = {4: torch.channels_last, 5: torch.channels_last_3d}
 _MAX_THREADS = 256  # a block's threads, at most (csrc/instance_norm.cu kMaxThreads)
 _MIN_ROW_BYTES = 32  # an on-chip channel group reads at least one 32-byte sector a voxel
+# The backward's persistent grid reads a unit's rows (its channels of a voxel) in turn with
+# no other unit beside it: rows narrower than a 128-byte line read at 41-80% of the rate of
+# whole rows on an H100 (scripts/norm_bwd_ab.py --rows; PERF.md, PR 17).
+_BWD_ROW_BYTES = 128
 # The persistent path walks the instances in groups that its stash (a block's spare shared
 # memory) and this many bytes of L2 hold together, so that the normalize pass reads little
 # of x from memory again. At the two widest sites this and every instance at once ran
@@ -74,12 +79,32 @@ def _layout(group: int, vec: int) -> tuple[int, int]:
     return gv, gv * max(1, _MAX_THREADS // gv)
 
 
+# Registers a thread, by (path code, 16-byte vectors), for a plan made without a card:
+# the persistent kernels' (ptxas gives 80-128 for the forward's 16-byte instances, 160-187
+# for the backward's, 96 for its general one); 64 for the others (ptxas gives 40-64).
+_MODEL_REGS = {(_PATHS["persistent"], True): 128, (_BWD_PATHS["persistent"], True): 168,
+               (_BWD_PATHS["persistent"], False): 96}
+
+
 def _model_occupancy(dtype: int, path: int, vec: int, threads: int, smem: int) -> int:
-    """Blocks an H100 SM holds, for a plan made without a card: 65536 registers, 128 a
-    thread for the persistent kernel's 16-byte instances and 64 for the others (ptxas
-    gives 80-128 and 40-64), and 228 KB of shared memory, 1 KB of it reserved a block."""
-    regs = 128 if path == _PATHS["persistent"] and vec > 1 else 64
+    """Blocks an H100 SM holds, for a plan made without a card: 65536 registers
+    (``_MODEL_REGS`` a thread), and 228 KB of shared memory, 1 KB of it reserved a block."""
+    regs = _MODEL_REGS.get((path, vec > 1), 64)
     return max(1, min(65536 // (regs * 32 * _cdiv(threads, 32)), 233472 // (smem + 1024)))
+
+
+def _vectors(channels: int, spatial: int, dtype: torch.dtype, aligned: bool) -> tuple[int, int, list[int]]:
+    """(bytes an element, elements a load, the channel groups a unit may take): 16-byte
+    loads where a vector's channels stay fixed (C a multiple of the vector) or a vector holds
+    whole voxels (C divides it), else one element."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    vfull = 16 // elem
+    packed = channels < vfull and vfull % channels == 0 and (spatial * channels) % vfull == 0
+    vec = vfull if aligned and (channels % vfull == 0 or packed) else 1
+    if packed and vec > 1:
+        return elem, vec, [channels]
+    divisors = [d for d in range(1, channels + 1) if channels % d == 0]
+    return elem, vec, [g for g in divisors if g % vec == 0 and g // vec <= _MAX_THREADS]
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,15 +129,7 @@ def instance_norm_plan(batch: int, channels: int, spatial: int, dtype: torch.dty
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"instance_norm_plan takes float32, bfloat16 or float16; got {dtype}")
     sms, smem_limit = card
-    elem = torch.empty((), dtype=dtype).element_size()
-    vfull = 16 // elem
-    packed = channels < vfull and vfull % channels == 0 and (spatial * channels) % vfull == 0
-    vec = vfull if aligned and (channels % vfull == 0 or packed) else 1
-    divisors = [d for d in range(1, channels + 1) if channels % d == 0]
-    if packed and vec > 1:
-        groups = [channels]
-    else:
-        groups = [g for g in divisors if g % vec == 0 and g // vec <= _MAX_THREADS]
+    elem, vec, groups = _vectors(channels, spatial, dtype, aligned)
 
     def units(g: int) -> int:
         return batch * (channels // g)
@@ -162,25 +179,101 @@ def instance_norm_plan(batch: int, channels: int, spatial: int, dtype: torch.dty
                 2 + 2 * n_units * per_unit * g, stash)
 
 
+def _bwd_smem_floats(threads: int, vec: int, group: int) -> int:
+    """The backward block's float scratch past its slabs (csrc/instance_norm.cu BwdScratch)."""
+    return 3 * threads * vec + 3 * max(threads, group) + 8 * group
+
+
 @functools.lru_cache(maxsize=None)
 def instance_norm_backward_plan(batch: int, channels: int, spatial: int, dtype: torch.dtype, aligned: bool = True,
-                                card: tuple[int, int] = H100, occupancy=_model_occupancy) -> dict:
-    """What ``instance_norm_prelu_backward`` launches, from the forward's plan (its vectors,
-    channel groups and threads): ``path`` "onchip" (one launch, one block a unit, the sums
-    kept in shared memory) where the forward runs a unit on chip, else "split" (a sums
-    launch of ``per_unit`` blocks a unit, enough to give the card's SMs four blocks each,
-    then a dx launch that adds their partials in block order); ``launches``, ``blocks``,
-    ``threads``, ``vec``, ``group``, ``per_unit`` and the ``partial`` float32 values."""
-    p = instance_norm_plan(batch, channels, spatial, dtype, aligned, card, occupancy)
-    g, vec, threads = p["group"], p["vec"], p["threads"]
-    units = batch * p["groups"]
-    per_unit = 1
-    if p["path"] != "onchip":
-        per_unit = max(1, min(_cdiv(4 * card[0], units), _cdiv(spatial * g // vec, threads)))
-    return {"path": "onchip" if p["path"] == "onchip" else "split",
-            "launches": 1 if p["path"] == "onchip" else 2, "blocks": units * per_unit, "threads": threads,
-            "vec": vec, "group": g, "per_unit": per_unit,
-            "partial": 0 if p["path"] == "onchip" else 3 * units * per_unit * g}
+                                card: tuple[int, int] = H100, occupancy=_model_occupancy,
+                                group: int | None = None) -> dict:
+    """What ``instance_norm_prelu_backward`` launches for x and g (batch, channels,
+    *spatial), one launch whatever the shape; arguments as ``instance_norm_plan``'s, and
+    ``group`` forces the channels a unit (it must be one the vectors allow).
+
+    The kernel is bound by its bytes, and dx needs the sums over a whole unit (one
+    instance's slab of ``group`` channels), so the plan keeps x and g on chip from the
+    sums to dx where it can. ``path`` "onchip": where a unit's x and g slabs both fit a
+    block's shared memory, one block a unit (the most channels that still give every SM a
+    block, else the fewest), x and g read once. Else "persistent" ("general" for a C that
+    no 16-byte vector fits or an unaligned x or g: one element a load, no stash): one
+    cooperative grid of ``per_sm`` blocks an SM, ``per_unit`` blocks a unit and
+    ``units_per_group`` units at once; each thread keeps its first ``stash`` vectors of x
+    and of g in shared memory (what a block may take without lowering ``per_sm``), and
+    reads the rest again, the part that L2 still holds first. The unit is the widest channel
+    group whose x and g (``unit_bytes``) the stash over the grid and the L2 budget hold
+    (``held_bytes``), of those whose rows span a 128-byte line (or all the channels); else
+    the narrowest such group: narrower rows read at 41-80% of the rate of whole rows, which
+    costs more than reading x and g twice (PERF.md, PR 17). At (4, 48, 96³) no group fits,
+    and a unit is a whole instance, 340 MB of x and g in float32. Also ``vec``,
+    ``vec_bytes``, ``groups``, ``phases``, ``threads``, ``blocks``, ``unit_groups``,
+    ``launches`` (1), ``stash_bytes`` (a block's), ``group_bytes`` (x and g of a group's
+    units), ``smem`` in bytes and ``scratch``, the float32 elements of the barrier and
+    the three partial sums."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"instance_norm_backward_plan takes float32, bfloat16 or float16; got {dtype}")
+    sms, smem_limit = card
+    elem, vec, groups = _vectors(channels, spatial, dtype, aligned)
+    rows = [g for g in groups if g * elem >= _MIN_ROW_BYTES or g == channels]
+    if group is not None:
+        if group not in groups:
+            raise ValueError(f"instance_norm_backward_plan: no unit of {group} channels at C={channels}, vec {vec}")
+        rows = [group]
+
+    def units(g: int) -> int:
+        return batch * (channels // g)
+
+    def plan(path: str, g: int, threads: int, smem: int, per_sm: int = 1, per_unit: int = 1, upg: int = 1,
+             stash: int = 0, held: int = 0) -> dict:
+        unit_bytes = 2 * spatial * g * elem
+        return {"path": path, "launches": 1, "vec": vec, "vec_bytes": vec * elem, "group": g,
+                "groups": channels // g, "phases": _layout(g, vec)[0], "threads": threads,
+                "blocks": per_unit * upg, "per_sm": per_sm, "per_unit": per_unit,
+                "units_per_group": upg, "unit_groups": _cdiv(units(g), upg), "stash": stash,
+                "stash_bytes": 32 * stash * threads, "unit_bytes": unit_bytes, "group_bytes": upg * unit_bytes,
+                "held_bytes": held, "smem": smem, "scratch": 0 if path == "onchip" else 2 + 3 * units(g) * per_unit * g}
+
+    if vec > 1:
+        fits = []
+        for g in rows:
+            _, threads = _layout(g, vec)
+            smem = 2 * spatial * g * elem + 16 * _cdiv(_bwd_smem_floats(threads, vec, g), 4)
+            if (spatial * g) % vec == 0 and smem <= smem_limit:
+                fits.append((g, threads, smem))
+        if fits:
+            wide = [f for f in fits if units(f[0]) >= sms]
+            g, threads, smem = wide[-1] if wide else fits[0]
+            return plan("onchip", g, threads, smem, upg=units(g), held=2 * spatial * g * elem)
+    code = _DTYPE_CODES[dtype], _BWD_PATHS["persistent"], vec
+
+    def persistent(g: int) -> dict:
+        _, threads = _layout(g, vec)
+        base = 16 * _cdiv(_bwd_smem_floats(threads, vec, g), 4)  # the scratch, to a 16-byte boundary
+        per_sm = occupancy(*code, threads, base)
+        # the stash: the shared memory that a block may take without lowering per_sm, 32
+        # bytes a thread an iteration (a vector of x and one of g; 16-byte loads only)
+        room = min((smem_limit + 1024) // per_sm - 1024, smem_limit) - base
+        stash = room // (threads * 32) if vec > 1 else 0
+        grid = sms * per_sm
+        held = grid * stash * threads * 32 + _L2_BUDGET
+        n_units, nvec = units(g), spatial * g // vec
+        # as many units at once as the stash and the L2 budget hold, and the grid allows,
+        # spread evenly over the groups
+        upg = max(1, min(n_units, grid, held // (2 * spatial * g * elem)))
+        upg = _cdiv(n_units, _cdiv(n_units, upg))
+        per_unit = max(1, min(grid // upg, _cdiv(nvec, threads)))
+        stash = min(stash, _cdiv(nvec, per_unit * threads))
+        return plan("persistent" if vec > 1 else "general", g, threads, base + stash * threads * 32, per_sm,
+                    per_unit, upg, stash, held)
+
+    options = [persistent(g) for g in rows if g * elem >= _BWD_ROW_BYTES or g == channels or g == rows[-1]]
+    held = [o for o in options if o["unit_bytes"] <= o["held_bytes"]]
+    p = held[-1] if held else options[0]
+    if occupancy(*code, p["threads"], p["smem"]) < p["per_sm"]:
+        raise RuntimeError(f"instance_norm_backward_plan: {p['smem']} B of shared memory lowers the occupancy below "
+                           f"{p['per_sm']} (plan {p})")
+    return p
 
 
 @functools.cache
@@ -321,9 +414,10 @@ _SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _scratch(n: int, index: int, stream: int) -> torch.Tensor:
-    """At least n float32 of the persistent path's scratch for launches in ``stream``,
-    kept from call to call: its launches run in turn, and each leaves the barrier's
-    words (the first two) as the next one needs them, so it is zeroed only when made."""
+    """At least n float32 of the persistent grids' scratch (the forward's and the
+    backward's) for launches in ``stream``, kept from call to call: its launches run in
+    turn, and each leaves the barrier's words (the first two) as the next one needs them,
+    so it is zeroed only when made."""
     buf = _SCRATCH.get((index, stream))
     if buf is None or buf.numel() < n:
         buf = _SCRATCH[index, stream] = torch.zeros(n, dtype=torch.float32, device=torch.device("cuda", index))
@@ -411,12 +505,14 @@ instance_norm_prelu.launches = 0
 @functools.lru_cache(maxsize=1024)
 def _backward_args(shape: tuple[int, ...], dtype: torch.dtype, index: int, aligned: bool) -> tuple[dict, object]:
     """The backward's plan, and the C function's plan array (B, S, C, dtype code, path
-    code, vec, group, threads, per_unit)."""
+    code (0 on chip, 1 persistent), vec, group, threads, blocks, per_unit,
+    units_per_group, smem, stash)."""
     card, occupancy = _card(index)
     bsz, c, s = shape[0], shape[1], math.prod(shape[2:])
     p = instance_norm_backward_plan(bsz, c, s, dtype, aligned, card, occupancy)
-    return p, (ctypes.c_longlong * 9)(bsz, s, c, _DTYPE_CODES[dtype], 0 if p["path"] == "onchip" else 1, p["vec"],
-                                      p["group"], p["threads"], p["per_unit"])
+    return p, (ctypes.c_longlong * 13)(bsz, s, c, _DTYPE_CODES[dtype], int(p["path"] != "onchip"), p["vec"],
+                                       p["group"], p["threads"], p["blocks"], p["per_unit"], p["units_per_group"],
+                                       p["smem"], p["stash"])
 
 
 def instance_norm_prelu_backward(g: torch.Tensor, x: torch.Tensor, stats: torch.Tensor,
@@ -449,12 +545,12 @@ def instance_norm_prelu_backward(g: torch.Tensor, x: torch.Tensor, stats: torch.
     index = x.device.index
     aligned = x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
     p, plan = _backward_args(tuple(x.shape), x.dtype, index, aligned)
-    partial = torch.empty(p["partial"], dtype=torch.float32, device=x.device) if p["partial"] else None
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    scratch = _scratch(p["scratch"], index, stream).data_ptr() if p["scratch"] else None
     args = (x.data_ptr(), g.data_ptr(), dx.data_ptr(), stats.data_ptr(),
             None if weight is None else weight.data_ptr(), None if bias is None else bias.data_ptr(),
-            None if slope is None else slope.data_ptr(), None if partial is None else partial.data_ptr(),
-            sums.data_ptr(), ctypes.addressof(plan), _param_codes(weight, bias, slope),
-            torch._C._cuda_getCurrentRawStream(index))
+            None if slope is None else slope.data_ptr(), scratch, sums.data_ptr(), ctypes.addressof(plan),
+            _param_codes(weight, bias, slope), stream)
     err = _call(_backward_launcher(), index, args)
     if err != 0:
         raise RuntimeError(f"instance_norm_prelu_backward: CUDA launch failed with error {err} "

@@ -16,6 +16,7 @@ The bilateral stencil: 1e-5 (float32 sums of up to (2r+1)^sd taps in another ord
 exp on the card); a bfloat16 or float16 input is cast to float32 and its output back, so
 it may differ from the float32 result by one rounding of the output type.
 """
+import ctypes
 import math
 
 import pytest
@@ -23,9 +24,11 @@ import torch
 
 import numpy as np
 
-from monai_tpu_torch.networks.layers.fast_norm import (_card, _forward, instance_norm_backward_plan, instance_norm_plan,
-                                                      instance_norm_prelu, instance_norm_prelu_backward,
-                                                      instance_norm_prelu_backward_plain, instance_norm_prelu_plain)
+from monai_tpu_torch.networks.layers import fast_norm
+from monai_tpu_torch.networks.layers.fast_norm import (H100, _backward_args, _card, _forward, instance_norm_backward_plan,
+                                                      instance_norm_plan, instance_norm_prelu,
+                                                      instance_norm_prelu_backward, instance_norm_prelu_backward_plain,
+                                                      instance_norm_prelu_plain)
 from monai_tpu_torch.networks.nets import SwinUNETR, UNet
 from monai_tpu_torch.ops.bilateral import (PAIR_RADIUS, PAIR_RESIDENT, bilateral_exps, bilateral_plan,
                                            bilateral_stencil, bilateral_stencil_plain, card_resident)
@@ -39,6 +42,7 @@ from monai_tpu_torch.ops.window_attention import (_forward as _attention_forward
                                                   window_attention_backward_plan, window_attention_plan)
 
 from test_torch_conv3d_wgrad_plan import STEP_SITES  # every conv site of the two training steps
+from test_torch_norm_bwd_plan import SWIN_NORM_SITES, UNET_NORM_SITES  # every norm site of the two training steps
 # every attention site of the float32 Swin step and of the bench SwinUNETR (head dim 8)
 from test_torch_window_attention_bwd_plan import BENCH_ATTN_SITES, STEP_D8_SITES, SWIN_ATTN_SITES
 
@@ -903,13 +907,13 @@ def test_norm_backward_kernel_matches_plain(cuda, dtype, shape, affine, slope):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(4, 2, 48, 48, 48), (4, 16, 24, 24, 24), (2, 32, 20, 20, 20)])
 def test_norm_backward_kernel_split_path(cuda, dtype, shape):
-    """Instances that no block holds: the sums launch of several blocks an instance, then
-    the dx launch that adds their partials in order."""
+    """Instances that no block holds: the persistent grid, several blocks an instance whose
+    partials are added in order after the grid barrier, in one launch."""
     g = torch.Generator(device=cuda).manual_seed(9)
     x, gy, w, b, a = _norm_bwd_inputs(g, shape, dtype, cuda, False, "one")
     card, occupancy = _card(cuda.index or 0)
     plan = instance_norm_backward_plan(shape[0], shape[1], math.prod(shape[2:]), dtype, True, card, occupancy)
-    assert plan["path"] == "split" and plan["per_unit"] > 1
+    assert plan["path"] == "persistent" and plan["per_unit"] > 1 and plan["launches"] == 1
     _norm_bwd_check(x, gy, w, b, a, dtype)
 
 
@@ -955,6 +959,107 @@ def test_norm_autograd_on_the_kernels(cuda, dtype):
         # the kernel's and the plain version's statistics differ in their last bits, and
         # the parameter grads are sums over the batch and the space
         _assert_close(t, r, dtype)
+
+
+def _norm_bwd_plan(x):
+    """The backward's plan the wrapper launches for x (B, C, *spatial) on its card."""
+    return _backward_args(tuple(x.shape), x.dtype, x.device.index or 0, x.data_ptr() % 16 == 0)[0]
+
+
+# (shape, path, unit groups > 1): each path of the backward's plan, forced by the shape in
+# every type: x and g on chip (a vector a channel group, and a vector of whole voxels), the
+# persistent grid with one and with several groups of units, and the general path
+NORM_BWD_PATHS = [((2, 64, 6, 6, 6), "onchip", False), ((3, 2, 9, 8, 7), "onchip", False),
+                  ((1, 768, 3, 3, 3), "onchip", False), ((2, 24, 24, 24, 24), "persistent", False),
+                  ((3, 24, 37, 41, 43), "persistent", False), ((2, 2, 40, 40, 40), "persistent", False),
+                  ((2, 48, 96, 96, 96), "persistent", True), ((2, 3, 9, 10, 11), "general", False),
+                  ((3, 7, 5, 6, 7), "general", False), ((40, 3, 64, 64, 64), "general", True)]
+# the norm sites of both training steps at batch 1: (C, spatial)
+STEP_NORM_SHAPES = sorted({(c, sp) for c, sp, _, _ in list(SWIN_NORM_SITES) + list(UNET_NORM_SITES)})
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,path,several", NORM_BWD_PATHS)
+def test_norm_backward_kernel_paths(cuda, dtype, shape, path, several):
+    """Each path of the backward's plan, one launch, two calls bit for bit, against the
+    plain version; with an affine and a slope."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x, gy, w, b, a = _norm_bwd_inputs(g, shape, dtype, cuda, True, "one")
+    p = _norm_bwd_plan(x)
+    assert p["path"] == path and p["launches"] == 1 and (p["unit_groups"] > 1) == several
+    _norm_bwd_check(x, gy, w, b, a, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,spatial", STEP_NORM_SHAPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_norm_backward_kernel_at_the_step_sites(cuda, dtype, c, spatial, aligned):
+    """The norm sites of the UNet and SwinUNETR training steps at batch 1, aligned and one
+    element past a 16-byte boundary (the general path), each with a per-channel slope."""
+    g = torch.Generator(device=cuda).manual_seed(c)
+    x, gy, w, b, a = _norm_bwd_inputs(g, (1, c, *spatial), dtype, cuda, True, "per_channel")
+    if not aligned:
+        x, gy = (_unaligned_channels_last(t) for t in (x, gy))
+        assert _norm_bwd_plan(x)["path"] == "general"
+    _norm_bwd_check(x, gy, w, b, a, dtype)
+
+
+def _unaligned_channels_last(t):
+    """t's values, channels-last, one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    flat[1:] = t.permute(0, *range(2, t.ndim), 1).flatten()
+    return flat[1:].view(t.shape[0], *t.shape[2:], t.shape[1]).permute(0, t.ndim - 1, *range(1, t.ndim - 1))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 24, 24, 24, 24), (2, 48, 96, 96, 96)])
+def test_norm_backward_kernel_at_a_zero_weight_on_the_grid(cuda, dtype, shape):
+    """A weight of 0 on the persistent grid: dx is 0, and the weight's grad still comes
+    from x."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x, gy, w, b, a = _norm_bwd_inputs(g, shape, dtype, cuda, True, "one", gamma=0.0)
+    assert _norm_bwd_plan(x)["path"] == "persistent"
+    _norm_bwd_check(x, gy, w, b, a, dtype)
+
+
+def test_norm_backward_refuses_a_grid_the_card_cannot_hold(cuda, monkeypatch):
+    """A cooperative grid of more blocks than the card holds at once is refused by the
+    launch and raises: nothing falls back to the plain version, nothing is counted, and
+    the next launch on the same scratch runs."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x, gy, w, b, a = _norm_bwd_inputs(g, (2, 24, 24, 24, 24), torch.float32, cuda, True, "one")
+    with torch.inference_mode():
+        _, stats = _forward(x, w, b, a, 1e-5, True)
+    p, plan = _backward_args(tuple(x.shape), x.dtype, cuda.index or 0, True)
+    assert p["path"] == "persistent"
+    per_unit = _card(cuda.index or 0)[0][0] * p["per_sm"] // p["units_per_group"] + 1
+    units = 2 * 24 // p["group"]
+    big = dict(p, per_unit=per_unit, blocks=per_unit * p["units_per_group"],
+               scratch=2 + 3 * units * per_unit * p["group"])
+    arr = (ctypes.c_longlong * 13)(*plan)
+    arr[8], arr[9] = big["blocks"], per_unit
+    monkeypatch.setattr(fast_norm, "_backward_args", lambda *args: (big, arr))
+    before = instance_norm_prelu_backward.launches
+    with torch.inference_mode(), pytest.raises(RuntimeError, match="CUDA launch failed"):
+        instance_norm_prelu_backward(gy, x, stats, w, b, a)
+    assert instance_norm_prelu_backward.launches == before
+    monkeypatch.undo()
+    _norm_bwd_check(x, gy, w, b, a, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_norm_backward_host_plan_is_the_cards(cuda, dtype, aligned):
+    """On an H100 the plan made without a card (its model of the occupancy) is the one the
+    wrapper launches, at every norm site of both training steps and on the path grid."""
+    card, occupancy = _card(cuda.index or 0)
+    if card != H100:
+        pytest.skip(f"the host model is an H100's; this card has {card[0]} SMs, {card[1]} B a block")
+    shapes = [(4, c, sp) for c, sp in STEP_NORM_SHAPES] + [(s[0], s[1], s[2:]) for s, _, _ in NORM_BWD_PATHS]
+    for bsz, c, sp in shapes:
+        n = math.prod(sp)
+        assert (instance_norm_backward_plan(bsz, c, n, dtype, aligned)
+                == instance_norm_backward_plan(bsz, c, n, dtype, aligned, card, occupancy)), (bsz, c, sp)
 
 
 def test_small_unet_train_step_on_card_matches_cpu(cuda):
