@@ -32,6 +32,11 @@ Drives the port's paths, each at full width with random weights from a seed:
   torch's default TF32 setting; and the BTCV bundle's ``train.json`` through the port's
   runner on synthetic data (CacheDataset, the random crops, flips, rotations and shift,
   the validation, the statistics and the checkpoint).
+- BraTS and Spleen training: the BraTS bundle's ``train.json`` (``SegResNet`` at init_filters
+  16, group norm, float32, one 96³ crop a step from 240x240x155 phantoms, ``DiceLoss`` on
+  sigmoids, AdamW) and the Spleen bundle's ``train.json`` (the float32 batch-norm UNet, 8
+  96³ crops a step, ``DiceCELoss``, Adam) through the port's runner, each with kernel 1's
+  forward, dx and dw at its float32 sites.
 - The Spleen bundle end to end: ``bundles/spleen_ct_segmentation/configs/inference.json``
   as it stands, through the port's bundle runner (``monai_tpu_torch.bundle.run``, then
   ``python -m monai_tpu_torch.bundle run``), over 4 copies of the spleen path's CT with its
@@ -112,13 +117,24 @@ Drives the port's paths, each at full width with random weights from a seed:
      timed with cuDNN's TF32 allowed as by default: steps/s, the median step, the peak
      memory, the grads copied to channels-last a step, the launches a step of each kernel
      against the sites, each loss
-  10. (last) the BTCV bundle's ``train.json`` through the port's runner, overriding its
+  10. the BTCV bundle's ``train.json`` through the port's runner, overriding its
      bundle root, imports and initialize (the port's), its optimizer (``torch.optim.AdamW``,
      the file's rates) and its datalists (the file's expressions at 160x160x200, which its
      96³ crops fit): the synthetic data's and the cache fill's time, two epochs' steps,
      steps/s and times, each validation's time and ``val_mean_dice``, the peak memory and
      the launches; each crop batch (4, 1, 96, 96, 96) on the card, the checkpoint against
      the trained network; then the command line as a process of its own for one epoch
+  11. the BraTS bundle's ``train.json`` the same way (its datalists at 240x240x155, 8
+     images, two epochs of 6 steps of one 96³ crop), after kernel 1's forward, dx and dw
+     against their plain versions at each of its ``SegResNet``'s float32 sites (1->16 and
+     16->16 at 96³, 32 at 48³, 64 at 24³, 128 at 12³, batch 1), timed against cuDNN in full
+     float32 and the bound; the launches of each training iteration (3x3x3 conv forward,
+     dx and dw: 25, 24 and 25), the trained network's forward and a batch-1 32³ step on the
+     card against the CPU, one step's profile (device time, layout copies, kernels by time);
+     then its command line for one epoch
+  12. the Spleen bundle's ``train.json`` likewise (datalists at 160x160x200, 8 images, two
+     epochs of 3 steps of 2 images x 4 crops), after kernel 1 at the batch-8 float32 sites
+     of its batch-norm UNet (launches an iteration 10, 10 and 10)
 
 It prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0; so it is without a CUDA device.
@@ -131,6 +147,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -367,15 +384,17 @@ def _bound_by(summary: dict) -> dict:
     return summary
 
 
-def check_conv(sites: Counter, batch: int, dev, timed: torch.dtype = torch.bfloat16) -> dict:
-    """Every site in bfloat16, float32 and float16; the ``timed`` type also timed against the
-    plain version and cuDNN's ``F.conv3d`` on channel-first tensors (the library call)."""
+def check_conv(sites: Counter, batch: int, dev, timed: torch.dtype = torch.bfloat16, checked=None) -> dict:
+    """Every site in bfloat16, float32 and float16 (or the ``checked`` types); the ``timed``
+    type also timed against the plain version and cuDNN's ``F.conv3d`` on channel-first
+    tensors (the library call; float32 in full float32, ``full_float32``)."""
     from monai_tpu_torch.ops.conv3d import conv3d_3x3_same, conv3d_3x3_same_plain
+    from monai_tpu_torch.utils.backend import full_float32
 
     g = torch.Generator(device=dev).manual_seed(2)
     rows = []
     for (ci, co, sp), count in sorted(sites.items()):
-        for dtype, tol in CHECKED:
+        for dtype, tol in checked or CHECKED:
             x = torch.randn((batch, *sp, ci), generator=g, device=dev).to(dtype)
             w = (torch.randn((3, 3, 3, ci, co), generator=g, device=dev) / (27 * ci) ** 0.5).to(dtype)
             b = torch.randn((co,), generator=g, device=dev).to(dtype)
@@ -387,7 +406,8 @@ def check_conv(sites: Counter, batch: int, dev, timed: torch.dtype = torch.bfloa
             if dtype == timed:
                 k_ms, p_ms = paired_ms(lambda: conv3d_3x3_same(x, w, b), lambda: conv3d_3x3_same_plain(x, w, b))
                 xc, wc = x.permute(0, 4, 1, 2, 3).contiguous(), w.permute(4, 3, 0, 1, 2).contiguous()
-                lib_ms = cuda_ms(lambda: F.conv3d(xc, wc, b, padding=1))
+                with full_float32(x):
+                    lib_ms = cuda_ms(lambda: F.conv3d(xc, wc, b, padding=1))
                 size = x.element_size()
                 b_ms, o_ms = bound((x.numel() + w.numel() + b.numel() + got.numel()) * size,
                                    2.0 * batch * np.prod(sp) * 27 * ci * co, dtype)
@@ -1144,13 +1164,15 @@ def check_norm_backward(sites: Counter, batch: int, dev, checked=None,
 
 
 def _normed_biases(net) -> set[str]:
-    """The biases of the convs whose output an instance norm takes: the norm removes each
-    channel's mean, so their exact grad is 0 and what the step computes is rounding."""
+    """The biases of the convs whose output an instance or batch norm takes (in train mode):
+    the norm removes each channel's mean, so their exact grad is 0 and what the step
+    computes is rounding."""
     from monai_tpu_torch.networks.blocks.convolutions import Convolution
     from monai_tpu_torch.networks.layers.fast_norm import InstanceNorm
 
+    norms = (InstanceNorm, torch.nn.modules.batchnorm._BatchNorm)
     return {f"{name}.conv.bias" for name, m in net.named_modules()
-            if isinstance(m, Convolution) and "adn" in m._modules and isinstance(m.adn._modules.get("N"), InstanceNorm)}
+            if isinstance(m, Convolution) and "adn" in m._modules and isinstance(m.adn._modules.get("N"), norms)}
 
 
 def _step(net, x: torch.Tensor, y: torch.Tensor, loss_fn, amp: bool = False) -> tuple[float, dict]:
@@ -1950,65 +1972,90 @@ def swin_training_phase(dev) -> tuple[dict, dict]:
                     "norm_backward": norm_bwd}
 
 
-# Phase 10: the BTCV bundle's train.json through the port's runner, overriding its bundle
-# root, its imports and initialize (naming the port), its optimizer (optax.adamw's rates
-# under torch's name) and its datalists (the file's own expressions at a synthetic size its
-# 96^3 crops fit: its 96^3 phantoms at 1 mm come out of Spacingd 64x64x48, which
-# RandCropByPosNegLabeld refuses)
-BTCV_CONFIG = Path(__file__).resolve().parent / "bundles" / "btcv_swinunetr" / "configs" / "train.json"
-BTCV_ROOT = Path(__file__).resolve().parent / "build" / "btcv_bundle"
+# Phases 10-12: a bundle's train.json through the port's runner, overriding its bundle root,
+# its imports and initialize (naming the port), its optimizer (optax's rates under torch's
+# name) and its datalists (the file's own expressions at a synthetic size its 96^3 crops
+# fit: BTCV's and Spleen's 96^3 phantoms at 1 mm come out of Spacingd 64x64x48, which
+# RandCropByPosNegLabeld refuses; BraTS's 64^3 phantoms would give 64^3 crops, so they are
+# written at 240x240x155, a Task01 volume's shape)
+BUNDLES = Path(__file__).resolve().parent / "bundles"
+BUILD = Path(__file__).resolve().parent / "build"
+BTCV_CONFIG = BUNDLES / "btcv_swinunetr" / "configs" / "train.json"
 BTCV_SYNTH_SIZE = (160, 160, 200)
+BRATS_CONFIG = BUNDLES / "brats_segresnet" / "configs" / "train.json"
+BRATS_SYNTH_SIZE = (240, 240, 155)
+SPLEEN_TRAIN_CONFIG = BUNDLES / "spleen_ct_segmentation" / "configs" / "train.json"
+SPLEEN_SYNTH_SIZE = (160, 160, 200)
 
 
-def btcv_overrides(root: Path) -> dict:
-    cfg = json.loads(BTCV_CONFIG.read_text())
-    size = f"spatial_size={BTCV_SYNTH_SIZE}"
-    lists = {k: cfg[k].replace("spatial_size=(96, 96, 96)", size) for k in ("datalist", "val_datalist")}
-    require(all(size in v for v in lists.values()), "the bundle's datalist expressions changed")
+def bundle_overrides(config: Path, root: Path, size: tuple[int, ...], seed: int, optimizer: dict) -> dict:
+    """The runner's overrides of a training bundle (README gives them as a command line)."""
+    cfg = json.loads(config.read_text())
+    lists = {k: re.sub(r"spatial_size=\([0-9, ]*\)", f"spatial_size={size}", cfg[k])
+             for k in ("datalist", "val_datalist")}
+    require(all(f"spatial_size={size}" in v for v in lists.values()), f"{config}: the datalist expressions changed")
     imports = [i.replace("monai_tpu.", "monai_tpu_torch.") for i in cfg["imports"]]
     return {"bundle_root": str(root), "imports": imports,
-            "initialize": ["$import monai_tpu_torch", "$monai_tpu_torch.utils.set_determinism(seed=0)"],
-            "optimizer": {"_target_": "torch.optim.AdamW", "_mode_": "partial", "lr": 1e-4, "weight_decay": 1e-5},
-            **lists}
+            "initialize": ["$import monai_tpu_torch", f"$monai_tpu_torch.utils.set_determinism(seed={seed})"],
+            "optimizer": {"_mode_": "partial", **optimizer}, **lists}
 
 
-def btcv_bundle_phase(dev) -> dict:
-    """Phase 10: the BTCV bundle's train.json through ``monai_tpu_torch.bundle.run`` in a
-    fresh bundle root: the synthetic data made first (timed; the config's expression then
-    finds the files), the cache fill, the two epochs' iterations and times, each
-    validation's time and ``val_mean_dice``, the peak memory and every kernel's launches;
-    checked: both epochs, every loss finite, every crop batch (4, 1, 96, 96, 96) on the
-    card, 8 attention backward launches a step, the dice finite in [0, 1], and the
-    checkpoint loading into a fresh SwinUNETR equal to the trained network. Then the same
-    command line as a process of its own with ``--epochs 1``, and its checkpoint. Returns
-    the run's launch counts."""
+def train_bundle_phase(name: str, config: Path, overrides, synth: dict, steps: int, crop: tuple[int, ...],
+                       per_step: dict, fresh_net, dev, cli: bool = True) -> tuple[dict, dict, torch.nn.Module]:
+    """A bundle's train.json through ``monai_tpu_torch.bundle.run`` in a fresh bundle root
+    under ``build/<name>_bundle``: the synthetic data made first (``synth``, the arguments of
+    ``make_synthetic_datalist``, timed; the config's expression then finds the files), the
+    cache fill, the two epochs' iterations and times, each validation's time and
+    ``val_mean_dice``, the peak memory and every kernel's launches, and the launches of
+    each training iteration, 3x3x3 conv forwards counted at the modules (the conv kernel's
+    launches less those are dx). Checked: both epochs and ``steps`` iterations, every loss
+    finite, every batch of crops ``crop`` on the card, each iteration's launches
+    ``per_step`` (by wrapper name, ``conv3d_forward`` and ``conv3d_dx``), the dice finite in
+    [0, 1], the checkpoint loading into ``fresh_net()`` equal to the trained network. Then,
+    where ``cli``, the same command line as a process of its own with ``--epochs 1``, and
+    its checkpoint. Returns the run's launch counts, the launches an iteration and the
+    trained network."""
     from monai_tpu_torch.apps.datasets import make_synthetic_datalist
     from monai_tpu_torch.bundle import run
     from monai_tpu_torch.data import CacheDataset
-    from monai_tpu_torch.engines import Events, SupervisedEvaluator, SupervisedTrainer, Workflow
-    from monai_tpu_torch.networks.nets import SwinUNETR
+    from monai_tpu_torch.engines import Events, SupervisedTrainer, Workflow
+    from monai_tpu_torch.networks.layers.factories import Conv3d
 
-    shutil.rmtree(BTCV_ROOT, ignore_errors=True)
-    root = BTCV_ROOT / "run"
+    top = BUILD / f"{name}_bundle"
+    shutil.rmtree(top, ignore_errors=True)
+    root = top / "run"
     t0 = time.perf_counter()
-    make_synthetic_datalist(str(root / "data" / "BTCV_synth"), num_images=8, spatial_size=BTCV_SYNTH_SIZE,
-                            num_seg_classes=3)
+    make_synthetic_datalist(str(root / "data" / synth["dir"]), num_images=synth["num_images"],
+                            spatial_size=synth["spatial_size"], num_seg_classes=synth["num_seg_classes"])
     data_s = time.perf_counter() - t0
-    stamps, engines, crops, losses = [], {}, [], []
-    fire, fill = Workflow.fire_event, CacheDataset.set_data
+    stamps, engines, crops, losses, iterations = [], {}, [], [], []
+    fire, fill, conv_forward = Workflow.fire_event, CacheDataset.set_data, Conv3d.forward
+    forwards = [0]  # 3x3x3 conv forwards under autograd: the training iterations'
+
+    def counted_forward(conv, x):
+        if conv.same_3x3x3 and torch.is_grad_enabled():
+            forwards[0] += 1
+        return conv_forward(conv, x)
+
+    def launches() -> dict:
+        return {**all_launch_counts(), "conv3d_forward": forwards[0]}
 
     def recorded_fire(engine, event):
-        name = "trainer" if isinstance(engine, SupervisedTrainer) else "evaluator"
-        engines[name] = engine
-        if name == "trainer" and str(event) == str(Events.ITERATION_STARTED):
+        kind = "trainer" if isinstance(engine, SupervisedTrainer) else "evaluator"
+        engines[kind] = engine
+        if kind == "trainer" and str(event) == str(Events.ITERATION_STARTED):
             image = engine.state.batch["image"]
             crops.append((tuple(image.data.shape), image.data.device.type))
-        if name == "trainer" and str(event) == str(Events.ITERATION_COMPLETED):
+            iterations.append(launches())
+        if kind == "trainer" and str(event) == str(Events.ITERATION_COMPLETED):
             losses.append(engine.state.output["loss"].item())
+            after = launches()
+            iterations[-1] = {k: after[k] - iterations[-1][k] for k in after}
+            iterations[-1]["conv3d_dx"] = iterations[-1]["conv3d_3x3_same"] - iterations[-1]["conv3d_forward"]
         if str(event) in (str(Events.STARTED), str(Events.EPOCH_STARTED), str(Events.EPOCH_COMPLETED),
                           str(Events.COMPLETED)):
             torch.cuda.synchronize()
-            stamps.append((name, str(event), engine.state.epoch, time.perf_counter()))
+            stamps.append((kind, str(event), engine.state.epoch, time.perf_counter()))
         return fire(engine, event)
 
     def timed_fill(dataset, data):
@@ -2017,23 +2064,23 @@ def btcv_bundle_phase(dev) -> dict:
         torch.cuda.synchronize()
         stamps.append(("cache", "filled", len(dataset._cache), time.perf_counter() - t1))
 
-    Workflow.fire_event, CacheDataset.set_data = recorded_fire, timed_fill
+    Workflow.fire_event, CacheDataset.set_data, Conv3d.forward = recorded_fire, timed_fill, counted_forward
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        run(config_file=str(BTCV_CONFIG), **btcv_overrides(root))
+        run(config_file=str(config), **overrides(root))
         torch.cuda.synchronize()
     finally:
-        Workflow.fire_event, CacheDataset.set_data = fire, fill
+        Workflow.fire_event, CacheDataset.set_data, Conv3d.forward = fire, fill, conv_forward
     total_s = time.perf_counter() - t0
     counts = all_launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     trainer, evaluator = engines["trainer"], engines["evaluator"]
-    steps = trainer.state.iteration
+    n_steps = trainer.state.iteration
 
-    def at(name, event, epoch):
-        return next(t for n, e, ep, t in stamps if n == name and e == event and ep == epoch)
+    def at(kind, event, epoch):
+        return next(t for n, e, ep, t in stamps if n == kind and e == event and ep == epoch)
 
     # each stamp is taken before the event's handlers run: an epoch's time is its iterations
     # (the loader's reads included), without the validation its EPOCH_COMPLETED handler runs
@@ -2045,44 +2092,238 @@ def btcv_bundle_phase(dev) -> dict:
     train_s = sum(epochs)
     fill_s = [t for n, e, _, t in stamps if n == "cache"]
     dice = evaluator.state.metrics.get("val_mean_dice", float("nan"))
-    print(f"btcv bundle train.json (python -m monai_tpu_torch.bundle run's function; datalists at {BTCV_SYNTH_SIZE}): "
-          f"synthetic data (8 images) {data_s:.1f} s; cache fill {fill_s[0] if fill_s else float('nan'):.2f} s "
-          f"({trainer.data_loader.dataset.cache_num} items); {trainer.state.epoch} epochs, {steps} steps, "
-          f"{steps / train_s:.4f} steps/s over the training iterations ({train_s:.2f} s, the loader's reads included); "
-          f"epochs {', '.join(f'{t:.2f}' for t in epochs)} s; validations {', '.join(f'{t:.2f}' for t in vals)} s; "
-          f"val_mean_dice {dice:.6f}; the whole run {total_s:.1f} s with the parse, the net and the data; peak memory "
-          f"{peak_gb:.2f} GB; launches {counts}; losses " + ", ".join(f"{v:.4f}" for v in losses), flush=True)
-    require(trainer.state.epoch == 2 and steps == 12, f"btcv bundle: {trainer.state.epoch} epochs, {steps} steps")
-    require(all(np.isfinite(v) for v in losses) and len(losses) == steps, "btcv bundle: a training loss is not finite")
-    require(all(c == ((4, 1, *ROI), "cuda") for c in crops) and len(crops) == steps,
-            f"btcv bundle: crop batches {sorted(set(crops))}, not (4, 1, 96, 96, 96) on the card")
-    require(counts["fused_window_attention_backward"] == 8 * steps,
-            f"btcv bundle: {counts['fused_window_attention_backward']} attention backward launches in {steps} steps")
-    require(np.isfinite(dice) and 0.0 <= dice <= 1.0, f"btcv bundle: val_mean_dice {dice}")
+    step = {k: v for k, v in iterations[-1].items() if v} if iterations else {}
+    print(f"{name} bundle train.json (python -m monai_tpu_torch.bundle run's function; datalists at "
+          f"{synth['spatial_size']}): synthetic data ({synth['num_images']} images) {data_s:.1f} s; cache fill "
+          f"{fill_s[0] if fill_s else float('nan'):.2f} s ({trainer.data_loader.dataset.cache_num} items); "
+          f"{trainer.state.epoch} epochs, {n_steps} steps of {crop}, {n_steps / train_s:.4f} steps/s over the training "
+          f"iterations ({train_s:.2f} s, the loader's reads included); epochs {', '.join(f'{t:.2f}' for t in epochs)} "
+          f"s; validations {', '.join(f'{t:.2f}' for t in vals)} s; val_mean_dice {dice:.6f}; the whole run "
+          f"{total_s:.1f} s with the parse, the net and the data; peak memory {peak_gb:.2f} GB; launches {counts}; "
+          f"launches an iteration {step} (3x3x3 conv forward {step.get('conv3d_forward', 0)}, dx "
+          f"{step.get('conv3d_dx', 0)}, dw {step.get('conv3d_3x3_wgrad', 0)}); losses "
+          + ", ".join(f"{v:.4f}" for v in losses), flush=True)
+    require(trainer.state.epoch == 2 and n_steps == steps, f"{name} bundle: {trainer.state.epoch} epochs, "
+                                                           f"{n_steps} steps, not 2 and {steps}")
+    require(all(np.isfinite(v) for v in losses) and len(losses) == n_steps,
+            f"{name} bundle: a training loss is not finite")
+    require(all(c == (crop, "cuda") for c in crops) and len(crops) == n_steps,
+            f"{name} bundle: crop batches {sorted(set(crops))}, not {crop} on the card")
+    for i, it in enumerate(iterations):
+        require(all(it[k] == v > 0 for k, v in per_step.items()),
+                f"{name} bundle: iteration {i + 1} launched {it}, not {per_step}")
+    require(np.isfinite(dice) and 0.0 <= dice <= 1.0, f"{name} bundle: val_mean_dice {dice}")
     ckpt = root / "models" / "model_final.ckpt"
-    fresh = SwinUNETR(1, 4, feature_size=48, device="cpu")
+    fresh = fresh_net()
     fresh.load_state_dict(torch.load(ckpt, map_location="cpu", weights_only=True)["model"])
-    trained = trainer.network.state_dict()
+    network = trainer.network
+    trained = network.state_dict()
     require(all(torch.equal(v, trained[k].cpu()) for k, v in fresh.state_dict().items()),
-            "btcv bundle: the checkpoint is not the trained network")
+            f"{name} bundle: the checkpoint is not the trained network")
     del trainer, evaluator, engines, fresh, trained
     torch.cuda.empty_cache()
 
-    # the command line, as README gives it, one epoch, on the same synthetic data
-    args = [sys.executable, "-m", "monai_tpu_torch.bundle", "run", "--config_file", str(BTCV_CONFIG), "--epochs", "1"]
-    for k, v in btcv_overrides(BTCV_ROOT / "cli").items():
-        args += [f"--{k}", v if isinstance(v, str) else json.dumps(v)]
-    env = {**os.environ, "MONAI_DATA_DIRECTORY": str(root / "data")}
-    t0 = time.perf_counter()
-    proc = subprocess.run(args, capture_output=True, text=True, env=env, cwd=Path(__file__).resolve().parent)
-    require(proc.returncode == 0, f"btcv bundle command line failed: {proc.stderr[-2000:]}")
-    cli_ckpt = BTCV_ROOT / "cli" / "models" / "model_final.ckpt"
-    state = torch.load(cli_ckpt, map_location="cpu", weights_only=True)["model"]
-    SwinUNETR(1, 4, feature_size=48, device="cpu").load_state_dict(state)
-    print(f"btcv bundle command line (--epochs 1, a process of its own): {time.perf_counter() - t0:.1f} s with the "
-          f"process's start; {cli_ckpt.relative_to(BTCV_ROOT)} loads into a fresh SwinUNETR; its last log lines: "
-          + " | ".join(proc.stdout.strip().splitlines()[-2:]), flush=True)
+    if cli:  # the command line, as README gives it, one epoch, on the same synthetic data
+        args = [sys.executable, "-m", "monai_tpu_torch.bundle", "run", "--config_file", str(config), "--epochs", "1"]
+        for k, v in overrides(top / "cli").items():
+            args += [f"--{k}", v if isinstance(v, str) else json.dumps(v)]
+        env = {**os.environ, "MONAI_DATA_DIRECTORY": str(root / "data")}
+        t0 = time.perf_counter()
+        proc = subprocess.run(args, capture_output=True, text=True, env=env, cwd=Path(__file__).resolve().parent)
+        require(proc.returncode == 0, f"{name} bundle command line failed: {proc.stderr[-2000:]}")
+        cli_ckpt = top / "cli" / "models" / "model_final.ckpt"
+        fresh_net().load_state_dict(torch.load(cli_ckpt, map_location="cpu", weights_only=True)["model"])
+        print(f"{name} bundle command line (--epochs 1, a process of its own): {time.perf_counter() - t0:.1f} s with "
+              f"the process's start; {cli_ckpt.relative_to(top)} loads into a fresh network; its last log lines: "
+              + " | ".join(proc.stdout.strip().splitlines()[-2:]), flush=True)
+    return counts, step, network
+
+
+def btcv_bundle_phase(dev) -> dict:
+    """Phase 10: the BTCV bundle's train.json (``train_bundle_phase``): 8 images at
+    160x160x200, 12 steps of 4 crops, 8 attention backward launches a step. Returns the
+    run's launch counts."""
+    from monai_tpu_torch.networks.nets import SwinUNETR
+
+    optimizer = {"_target_": "torch.optim.AdamW", "lr": 1e-4, "weight_decay": 1e-5}
+    counts, _, _ = train_bundle_phase(
+        "btcv", BTCV_CONFIG, lambda root: bundle_overrides(BTCV_CONFIG, root, BTCV_SYNTH_SIZE, 0, optimizer),
+        {"dir": "BTCV_synth", "num_images": 8, "spatial_size": BTCV_SYNTH_SIZE, "num_seg_classes": 3}, 12,
+        (4, 1, *ROI), {"fused_window_attention_backward": 8}, lambda: SwinUNETR(1, 4, feature_size=48, device="cpu"),
+        dev)
     return counts
+
+
+# Phases 11 and 12, kernel 1 at their float32 sites: the forward, dx and dw kernels against
+# their plain versions in float32 (TOL_F32), timed against cuDNN in full float32 and the
+# bound at the float32 peak; the trained network's forward on the card against the CPU; a
+# batch-1 32^3 step on the card against the CPU's (the loss relative, each grad's cosine:
+# ReLU's kink turns float32 order differences into grad differences, as the LeakyReLU's
+# does in phase 9)
+TRAIN_CHECKED_F32 = ((torch.float32, TOL_F32),)
+TRAIN_MIN_COSINE = 0.999
+
+
+def check_conv_f32_sites(name: str, net, batch: int, dev) -> tuple[dict, dict, dict, Counter]:
+    """Kernel 1's forward, dx and dw at each 3x3x3 site of ``net`` (a CPU network) at
+    ``batch`` 96^3 inputs, in float32 (``check_conv`` and ``check_conv_backward``). Returns
+    the three kernels-line summaries, each summed over a step's sites, and the sites."""
+    window = torch.rand((batch, net.in_channels, *ROI), generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    with torch.no_grad():
+        sites = record_sites(copy.deepcopy(net).to(dev).eval(), window)[0]
+    print(f"{name} 3x3x3 stride-1 conv sites at batch {batch} of 96^3: "
+          + ", ".join(f"{ci}->{co} @{sp} x{n}" for (ci, co, sp), n in sorted(sites.items())), flush=True)
+    forward = check_conv(sites, batch, dev, timed=torch.float32, checked=TRAIN_CHECKED_F32)
+    dw, dx = check_conv_backward(sites, batch, dev, TRAIN_CHECKED_F32, timed=torch.float32)
+    return forward, dx, dw, sites
+
+
+def net_against_cpu(name: str, network, fresh_net, loss_fn, label, dev) -> None:
+    """The trained network (on the card) in eval mode on a 96^3 input against its CPU copy,
+    relative to the CPU logits' std; then, on a fresh float32 copy without dropout, one
+    batch-1 32^3 training step's loss and grads on the card against the CPU's."""
+    gen = torch.Generator().manual_seed(31)
+    cpu = fresh_net()
+    cpu.load_state_dict({k: v.cpu() for k, v in network.state_dict().items()})
+    card = copy.deepcopy(cpu).to(dev)
+    x = torch.rand((1, cpu.in_channels, *ROI), generator=gen)
+    with torch.no_grad():
+        ref = cpu.eval()(x)
+        got = card.eval()(x.to(dev)).cpu()
+    err = (got - ref).abs().max().item() / ref.std().item()
+    print(f"{name} trained network, eval forward at 96^3 on the card against the CPU: max err {err:.3g} std of the "
+          f"CPU logits (tol {TOL_FWD_F32_MAX})", flush=True)
+    require(err <= TOL_FWD_F32_MAX, f"{name}: the trained network's forward on the card disagrees with the CPU")
+    x, y = torch.rand((1, cpu.in_channels, 32, 32, 32), generator=gen), label(gen)
+    results = []
+    for net, device in ((cpu, "cpu"), (card, dev)):
+        net.train()
+        net.zero_grad(set_to_none=True)
+        loss = loss_fn(net(x.to(device)), y.to(device))
+        loss.backward()
+        results.append((loss.item(), {k: p.grad.double().cpu().reshape(-1) for k, p in net.named_parameters()}))
+    (loss_cpu, g_cpu), (loss_card, g_card) = results
+    zero = _normed_biases(cpu)  # exactly 0: held under TOL_STEP_F32 of the largest grad on both sides
+    largest = max(g.abs().max().item() for g in g_cpu.values())
+    zero_max = max((g[k].abs().max().item() for g in (g_cpu, g_card) for k in zero), default=0.0) / largest
+    cosines = sorted((F.cosine_similarity(g_card[k][None], g_cpu[k][None]).item(), k) for k in g_cpu if k not in zero)
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    print(f"{name} batch-1 32^3 float32 step on the card against the CPU: loss {loss_card:.6f} against {loss_cpu:.6f} "
+          f"({loss_rel:.3g} relative, tol {TOL_STEP_F32}); least grad cosine {cosines[0][0]:.6f} ({cosines[0][1]}; "
+          f"tol {TRAIN_MIN_COSINE}); {len(zero)} conv biases before a norm (exact grad 0) at most {zero_max:.3g} of "
+          f"the largest grad (tol {TOL_STEP_F32})", flush=True)
+    require(loss_rel <= TOL_STEP_F32 and cosines[0][0] >= TRAIN_MIN_COSINE and zero_max <= TOL_STEP_F32,
+            f"{name}: the float32 step on the card disagrees with the CPU")
+
+
+def step_profile(name: str, network, batch: dict, loss_fn, dev) -> None:
+    """One float32 training step of ``network`` (forward, loss, backward) under
+    ``torch.profiler`` after a warm-up step: the device time, the layout copies (``aten::copy_``
+    and their device time) and the conv's channel-first grads copied, and the kernels by
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from monai_tpu_torch.ops.conv3d import _Conv3x3Same
+
+    def step():
+        network.zero_grad(set_to_none=True)
+        loss_fn(network(batch["image"]), batch["label"]).backward()
+
+    network.train()
+    step()
+    torch.cuda.synchronize()
+    _Conv3x3Same.copied_bytes = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def device_ms(e) -> float:
+        return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3
+
+    copies = [e for e in events if e.key == "aten::copy_"]
+    kernels = sorted((e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA),
+                     key=device_ms, reverse=True)
+    total = sum(device_ms(e) for e in kernels)
+    print(f"{name} one float32 training step at {tuple(batch['image'].shape)} under torch.profiler: device kernel "
+          f"time {total:.3f} ms; aten::copy_ {sum(e.count for e in copies)} calls, "
+          f"{sum(device_ms(e) for e in copies):.3f} ms of device time; conv grads copied from channel-first "
+          f"{_Conv3x3Same.copied_bytes / 1e6:.2f} MB; kernels by device time: "
+          + "; ".join(f"{e.key[:60]} x{e.count} {device_ms(e):.3f} ms" for e in kernels[:12]), flush=True)
+
+
+def brats_bundle_phase(dev) -> tuple[dict, dict]:
+    """Phase 11: the BraTS bundle's train.json (``train_bundle_phase``) at the file's own
+    width (``SegResNet`` init_filters 16, blocks (1, 2, 2, 4) and (1, 1, 1), dropout 0.2,
+    1 input channel as the synthetic branch gives), 8 phantoms at 240x240x155, 12 steps of
+    one 96^3 crop, ``DiceLoss(sigmoid, squared_pred)`` and AdamW at the file's rates; kernel
+    1's forward, dx and dw at the net's float32 sites first; then the trained network
+    against the CPU and one step's profile. Returns the run's launch counts and the three
+    kernels' summaries."""
+    from monai_tpu_torch.losses import DiceLoss
+    from monai_tpu_torch.networks.nets import SegResNet
+
+    def fresh_net(dropout: float | None = 0.2):
+        return SegResNet(3, init_filters=16, in_channels=1, out_channels=3, dropout_prob=dropout,
+                         blocks_down=(1, 2, 2, 4), blocks_up=(1, 1, 1), device="cpu")
+
+    forward, dx, dw, sites = check_conv_f32_sites("brats", fresh_net(), 1, dev)
+    n = sum(sites.values())
+    torch.cuda.empty_cache()
+    optimizer = {"_target_": "torch.optim.AdamW", "lr": 1e-4, "weight_decay": 1e-5}
+    # each 3x3x3 conv a forward, a dx but convInit's (its input is the image) and a dw
+    counts, step, network = train_bundle_phase(
+        "brats", BRATS_CONFIG, lambda root: bundle_overrides(BRATS_CONFIG, root, BRATS_SYNTH_SIZE, 0, optimizer),
+        {"dir": "Task01_BrainTumour_synth", "num_images": 8, "spatial_size": BRATS_SYNTH_SIZE, "num_seg_classes": 3},
+        12, (1, 1, *ROI), {"conv3d_forward": n, "conv3d_dx": n - 1, "conv3d_3x3_wgrad": n}, fresh_net, dev)
+    loss = DiceLoss(smooth_nr=0, smooth_dr=1e-5, squared_pred=True, sigmoid=True)
+    net_against_cpu("brats", network, lambda: fresh_net(None), loss,
+                    lambda gen: (torch.rand((1, 3, 32, 32, 32), generator=gen) > 0.7).float(), dev)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    step_profile("brats", network, {"image": torch.rand((1, 1, *ROI), generator=gen, device=dev),
+                                    "label": (torch.rand((1, 3, *ROI), generator=gen, device=dev) > 0.7).float()},
+                 loss, dev)
+    del network
+    torch.cuda.empty_cache()
+    return counts, {"forward": forward, "dx": dx, "dw": dw}
+
+
+def spleen_train_bundle_phase(dev) -> tuple[dict, dict]:
+    """Phase 12: the Spleen bundle's train.json (``train_bundle_phase``): the float32
+    batch-norm ``UNet(1, 2, (16, 32, 64, 128, 256), (2, 2, 2, 2), num_res_units=2)``, 8
+    phantoms at 160x160x200 (107x107x100 after Spacingd), 6 steps of 2 images x 4 crops of
+    96^3, ``DiceCELoss`` and Adam (lr 1e-4), validation by ``SlidingWindowInferer(96, 4,
+    0.25)``; kernel 1's forward, dx and dw at the step's batch-8 float32 sites first; then
+    the trained network against the CPU and one step's profile. Returns the run's launch
+    counts and the three kernels' summaries."""
+    from monai_tpu_torch.losses import DiceCELoss
+    from monai_tpu_torch.networks.nets import UNet
+
+    def fresh_net():
+        return UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2), num_res_units=2, norm="batch",
+                    device="cpu")
+
+    forward, dx, dw, sites = check_conv_f32_sites("spleen_train", fresh_net(), 8, dev)
+    n = sum(sites.values())
+    torch.cuda.empty_cache()
+    # each 3x3x3 conv a forward, a dx (the image goes into a stride-2 conv) and a dw
+    counts, step, network = train_bundle_phase(
+        "spleen_train", SPLEEN_TRAIN_CONFIG,
+        lambda root: bundle_overrides(SPLEEN_TRAIN_CONFIG, root, SPLEEN_SYNTH_SIZE, 123,
+                                      {"_target_": "torch.optim.Adam", "lr": 1e-4}),
+        {"dir": "Task09_Spleen_synth", "num_images": 8, "spatial_size": SPLEEN_SYNTH_SIZE, "num_seg_classes": 1},
+        6, (8, 1, *ROI), {"conv3d_forward": n, "conv3d_dx": n, "conv3d_3x3_wgrad": n}, fresh_net, dev, cli=False)
+    loss = DiceCELoss(to_onehot_y=True, softmax=True)
+    net_against_cpu("spleen_train", network, fresh_net, loss,
+                    lambda gen: (torch.rand((1, 1, 32, 32, 32), generator=gen) > 0.5).float(), dev)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    batch = {"image": torch.rand((8, 1, *ROI), generator=gen, device=dev),
+             "label": (torch.rand((8, 1, *ROI), generator=gen, device=dev) > 0.5).float()}
+    step_profile("spleen_train", network, batch, loss, dev)
+    del network
+    torch.cuda.empty_cache()
+    return counts, {"forward": forward, "dx": dx, "dw": dw}
 
 
 def inference_phases(dev) -> tuple:
@@ -2182,25 +2423,34 @@ def main() -> None:
     bundle_counts = bundle_phase(dev, spleen5)
     del spleen5
 
-    # 10. the BTCV bundle's train.json through the port's runner (last, as it sets the seed too)
+    # 10. the BTCV bundle's train.json through the port's runner (after the paths above, as it
+    # sets the seed too)
     btcv_counts = btcv_bundle_phase(dev)
     trained = {k: swin_counts[k] + btcv_counts[k] for k in swin_counts}  # phases 9 and 10
 
-    def swin_f32(k: str) -> dict:
-        """A kernel's numbers summed over the float32 Swin step's sites, for the kernels line."""
-        return {key: v for key, v in swin[k].items() if key not in ("bytes_ms", "ops_ms", "bound_side")}
+    # 11 and 12. the BraTS bundle's and the Spleen bundle's train.json, each with kernel 1 at
+    # its float32 sites
+    brats_counts, brats = brats_bundle_phase(dev)
+    spleen_train_counts, spleen_train = spleen_train_bundle_phase(dev)
+    conv_trained = {k: brats_counts[k] + spleen_train_counts[k] for k in ("conv3d_3x3_same", "conv3d_3x3_wgrad")}
+
+    def f32_sites(summary: dict) -> dict:
+        """A kernel's numbers summed over a float32 step's sites, for the kernels line."""
+        return {key: v for key, v in summary.items() if key not in ("bytes_ms", "ops_ms", "bound_side")}
 
     # dw and the norm's backward: the bfloat16 UNet step's numbers, and the float32 Swin step's
-    # under swin_train_float32 (dx's there too, under conv3d_3x3_same)
+    # under swin_train_float32 (dx's there too, under conv3d_3x3_same), and dw's at the float32
+    # SegResNet and Spleen UNet steps (forward and dx under conv3d_3x3_same)
     training = [
         {"name": "conv3d_3x3_wgrad", "route": "cuda", "source": "monai_tpu_torch/csrc/conv3d_3x3_wgrad.cu",
          "replaces": "monai_tpu/ops/pallas_conv3d.py:200",
-         "launches": train_counts["conv3d_3x3_wgrad"] + trained["conv3d_3x3_wgrad"], **train["dw"],
-         "swin_train_float32": swin_f32("dw")},
+         "launches": train_counts["conv3d_3x3_wgrad"] + trained["conv3d_3x3_wgrad"] + conv_trained["conv3d_3x3_wgrad"],
+         **train["dw"], "swin_train_float32": f32_sites(swin["dw"]), "segresnet_train_float32": f32_sites(brats["dw"]),
+         "spleen_train_float32": f32_sites(spleen_train["dw"])},
         {"name": "instance_norm_prelu_backward", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
          "replaces": "monai_tpu/networks/layers/fast_norm.py:74",
          "launches": train_counts["instance_norm_prelu_backward"] + trained["instance_norm_prelu_backward"],
-         **train["norm_backward"], "swin_train_float32": swin_f32("norm_backward")},
+         **train["norm_backward"], "swin_train_float32": f32_sites(swin["norm_backward"])},
         {"name": "fused_window_attention_backward", "route": "cuda",
          "source": "monai_tpu_torch/csrc/window_attention_bwd.cu",
          "replaces": "monai_tpu/ops/pallas_window_attention.py:159",
@@ -2214,7 +2464,9 @@ def main() -> None:
 
     print("per training step at batch 4 (ms, kernel / plain / library / bound): " + "; ".join(
         f"{k} {line(train[k])}" for k in ("dw", "dx", "norm_backward")) + "; float32 swin " + "; ".join(
-        f"{k} {line(swin[k])}" for k in ("dw", "dx", "norm_backward", "attention_backward", "attention_forward")),
+        f"{k} {line(swin[k])}" for k in ("dw", "dx", "norm_backward", "attention_backward", "attention_forward"))
+        + "; float32 segresnet batch 1 " + "; ".join(f"{k} {line(brats[k])}" for k in ("forward", "dx", "dw"))
+        + "; float32 spleen batch 8 " + "; ".join(f"{k} {line(spleen_train[k])}" for k in ("forward", "dx", "dw")),
         flush=True)
 
     def merged(i: int) -> dict:
@@ -2230,8 +2482,11 @@ def main() -> None:
         {"name": "conv3d_3x3_same", "route": "cuda", "source": "monai_tpu_torch/csrc/conv3d_3x3_same.cu",
          "replaces": "monai_tpu/ops/pallas_conv3d.py:91",
          "launches": unet_counts[0] + swin_sw_counts[0] + spleen_counts[0] + train_counts["conv3d_3x3_same"]
-         + bundle_counts[0] + trained["conv3d_3x3_same"],
-         **merged(0), "swin_train_float32_dx": swin_f32("dx")},
+         + bundle_counts[0] + trained["conv3d_3x3_same"] + conv_trained["conv3d_3x3_same"],
+         **merged(0), "swin_train_float32_dx": f32_sites(swin["dx"]),
+         "segresnet_train_float32": f32_sites(brats["forward"]), "segresnet_train_float32_dx": f32_sites(brats["dx"]),
+         "spleen_train_float32": f32_sites(spleen_train["forward"]),
+         "spleen_train_float32_dx": f32_sites(spleen_train["dx"])},
         {"name": "instance_norm_prelu", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
          "replaces": "monai_tpu/networks/layers/fast_norm.py:44",
          "launches": unet_counts[1] + swin_sw_counts[1] + train_counts["instance_norm_prelu"]
@@ -2239,7 +2494,7 @@ def main() -> None:
         {"name": "fused_window_attention", "route": "cuda", "source": "monai_tpu_torch/csrc/window_attention.cu",
          "replaces": "monai_tpu/ops/pallas_window_attention.py:106",
          "launches": swin_sw_counts[2] + trained["fused_window_attention"], **summaries["swinunetr"][2],
-         "swin_train_float32": swin_f32("attention_forward")},
+         "swin_train_float32": f32_sites(swin["attention_forward"])},
         {"name": "separable_resample_3d", "route": "cuda", "source": "monai_tpu_torch/csrc/separable_resample_3d.cu",
          "replaces": "monai_tpu/ops/pallas_resample.py:117", "launches": spleen_counts[3] + bundle_counts[3],
          **spleen["resample"]},

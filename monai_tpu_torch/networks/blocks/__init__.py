@@ -2,5 +2,7 @@ from .acti_norm import ADN
 from .attention import MLPBlock, PatchEmbed
 from .convolutions import Convolution, ResidualUnit, same_padding, stride_minus_kernel_padding
 from .crf import CRF
+from .segresnet_block import ResBlock, get_upsample_layer
 from .dynunet_block import (UnetBasicBlock, UnetOutBlock, UnetrBasicBlock, UnetResBlock, UnetrUpBlock,
                             get_conv_layer)
+from .upsample import UpSample, interpolate

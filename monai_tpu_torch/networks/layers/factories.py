@@ -14,10 +14,12 @@ full float32 by default: ``torch.backends.cuda.matmul.allow_tf32`` is False.)
 ``nn.BatchNorm{n}d`` (eps 1e-5, plain PyTorch, as the JAX package has no kernel for
 it) whose train mode adds the biased batch variance to ``running_var``, as
 ``nnx.BatchNorm`` does (torch adds the unbiased one); layer is ``nn.LayerNorm`` with the
-JAX package's eps of 1e-6 (torch MONAI uses 1e-5). ``Act``:
-the learnable PReLU (init 0.25), LeakyReLU (slope 0.01) and GELU in the tanh
+JAX package's eps of 1e-6 (torch MONAI uses 1e-5); group is ``nn.GroupNorm`` (eps 1e-5,
+affine), its group count clamped down to the largest divisor of the channels, as the JAX
+factory does (``nnx.GroupNorm`` is a library op there too, no kernel). ``Act``:
+the learnable PReLU (init 0.25), ReLU, LeakyReLU (slope 0.01) and GELU in the tanh
 approximation, which is ``jax.nn.gelu``'s default (torch MONAI uses the exact erf).
-``Dropout``: torch's dropouts.
+``Dropout``: torch's dropouts (``dropout_dim`` 1 drops elements, 2 and 3 whole channels).
 
 Constructors take ``device``, ``dtype`` and a ``torch.Generator``; weights are drawn
 from the generator on the generator's device and copied in, so one seed gives the
@@ -252,6 +254,20 @@ def batch_factory(dim: int):
     return make
 
 
+@Norm.factory_function("group")
+def group_factory(dim: int):
+    # num_channels is torch's name for the channels, num_features the factory's
+    def make(num_features: int | None = None, num_groups: int = 8, num_channels: int | None = None,
+             eps: float = 1e-5, affine: bool = True, device=None, dtype=None):
+        channels = num_channels if num_channels is not None else num_features
+        groups = num_groups
+        while channels % groups:  # the largest divisor of the channels at most num_groups
+            groups -= 1
+        return nn.GroupNorm(groups, channels, eps=eps, affine=affine, device=device, dtype=dtype)
+
+    return make
+
+
 @Norm.factory_function("layer")
 def layer_factory(dim: int):
     def make(num_features, eps: float = 1e-6, elementwise_affine: bool = True, device=None, dtype=None):
@@ -265,6 +281,14 @@ def layer_factory(dim: int):
 def prelu_factory(dim: int = 1):
     def make(num_parameters: int = 1, init: float = 0.25, device=None, dtype=None):
         return nn.PReLU(num_parameters, init, device=device, dtype=dtype)
+
+    return make
+
+
+@Act.factory_function("relu")
+def relu_factory(dim: int = 1):
+    def make(inplace: bool = False, device=None, dtype=None):
+        return nn.ReLU(inplace=inplace)
 
     return make
 

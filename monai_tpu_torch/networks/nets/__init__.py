@@ -1,2 +1,3 @@
+from .segresnet import SegResNet
 from .swin_unetr import SwinUNETR
 from .unet import SkipConnection, UNet, Unet

@@ -1,5 +1,5 @@
-"""Weight bridge: a monai_tpu UNet's, SwinUNETR's or trainable bilateral filter's
-parameters as a monai_tpu_torch ``state_dict``.
+"""Weight bridge: a monai_tpu UNet's, SwinUNETR's, SegResNet's or trainable bilateral
+filter's parameters as a monai_tpu_torch ``state_dict``.
 
 The input is keyed by the flattened nnx variable paths of ``monai_tpu``'s network, e.g.
 ``model.down.convs.0.conv.kernel``, ``model.down.convs.0.adn.2.alpha`` or
@@ -19,7 +19,8 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["filter_state_dict_from_jax", "swin_state_dict_from_jax", "unet_state_dict_from_jax"]
+__all__ = ["filter_state_dict_from_jax", "segresnet_state_dict_from_jax", "swin_state_dict_from_jax",
+           "unet_state_dict_from_jax"]
 
 _ADN_LEAVES = {"alpha": "A.weight", "scale": "N.weight", "bias": "N.bias", "mean": "N.running_mean",
                "var": "N.running_var"}
@@ -129,6 +130,37 @@ def swin_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tenso
         if leaf == "relative_position_index":
             arr = arr.astype(np.int64)
         out[".".join(key + [leaf])] = torch.tensor(np.ascontiguousarray(arr))
+    return out
+
+
+def segresnet_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Map ``{nnx variable path: array}`` of a monai_tpu SegResNet (its ``Param``s) to the
+    port's ``state_dict``, loadable with ``SegResNet.load_state_dict(strict=True)``. A level of
+    ``down_layers`` is the JAX list ``[blocks]`` at the first level and ``[pre_conv, blocks]``
+    after it, the port's one ``Sequential(pre_conv or Identity, *blocks)``; every conv gains
+    the ``.conv`` level of ``Convolution`` (DHWIO kernels to OIDHW), and a group norm's
+    ``scale`` is its ``weight``."""
+    out: dict[str, torch.Tensor] = {}
+    for path, value in params.items():
+        toks = path.split(".")
+        arr = np.asarray(value)
+        if toks[0] == "down_layers":  # down_layers.<level>.<0 or 1>[.<block>].<rest>
+            level, part, rest = int(toks[1]), int(toks[2]), toks[3:]
+            if level > 0 and part == 0:  # the stride-2 pre_conv
+                toks = ["down_layers", str(level), "0", *rest]
+            else:
+                toks = ["down_layers", str(level), str(int(rest[0]) + 1), *rest[1:]]
+        leaf = toks[-1]
+        if leaf == "kernel":
+            toks = [*toks[:-1], "conv", "weight"]
+            arr = _conv_weight(arr, False)
+        elif toks[-2:] == ["conv_final", "bias"]:  # the one conv with a bias
+            toks = [*toks[:-1], "conv", "bias"]
+        elif leaf == "scale":
+            toks = [*toks[:-1], "weight"]
+        elif leaf != "bias":
+            raise KeyError(f"cannot map {path}")
+        out[".".join(toks)] = torch.tensor(np.ascontiguousarray(arr))
     return out
 
 

@@ -1,5 +1,5 @@
 """Crops (counterpart of monai_tpu/transforms/croppad_array.py: ``Crop``,
-``SpatialCrop``, ``CropForeground`` and ``RandCropByPosNegLabel``).
+``SpatialCrop``, ``CropForeground``, ``RandSpatialCrop`` and ``RandCropByPosNegLabel``).
 
 A crop is an integer translation in the pending-operation algebra: data_new[x] =
 data_old[x + offset] on the new shape, so it flushes as tier 1 of
@@ -20,7 +20,7 @@ from .spatial_array import _SpatialLazyTransform
 from .transform import Randomizable, Transform
 from .utils import generate_pos_neg_label_crop_centers, generate_spatial_bounding_box, is_positive, map_binary_to_indices
 
-__all__ = ["Crop", "SpatialCrop", "CropForeground", "RandCropByPosNegLabel"]
+__all__ = ["Crop", "SpatialCrop", "CropForeground", "RandCropByPosNegLabel", "RandSpatialCrop"]
 
 
 def _spatial_shape(img: Any) -> tuple:
@@ -65,6 +65,44 @@ class SpatialCrop(Crop):
 
     def __call__(self, img: Any, lazy: bool | None = None):
         return super().__call__(img, slices=self.slices, lazy=lazy)
+
+
+class RandSpatialCrop(Randomizable, Crop):
+    """A crop of ``roi_size`` (its -1 or missing axes the image's) at a random start, or at
+    the centre where ``random_center`` is off; with ``random_size`` each axis's size is
+    drawn between ``roi_size`` and ``max_roi_size`` (the image's by default). The draws are
+    the JAX package's, from ``R`` in its order: the sizes, then the starts."""
+
+    def __init__(self, roi_size: Sequence[int] | int, max_roi_size=None, random_center: bool = True,
+                 random_size: bool = False, lazy: bool = False):
+        Crop.__init__(self, lazy=lazy)
+        self.roi_size = roi_size
+        self.max_roi_size = max_roi_size
+        self.random_center = random_center
+        self.random_size = random_size
+        self._size: tuple[int, ...] | None = None
+        self._slices: tuple[slice, ...] | None = None
+
+    def randomize(self, img_size: Sequence[int]) -> None:
+        self._size = fall_back_tuple(self.roi_size, img_size)
+        if self.random_size:
+            max_size = img_size if self.max_roi_size is None else fall_back_tuple(self.max_roi_size, img_size)
+            if any(i > j for i, j in zip(self._size, max_size)):
+                raise ValueError(f"min ROI size: {self._size} is larger than max ROI size: {max_size}.")
+            self._size = tuple(self.R.randint(low=self._size[i], high=max_size[i] + 1) for i in range(len(img_size)))
+        if self.random_center:
+            starts = [self.R.randint(0, i - s + 1) for i, s in zip(img_size, self._size)]
+            self._slices = tuple(slice(st, st + sz) for st, sz in zip(starts, self._size))
+
+    def __call__(self, img: Any, randomize: bool = True, lazy: bool | None = None):
+        img_size = _spatial_shape(img)
+        if randomize:
+            self.randomize(img_size)
+        if self._size is None:
+            raise RuntimeError("self._size not specified.")
+        if self.random_center:
+            return super().__call__(img, slices=self._slices, lazy=lazy)
+        return SpatialCrop([i // 2 for i in img_size], self._size)(img, lazy=self.lazy if lazy is None else lazy)
 
 
 class CropForeground(Crop):

@@ -12,20 +12,21 @@ from ..data.meta_image import MetaImage
 from ..utils.enums import LazyAttr
 from ..utils.misc import ensure_tuple_rep
 from .compose import Compose
-from .croppad_array import CropForeground, RandCropByPosNegLabel
-from .intensity_array import RandShiftIntensity, ScaleIntensityRange
+from .croppad_array import CropForeground, RandCropByPosNegLabel, RandSpatialCrop
+from .intensity_array import NormalizeIntensity, RandScaleIntensity, RandShiftIntensity, ScaleIntensityRange
 from .inverse import InvertibleTransform
 from .io_array import LoadImage, SaveImage
 from .post_array import Activations, AsDiscrete
 from .spatial_array import Orientation, RandFlip, RandRotate90, Spacing
 from .traits import LazyTrait
 from .transform import MapTransform, Randomizable, RandomizableTransform
-from .utility_array import EnsureChannelFirst
+from .utility_array import ConvertToMultiChannelBasedOnBratsClasses, EnsureChannelFirst
 from .utils import is_positive
 
 __all__ = ["LoadImaged", "EnsureChannelFirstd", "Orientationd", "Spacingd", "ScaleIntensityRanged", "Activationsd",
            "AsDiscreted", "CropForegroundd", "RandCropByPosNegLabeld", "RandFlipd", "RandRotate90d",
-           "RandShiftIntensityd", "Invertd", "SaveImaged"]
+           "RandShiftIntensityd", "Invertd", "SaveImaged", "ConvertToMultiChannelBasedOnBratsClassesd",
+           "NormalizeIntensityd", "RandScaleIntensityd", "RandSpatialCropd"]
 
 
 def _mapped(name: str, array_cls, call_kwargs: tuple = ()):
@@ -64,8 +65,11 @@ Spacingd = _mapped("Spacingd", Spacing, call_kwargs=("mode", "padding_mode", "al
 Orientationd = _mapped("Orientationd", Orientation)
 ScaleIntensityRanged = _mapped("ScaleIntensityRanged", ScaleIntensityRange)
 EnsureChannelFirstd = _mapped("EnsureChannelFirstd", EnsureChannelFirst)
-Activationsd = _mapped("Activationsd", Activations, call_kwargs=("softmax",))
-AsDiscreted = _mapped("AsDiscreted", AsDiscrete, call_kwargs=("argmax", "to_onehot"))
+NormalizeIntensityd = _mapped("NormalizeIntensityd", NormalizeIntensity)
+ConvertToMultiChannelBasedOnBratsClassesd = _mapped("ConvertToMultiChannelBasedOnBratsClassesd",
+                                                    ConvertToMultiChannelBasedOnBratsClasses)
+Activationsd = _mapped("Activationsd", Activations, call_kwargs=("sigmoid", "softmax"))
+AsDiscreted = _mapped("AsDiscreted", AsDiscrete, call_kwargs=("argmax", "to_onehot", "threshold"))
 
 
 def _mapped_rand(name: str, array_cls, draw):
@@ -113,6 +117,9 @@ def _rotate90_draw(t: RandRotate90, data) -> None:
 RandFlipd = _mapped_rand("RandFlipd", RandFlip, lambda t, data: t.randomize(None))
 RandRotate90d = _mapped_rand("RandRotate90d", RandRotate90, _rotate90_draw)
 RandShiftIntensityd = _mapped_rand("RandShiftIntensityd", RandShiftIntensity, lambda t, data: t.randomize(data))
+RandScaleIntensityd = _mapped_rand("RandScaleIntensityd", RandScaleIntensity, lambda t, data: t.randomize(data))
+# the JAX package's dictionary form draws from the first key's data shape, not its pending one
+RandSpatialCropd = _mapped_rand("RandSpatialCropd", RandSpatialCrop, lambda t, data: t.randomize(data.shape[1:]))
 
 
 class CropForegroundd(MapTransform, InvertibleTransform):

@@ -1,13 +1,17 @@
-"""EnsureChannelFirst (counterpart of monai_tpu/transforms/utility_array.py)."""
+"""EnsureChannelFirst and ConvertToMultiChannelBasedOnBratsClasses (counterpart of
+monai_tpu/transforms/utility_array.py)."""
 from __future__ import annotations
 
 from typing import Any
+
+import numpy as np
+import torch
 
 from ..data.meta_image import MetaImage
 from ..utils.enums import MetaKeys
 from .transform import Transform
 
-__all__ = ["EnsureChannelFirst"]
+__all__ = ["ConvertToMultiChannelBasedOnBratsClasses", "EnsureChannelFirst"]
 
 
 class EnsureChannelFirst(Transform):
@@ -31,3 +35,23 @@ class EnsureChannelFirst(Transform):
             res.meta[MetaKeys.ORIGINAL_CHANNEL_DIM] = channel_dim
             return res
         return out
+
+
+class ConvertToMultiChannelBasedOnBratsClasses(Transform):
+    """A BraTS label map (1 the necrotic and non-enhancing tumour core, 2 the oedema, 4 or 3
+    the enhancing tumour; a leading channel of 1 is dropped) as three channels: the tumour
+    core (1, 3, 4), the whole tumour (1, 2, 3, 4) and the enhancing tumour (3, 4). A tensor
+    comes out in its own type, a numpy array as float32."""
+
+    def __call__(self, img: Any):
+        data = img.data if isinstance(img, MetaImage) else img
+        if data.ndim == 4 and data.shape[0] == 1:
+            data = data[0]
+        core = (data == 1) | (data == 4) | (data == 3)
+        whole = core | (data == 2)
+        enhancing = (data == 4) | (data == 3)
+        if isinstance(data, np.ndarray):
+            out = np.stack([core, whole, enhancing]).astype(np.float32)
+        else:
+            out = torch.stack([core, whole, enhancing]).to(data.dtype)
+        return img.new_like(out) if isinstance(img, MetaImage) else out

@@ -4,7 +4,8 @@
 the route, the brick, the tiles, the register tile, the threads, the shared memory and the
 K chunks (tests/test_torch_cuda_kernels.py holds the two equal on the card). Here it is
 held to what the kernel needs at every site of the two training steps (the bench UNet's,
-bfloat16, and the BTCV SwinUNETR's, float32 and bfloat16; batch 4 of 96^3): its shared
+bfloat16, and the BTCV SwinUNETR's, float32 and bfloat16; batch 4 of 96^3) and of the
+BraTS and Spleen bundles' float32 steps (batch 1 and 8): its shared
 memory fits a block, its tiles cover CI and CO, its chunks cover every brick once, in
 order. And a walk over its bricks, halos and chunks in float64, as the kernel walks them,
 gives ``conv3d_3x3_wgrad_plain``'s result to 1e-10 of max|ref| (float64 sums in another
@@ -27,6 +28,11 @@ SWIN_TRAIN_SITES = {(1, 48, (96, 96, 96)): 1, (48, 48, (96, 96, 96)): 2, (96, 48
                     (48, 48, (48, 48, 48)): 3, (96, 48, (48, 48, 48)): 1, (96, 96, (24, 24, 24)): 3,
                     (192, 96, (24, 24, 24)): 1, (192, 192, (12, 12, 12)): 3, (384, 192, (12, 12, 12)): 1,
                     (384, 384, (6, 6, 6)): 1, (768, 384, (6, 6, 6)): 1, (768, 768, (3, 3, 3)): 2}
+# the float32 training steps of the BraTS bundle's SegResNet (batch 1) and of the Spleen
+# bundle's batch-norm UNet (batch 8), as (batch, CI, CO, spatial): count
+F32_BUNDLE_SITES = {(1, 1, 16, (96, 96, 96)): 1, (1, 16, 16, (96, 96, 96)): 4, (1, 32, 32, (48, 48, 48)): 6,
+                    (1, 64, 64, (24, 24, 24)): 6, (1, 128, 128, (12, 12, 12)): 8,
+                    **{(8, *site): n for site, n in UNET_TRAIN_SITES.items()}}
 # (dtype, CI, CO, spatial) of both steps: the UNet's in bfloat16, the Swin's in the step's
 # float32 and in bfloat16 (chip_smoke.py phase 9 checks both)
 STEP_SITES = ([(torch.bfloat16, *s) for s in UNET_TRAIN_SITES]
@@ -41,6 +47,20 @@ def _cdiv(a, b):
 
 def test_the_steps_have_their_sites():
     assert sum(UNET_TRAIN_SITES.values()) == 10 and sum(SWIN_TRAIN_SITES.values()) == 20
+    assert sum(n for (b, *_), n in F32_BUNDLE_SITES.items() if b == 1) == 25  # SegResNet's 3x3x3 convs
+
+
+@pytest.mark.parametrize("batch,ci,co,spatial", sorted(F32_BUNDLE_SITES))
+def test_plan_at_the_float32_bundle_sites(batch, ci, co, spatial):
+    """At each float32 site of the two bundles' steps: the FMA route (the small one at 2 -> 2),
+    one block's shared memory, tiles that cover CI and CO, chunks that cover every brick."""
+    p = wgrad_plan((batch, *spatial, ci), co, torch.float32)
+    assert p["route"] == ("small" if ci <= 2 and co <= 2 else "fma")
+    assert p["smem"] <= BLOCK_SHARED and p["per_sm"] * (p["smem"] + 1024) <= SM_SHARED
+    assert (p["tiles_ci"] - 1) * p["rc"] * p["pci"] < ci <= p["tiles_ci"] * p["rc"] * p["pci"]
+    assert (p["tiles_co"] - 1) * p["ro"] * p["pco"] < co <= p["tiles_co"] * p["ro"] * p["pco"]
+    assert p["bricks"] == batch * _cdiv(spatial[0], p["bd"]) * _cdiv(spatial[1], p["bh"]) * _cdiv(spatial[2], p["bw"])
+    assert (p["chunks"] - 1) * p["per_chunk"] < p["bricks"] <= p["chunks"] * p["per_chunk"]
 
 
 @pytest.mark.parametrize("dtype,ci,co,spatial", STEP_SITES)

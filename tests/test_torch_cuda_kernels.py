@@ -29,7 +29,7 @@ from monai_tpu_torch.networks.layers.fast_norm import (H100, _backward_args, _ca
                                                       instance_norm_plan, instance_norm_prelu,
                                                       instance_norm_prelu_backward, instance_norm_prelu_backward_plain,
                                                       instance_norm_prelu_plain)
-from monai_tpu_torch.networks.nets import SwinUNETR, UNet
+from monai_tpu_torch.networks.nets import SegResNet, SwinUNETR, UNet
 from monai_tpu_torch.ops.bilateral import (PAIR_RADIUS, PAIR_RESIDENT, bilateral_exps, bilateral_plan,
                                            bilateral_stencil, bilateral_stencil_plain, card_resident)
 from monai_tpu_torch.ops.conv3d import (conv3d_3x3_same, conv3d_3x3_same_plain, conv3d_3x3_wgrad,
@@ -41,7 +41,8 @@ from monai_tpu_torch.ops.window_attention import (_forward as _attention_forward
                                                   fused_window_attention_backward_plain, fused_window_attention_plain,
                                                   window_attention_backward_plan, window_attention_plan)
 
-from test_torch_conv3d_wgrad_plan import STEP_SITES  # every conv site of the two training steps
+# every conv site of the two training steps, and of the BraTS and Spleen bundles' float32 steps
+from test_torch_conv3d_wgrad_plan import F32_BUNDLE_SITES, STEP_SITES
 from test_torch_norm_bwd_plan import SWIN_NORM_SITES, UNET_NORM_SITES  # every norm site of the two training steps
 # every attention site of the float32 Swin step and of the bench SwinUNETR (head dim 8)
 from test_torch_window_attention_bwd_plan import BENCH_ATTN_SITES, STEP_D8_SITES, SWIN_ATTN_SITES
@@ -276,6 +277,20 @@ def test_small_unet_on_card_matches_cpu(cuda):
     with torch.inference_mode():
         ref = net(x)
         got = net.to(cuda)(x.to(cuda)).cpu()
+    assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_small_segresnet_on_card_matches_cpu(cuda):
+    """A SegResNet (group norm, nearest upsampling) at an odd size: every 3x3x3 conv on kernel
+    1, the rest as the CPU runs it."""
+    net = SegResNet(3, init_filters=8, in_channels=2, out_channels=3, blocks_down=(1, 2, 2), blocks_up=(1, 1),
+                    generator=torch.Generator().manual_seed(0), device="cpu").eval()
+    x = torch.rand((1, 2, 20, 12, 28), generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        ref = net(x)
+        before = conv3d_3x3_same.launches
+        got = net.to(cuda)(x.to(cuda)).cpu()
+        assert conv3d_3x3_same.launches == before + 15
     assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
@@ -819,6 +834,29 @@ def test_conv_wgrad_host_plan_is_the_cards(cuda, dtype, ci, co, spatial):
         gy = torch.empty(4 * math.prod(spatial) * co + offset, dtype=dtype, device=cuda)[offset:].view(4, *spatial, co)
         card = conv3d_3x3_wgrad_plan(x, gy)
         assert card == wgrad_plan(x.shape, co, dtype, offset == 0, sms, card["per_sm"]), offset
+
+
+@pytest.mark.parametrize("batch,ci,co,spatial", sorted(F32_BUNDLE_SITES))
+def test_conv_kernels_at_the_float32_bundle_sites(cuda, batch, ci, co, spatial):
+    """Kernel 1's forward, its dx and the dw kernel in float32 at each site of the BraTS
+    bundle's SegResNet step (batch 1; its 1 -> 16 input conv included) and of the Spleen
+    bundle's batch-norm UNet step (batch 8), through autograd of the wrapper: three launches,
+    each result against autograd of the plain version; and the host's dw plan is the card's."""
+    g = torch.Generator(device=cuda).manual_seed(ci * 31 + co)
+    x = torch.randn((batch, *spatial, ci), generator=g, device=cuda).requires_grad_()
+    w = (torch.randn((3, 3, 3, ci, co), generator=g, device=cuda) / (27 * ci) ** 0.5).requires_grad_()
+    gy = torch.randn((batch, *spatial, co), generator=g, device=cuda)
+    before = conv3d_3x3_same.launches, conv3d_3x3_wgrad.launches
+    y = conv3d_3x3_same(x, w)
+    got = (y, *torch.autograd.grad(y, (x, w), gy))
+    assert (conv3d_3x3_same.launches, conv3d_3x3_wgrad.launches) == (before[0] + 2, before[1] + 1)
+    y = conv3d_3x3_same_plain(x, w)
+    ref = (y, *torch.autograd.grad(y, (x, w), gy))
+    for a, r in zip(got, ref):
+        _assert_close(a, r, torch.float32)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    card = conv3d_3x3_wgrad_plan(x.detach(), gy)
+    assert card == wgrad_plan(x.shape, co, torch.float32, True, sms, card["per_sm"])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
