@@ -32,6 +32,10 @@ Drives the port's paths, each at full width with random weights from a seed:
   torch's default TF32 setting; and the BTCV bundle's ``train.json`` through the port's
   runner on synthetic data (CacheDataset, the random crops, flips, rotations and shift,
   the validation, the statistics and the checkpoint).
+- MedNIST training: the MedNIST bundle's ``train.json`` (the 2-D ``DenseNet121(2, 1, 6)``,
+  ``CrossEntropyLoss``, Adam, 64x64 images with ``RandRotated``, ``RandFlipd`` and
+  ``RandZoomd``, a ``ROCAUC`` validation) through the port's runner, with the general
+  resample's ops against the CPU and kernel 3 at its 2-D zoom sites.
 - BraTS and Spleen training: the BraTS bundle's ``train.json`` (``SegResNet`` at init_filters
   16, group norm, float32, one 96³ crop a step from 240x240x155 phantoms, ``DiceLoss`` on
   sigmoids, AdamW) and the Spleen bundle's ``train.json`` (the float32 batch-norm UNet, 8
@@ -135,6 +139,16 @@ Drives the port's paths, each at full width with random weights from a seed:
   12. the Spleen bundle's ``train.json`` likewise (datalists at 160x160x200, 8 images, two
      epochs of 3 steps of 2 images x 4 crops), after kernel 1 at the batch-8 float32 sites
      of its batch-norm UNet (launches an iteration 10, 10 and 10)
+  13. the MedNIST bundle's ``train.json`` through the port's runner, overriding its bundle
+     root, imports, initialize and optimizer (``torch.optim.Adam`` at the file's 1e-5), on
+     the file's own 48 synthetic 64x64 images: two epochs of 5 steps of the float32 2-D
+     ``DenseNet121``, a ``ROCAUC`` validation each; first ``grid_pull`` (orders 0-7 x the
+     eight bounds), ``grid_push``, ``grid_count``, ``grid_grad`` and the GMM on the card
+     against the port's CPU; kernel 3's launches against the ``RandZoomd`` draws that
+     resized, and kernel 3 at each 2-D zoom shape against its plain version, timed beside
+     ``F.interpolate``; ``RandRotated``, the trained net's forward and a batch-8 step against
+     the CPU; one step's profile (device time, idle share, the convs', norms' and cats'
+     launches)
 
 It prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0; so it is without a CUDA device.
@@ -2326,6 +2340,354 @@ def spleen_train_bundle_phase(dev) -> tuple[dict, dict]:
     return counts, {"forward": forward, "dx": dx, "dw": dw}
 
 
+# Phase 13, the MedNIST bundle: its train.json at the file's own sizes (48 synthetic 64x64
+# images of 6 classes, 36 to train at batch 8, two epochs), and the native ops its
+# RandRotated needs, each against the port on the CPU
+MEDNIST_CONFIG = BUNDLES / "mednist_classification" / "configs" / "train.json"
+MEDNIST_IMAGE = (1, 64, 64)
+MEDNIST_STEPS = (8, 8, 8, 8, 4)  # an epoch's batches of 36 images
+# grid_pull, grid_push and grid_count on the card against the CPU: order 0 gathers one
+# voxel and is bit-identical; orders 1-7 sum up to 8^3 taps a point in float32 against the
+# CPU's float64 (the inputs the same float32 values), 1e-5 of max|ref|; the push and count
+# add on the card in no fixed order, up to ~60 float32 terms a voxel, 1e-5 of max|ref|
+TOL_NATIVE = 1e-5
+# the GMM's EM in float32 on the card and the CPU: a solve and a slogdet a component and
+# step, 10 steps, sums in another order carried through them (the CPU tests hold the port to
+# the JAX package at 1e-4)
+TOL_GMM = 1e-4
+NATIVE_VOLUME, NATIVE_GRID = (3, 48, 48, 48), (32, 32, 32)
+NATIVE_BOUNDS = ("zeros", "border", "reflection", "dct1", "dst1", "dst2", "dft", "sliding")
+
+
+def native_ops_check(dev) -> None:
+    """The general resample's ops on the card against the port on the CPU, on a (3, 48, 48,
+    48) float32 volume and a rotated, sheared 32^3 grid reaching past its ends:
+    ``grid_pull`` at orders 0-7 under every bound, ``grid_push`` and ``grid_count`` at
+    orders 1 and 3, ``grid_grad`` at orders 1 and 3; then ``GaussianMixtureModel.learn``
+    and ``apply`` on (1, 3, 64^2) features."""
+    from monai_tpu_torch.networks.layers import GaussianMixtureModel
+    from monai_tpu_torch.ops import resample as R
+
+    g = torch.Generator().manual_seed(41)
+    x = torch.randn(NATIVE_VOLUME, generator=g)
+    a = np.eye(4)
+    a[:3, :3] = [[0.9, -0.3, 0.1], [0.35, 0.85, -0.2], [0.05, 0.25, 1.1]]  # rotated and sheared
+    a[:3, 3] = [-4.0, 6.0, -3.0]
+    grid = R.affine_grid(a, NATIVE_GRID).float()
+    xd, gd = x.to(dev), grid.to(dev)
+    t0 = time.perf_counter()
+    worst, card_s = {}, 0.0
+    for order in range(8):
+        for bound in NATIVE_BOUNDS:
+            t1 = time.perf_counter()
+            got = R.grid_pull(xd, gd, order, bound).cpu()
+            card_s += time.perf_counter() - t1
+            if order == 0:
+                require(torch.equal(got, R.grid_pull(x, grid, order, bound)),
+                        f"grid_pull order 0 {bound}: the card is not bit-identical to the CPU")
+                continue
+            ref = R.grid_pull(x.double(), grid.double(), order, bound)
+            rel = ((got.double() - ref).abs().max() / ref.abs().max()).item()
+            worst[order] = max(worst.get(order, 0.0), rel)
+            require(rel <= TOL_NATIVE, f"grid_pull order {order} {bound}: {rel:.3g} of max|ref| (tol {TOL_NATIVE})")
+    y = torch.randn((3, *NATIVE_GRID), generator=g)
+    push = {}
+    for order in (1, 3):
+        for name, got, ref in (
+                ("push", R.grid_push(y.to(dev), gd, NATIVE_VOLUME[1:], order).cpu(),
+                 R.grid_push(y.double(), grid.double(), NATIVE_VOLUME[1:], order)),
+                ("count", R.grid_count(gd, NATIVE_VOLUME[1:], order).cpu(),
+                 R.grid_count(grid.double(), NATIVE_VOLUME[1:], order)),
+                ("grad", R.grid_grad(xd, gd, order).cpu(), R.grid_grad(x.double(), grid.double(), order))):
+            rel = ((got.double() - ref).abs().max() / ref.abs().max()).item()
+            push[f"{name} {order}"] = rel
+            require(rel <= TOL_NATIVE, f"grid_{name} order {order}: {rel:.3g} of max|ref| (tol {TOL_NATIVE})")
+    feats = torch.randn((1, 3, 64 * 64), generator=g) + torch.arange(3.0)[None, :, None]
+    labels = torch.randint(-1, 3, (1, 64 * 64), generator=g)
+    fits = []
+    for device in (dev, "cpu"):
+        gmm = GaussianMixtureModel(3, 3, 2)
+        gmm.learn(feats.to(device), labels.to(device))
+        fits.append(([p.cpu() for p in gmm.params], gmm.apply(feats.to(device)).cpu()))
+    (card_params, card_post), (cpu_params, cpu_post) = fits
+    gmm_err = max(((c - r).abs().max() / r.abs().max()).item() for c, r in zip(card_params, cpu_params))
+    post_err = (card_post - cpu_post).abs().max().item()
+    print(f"native ops on the card against the CPU, {NATIVE_VOLUME} float32 volume, rotated and sheared "
+          f"{NATIVE_GRID} grid: grid_pull orders 0-7 x {', '.join(NATIVE_BOUNDS)}: order 0 bit-identical, orders 1-7 "
+          f"worst " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f" of max|ref| against float64 (tol "
+          f"{TOL_NATIVE}); " + ", ".join(f"{k} {v:.3g}" for k, v in push.items()) + f" (tol {TOL_NATIVE}; the "
+          f"push's scatter-add in no fixed order); GMM learn {gmm_err:.3g} of max|ref|, apply {post_err:.3g} absolute "
+          f"(tol {TOL_GMM}); the card's pulls {card_s:.2f} s, the whole check {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    require(gmm_err <= TOL_GMM and post_err <= TOL_GMM, "the GMM on the card disagrees with the CPU")
+
+
+def mednist_zoom_sites(sites: Counter, dev) -> dict:
+    """Kernel 3 at each 2-D zoom shape the run gave it, a depth-1 volume (1, 1, 64, 64) to
+    (1, 1, zh, zw) at order 1, border, the half-pixel map of ``Zoom``: against its plain
+    version (TOL_RESAMPLE), timed beside it and ``F.interpolate(mode="bilinear",
+    align_corners=False)``, which computes the same map. Returns the kernels-line numbers
+    summed over the run's calls, with the calls and the time of one."""
+    from monai_tpu_torch.ops.separable_resample import resample_plan, separable_resample_3d, separable_resample_3d_plain
+
+    x = torch.rand((1, 1, *MEDNIST_IMAGE[1:]), generator=torch.Generator(device=dev).manual_seed(43), device=dev)
+    rows, lines = [], []
+    for (zh, zw), n in sorted(sites.items()):
+        m = np.eye(4)
+        for d, (n_in, n_out) in enumerate(zip(MEDNIST_IMAGE[1:], (zh, zw)), 1):
+            m[d, d] = n_in / n_out
+            m[d, 3] = (m[d, d] - 1.0) / 2.0
+        out = (1, zh, zw)
+        plan = resample_plan(x.shape, out, m, 1, "border")
+        got = separable_resample_3d(x, m, out, 1, "border")
+        ref = separable_resample_3d_plain(x, m, out, 1, "border")
+        err, rel = rel_err(got, ref)
+        require(rel <= TOL_RESAMPLE, f"kernel 3 at the zoom site {zh}x{zw}: {rel:.3g} of max|ref|")
+        # the depth-1 volume (C, 1, 64, 64) is (N, C, H, W) to F.interpolate
+        lib = lambda: F.interpolate(x, size=(zh, zw), mode="bilinear", align_corners=False)  # noqa: E731
+        lib_err = (lib() - ref).abs().max().item()
+        k_ms, p_ms = paired_ms(lambda: separable_resample_3d(x, m, out, 1, "border"),
+                               lambda: separable_resample_3d_plain(x, m, out, 1, "border"), iters=50)
+        lib_ms = cuda_ms(lib, iters=50)
+        nbytes = 4.0 * (x.numel() + zh * zw)
+        flops = 2.0 * plan.taps * sum(np.prod([(1, zh, zw)[d] if d in plan.order[:k + 1] else x.shape[1 + d]
+                                               for d in range(3)]) for k in range(len(plan.order)))
+        b_ms, o_ms = bound(nbytes, flops, torch.float32)
+        rows.append((n, err, k_ms, p_ms, lib_ms, b_ms, o_ms))
+        lines.append(f"{zh}x{zw} x{n} {k_ms:.4f}/{p_ms:.4f}/{lib_ms:.4f}/{max(b_ms, o_ms):.5f} ms "
+                     f"(err {rel:.2g}, F.interpolate {lib_err:.2g})")
+    calls = sum(r[0] for r in rows)
+    summary = _summary(rows)  # the run's calls summed
+    summary.update(launches=calls, sites=len(rows), per_call_ms=summary["ms"] / calls)
+    print(f"kernel 3 at the MedNIST 2-D zoom sites (1, 1, 64, 64) -> (1, 1, zh, zw), order 1, border, "
+          f"one call each (kernel / plain / F.interpolate / bound ms): " + "; ".join(lines)
+          + f"; the run's {calls} calls {summary['ms']:.4f} ms (plain {summary['plain_ms']:.4f}, F.interpolate "
+          f"{summary['library_ms']:.4f}) against a bound of {summary['bound_ms']:.5f} ({summary['bound_by']}); a call "
+          f"{summary['per_call_ms']:.4f} ms", flush=True)
+    return summary
+
+
+def mednist_step_profile(network, batch: dict, loss_fn) -> None:
+    """One float32 training step of the DenseNet (forward, loss, backward, no optimizer)
+    under ``torch.profiler`` after a warm-up: the device kernel time, the step's wall time
+    on the host (five steps without the profiler) and the device's idle share of it, the
+    launches of the cuDNN convs, the batch norms and the concatenations (by the aten ops
+    that launch them and by kernel name), and the kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        network.zero_grad(set_to_none=True)
+        loss_fn(network(batch["image"]), batch["label"]).backward()
+
+    network.train()
+    walls = []
+    for _ in range(6):  # a warm-up, then the step's wall without the profiler
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(walls[1:])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def device_ms(e) -> float:
+        return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3
+
+    kernels = sorted((e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA),
+                     key=device_ms, reverse=True)
+    total = sum(device_ms(e) for e in kernels)
+    n_kernels = sum(e.count for e in kernels)
+    ops = {e.key: e.count for e in events}
+    by_op = {name: sum(ops.get(f"aten::{op}", 0) for op in names) for name, names in (
+        ("conv", ("cudnn_convolution", "convolution_backward")),
+        ("batch norm", ("cudnn_batch_norm", "cudnn_batch_norm_backward", "native_batch_norm",
+                        "native_batch_norm_backward")),
+        ("cat", ("cat",)))}
+
+    def kind(name: str) -> str:
+        low = name.lower()
+        if "cat" in low and "batched" in low:
+            return "cat"
+        if "bn_" in low or "batch_norm" in low:
+            return "batch norm"
+        if any(p in low for p in ("conv", "xmma", "gemm", "wgrad", "dgrad", "fprop")):
+            return "conv"
+        return "other"
+
+    by_kernel = Counter()
+    for e in kernels:
+        by_kernel[kind(e.key)] += e.count
+    print(f"mednist one float32 training step at {tuple(batch['image'].shape)} under torch.profiler: device kernel "
+          f"time {total:.3f} ms in {n_kernels} launches, the step's wall {wall_ms:.3f} ms (median of 5 without the "
+          f"profiler), idle share {max(0.0, 1 - total / wall_ms):.3f}; aten ops launching them {by_op}; launches by kernel name "
+          f"{dict(by_kernel)}; kernels by "
+          f"device time: " + "; ".join(f"{e.key[:60]} x{e.count} {device_ms(e):.3f} ms" for e in kernels[:10]),
+          flush=True)
+
+
+def mednist_bundle_phase(dev) -> dict:
+    """Phase 13: the MedNIST bundle's train.json through ``monai_tpu_torch.bundle.run`` as it
+    stands but for its bundle root, imports, initialize and optimizer (``torch.optim.Adam``
+    at the file's 1e-5, for ``optax.adam``): the native ops first (``native_ops_check``);
+    then the run, its cache fill, two epochs of 5 steps and a validation each, each batch,
+    ``val_rocauc`` after each epoch, the checkpoint; kernel 3 counted against the
+    ``RandZoomd`` draws that fired and checked at each zoom shape; ``RandRotated`` on the
+    card against the CPU for one draw; the trained DenseNet against the CPU; one step's
+    profile. Returns kernel 3's numbers at its 2-D sites."""
+    from monai_tpu_torch.bundle import run
+    from monai_tpu_torch.data import CacheDataset
+    from monai_tpu_torch.engines import Events, SupervisedTrainer, Workflow
+    from monai_tpu_torch.losses import CrossEntropyLoss
+    from monai_tpu_torch.networks.nets import DenseNet121
+    from monai_tpu_torch.ops.separable_resample import separable_resample_3d
+    from monai_tpu_torch.transforms import (Compose, EnsureChannelFirstd, LoadImaged, RandRotated, RandZoomd,
+                                            ScaleIntensityd)
+
+    native_ops_check(dev)
+    top = BUILD / "mednist_bundle"
+    shutil.rmtree(top, ignore_errors=True)
+    cfg = json.loads(MEDNIST_CONFIG.read_text())
+    overrides = {"bundle_root": str(top), "imports": [i.replace("monai_tpu.", "monai_tpu_torch.") for i in cfg["imports"]],
+                 "initialize": ["$import monai_tpu_torch", "$monai_tpu_torch.utils.set_determinism(seed=0)"],
+                 "optimizer": {"_target_": "torch.optim.Adam", "_mode_": "partial", "lr": cfg["optimizer"]["learning_rate"]}}
+    stamps, engines, batches, losses, aucs, zooms = [], {}, [], [], [], []
+    fire, fill, zoom_call = Workflow.fire_event, CacheDataset.set_data, RandZoomd.__call__
+
+    def recorded_fire(engine, event):
+        kind = "trainer" if isinstance(engine, SupervisedTrainer) else "evaluator"
+        engines[kind] = engine
+        if kind == "trainer" and str(event) == str(Events.ITERATION_COMPLETED):  # the batch the step took
+            image, label = engine.state.output["image"].data, engine.state.output["label"]
+            batches.append((tuple(image.shape), image.dtype, image.device.type, tuple(label.shape), label.dtype,
+                            label.device.type))
+            losses.append(engine.state.output["loss"].item())
+        if kind == "evaluator" and str(event) == str(Events.COMPLETED):
+            aucs.append(engine.state.metrics.get("val_rocauc", float("nan")))
+        if str(event) in (str(Events.STARTED), str(Events.EPOCH_STARTED), str(Events.EPOCH_COMPLETED),
+                          str(Events.COMPLETED)):
+            torch.cuda.synchronize()
+            stamps.append((kind, str(event), engine.state.epoch, time.perf_counter()))
+        return fire(engine, event)
+
+    def timed_fill(dataset, data):
+        t1 = time.perf_counter()
+        fill(dataset, data)
+        torch.cuda.synchronize()
+        stamps.append(("cache", "filled", len(dataset._cache), time.perf_counter() - t1))
+
+    def read_zoom(transform, data, lazy=None):  # each RandZoomd read: did its draw fire, and at what size
+        out = zoom_call(transform, data, lazy)
+        if transform.t._do_transform:
+            zooms.append(tuple(int(np.floor(n * z)) for n, z in zip(MEDNIST_IMAGE[1:], transform.t._zoom)))
+        return out
+
+    Workflow.fire_event, CacheDataset.set_data, RandZoomd.__call__ = recorded_fire, timed_fill, read_zoom
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        run(config_file=str(MEDNIST_CONFIG), **overrides)
+        torch.cuda.synchronize()
+    finally:
+        Workflow.fire_event, CacheDataset.set_data, RandZoomd.__call__ = fire, fill, zoom_call
+    total_s = time.perf_counter() - t0
+    counts = all_launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    trainer, evaluator = engines["trainer"], engines["evaluator"]
+
+    def at(kind, event, epoch):
+        return next(t for n, e, ep, t in stamps if n == kind and e == event and ep == epoch)
+
+    epochs = [at("trainer", str(Events.EPOCH_COMPLETED), e) - at("trainer", str(Events.EPOCH_STARTED), e)
+              for e in (1, 2)]
+    starts, ends = ([t for n, e, _, t in stamps if n == "evaluator" and e == str(ev)]
+                    for ev in (Events.STARTED, Events.COMPLETED))
+    vals = [b - a for a, b in zip(starts, ends)]
+    fill_s = [t for n, e, _, t in stamps if n == "cache"]
+    resized = [z for z in zooms if z != MEDNIST_IMAGE[1:]]  # a zoom that keeps 64x64 is the identity
+    steps_per_epoch = len(MEDNIST_STEPS)
+    launched = counts["separable_resample_3d"]
+    print(f"mednist bundle train.json (python -m monai_tpu_torch.bundle run's function, the file's own synthetic "
+          f"data): cache fill {fill_s[0] if fill_s else float('nan'):.3f} s ({trainer.data_loader.dataset.cache_num} "
+          f"items); {trainer.state.epoch} epochs, {trainer.state.iteration} steps, "
+          f"{trainer.state.iteration / sum(epochs):.3f} steps/s with the loader's reads ({sum(epochs):.3f} s; the "
+          f"second epoch alone {steps_per_epoch / epochs[1]:.3f}); epochs "
+          f"{', '.join(f'{t:.3f}' for t in epochs)} s; validations {', '.join(f'{t:.3f}' for t in vals)} s; "
+          f"val_rocauc {', '.join(f'{v:.6f}' for v in aucs)}; the whole run {total_s:.1f} s with the parse, the "
+          f"synthetic data and the net; peak memory {peak_gb:.3f} GB; RandZoomd draws that fired {len(zooms)}, that "
+          f"resized {len(resized)} (sizes {sorted(Counter(resized).items())}); kernel 3 launches {launched}; "
+          f"launches {counts}; losses " + ", ".join(f"{v:.4f}" for v in losses), flush=True)
+    steps = len(MEDNIST_STEPS)
+    require(trainer.state.epoch == 2 and trainer.state.iteration == 2 * steps,
+            f"mednist bundle: {trainer.state.epoch} epochs, {trainer.state.iteration} steps, not 2 and {2 * steps}")
+    require(len(losses) == 2 * steps and all(np.isfinite(v) for v in losses), "mednist bundle: a loss is not finite")
+    want = [((b, *MEDNIST_IMAGE), torch.float32, "cuda", (b,), torch.int64, "cuda") for b in MEDNIST_STEPS] * 2
+    require(batches == want, f"mednist bundle: batches {sorted(set(batches))}, not {sorted(set(want))}")
+    require(len(aucs) == 2 and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in aucs),
+            f"mednist bundle: val_rocauc {aucs}")
+    require(launched == len(resized), f"mednist bundle: kernel 3 launched {launched} times for {len(resized)} "
+                                      f"resizing RandZoomd draws")
+    require(all(c == 0 for k, c in counts.items() if k != "separable_resample_3d"),
+            f"mednist bundle: a kernel off this path launched: {counts}")
+    network = trainer.network
+    fresh = DenseNet121(2, 1, cfg["num_classes"], device="cpu")
+    fresh.load_state_dict(torch.load(top / "models" / "model_final.ckpt", map_location="cpu", weights_only=True)["model"])
+    require(all(torch.equal(v, network.state_dict()[k].cpu()) for k, v in fresh.state_dict().items()),
+            "mednist bundle: the checkpoint is not the trained network")
+    zoom = mednist_zoom_sites(Counter(resized), dev)
+
+    # RandRotated on the card against the CPU, the same draw on the same image
+    item = trainer.data_loader.dataset.data[0]
+    outs = []
+    for device in (dev, "cpu"):
+        pre = Compose([LoadImaged(keys="image", device=device), EnsureChannelFirstd(keys="image"),
+                       ScaleIntensityd(keys="image")])
+        rot = RandRotated(keys="image", range_x=0.26, prob=1.0, keep_size=True).set_random_state(5)
+        outs.append(rot(pre(dict(item)))["image"].data.cpu())
+    err, rel = rel_err(outs[0], outs[1])
+    print(f"RandRotated (angle {rot.t.x:.4f}) on the card against the CPU: {rel:.3g} of max|ref| (tol {TOL_RESAMPLE})",
+          flush=True)
+    require(rel <= TOL_RESAMPLE, "RandRotated on the card disagrees with the CPU")
+
+    # the trained network against the CPU: a validation batch's forward, a batch-8 step
+    val = next(iter(evaluator.data_loader))
+    x_val = val["image"].data
+    cpu = DenseNet121(2, 1, cfg["num_classes"], device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in network.state_dict().items()})
+    card = copy.deepcopy(cpu).to(dev)
+    with torch.no_grad():
+        ref = cpu.eval()(x_val.cpu())
+        got = card.eval()(x_val.to(dev)).cpu()
+    fwd = (got - ref).abs().max().item() / ref.std().item()
+    loss_fn = CrossEntropyLoss()
+    first = next(iter(trainer.data_loader))
+    x, y = first["image"].data, first["label"]
+    results = []
+    for net, device in ((cpu, "cpu"), (card, dev)):
+        net.train()
+        net.zero_grad(set_to_none=True)
+        loss = loss_fn(net(x.to(device)), y.to(device))
+        loss.backward()
+        results.append((loss.item(), {k: p.grad.double().cpu().reshape(-1) for k, p in net.named_parameters()}))
+    (loss_cpu, g_cpu), (loss_card, g_card) = results
+    cosines = sorted((F.cosine_similarity(g_card[k][None], g_cpu[k][None]).item(), k) for k in g_cpu)
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    print(f"mednist trained DenseNet121 on the card against the CPU: a validation batch {tuple(x_val.shape)} in eval "
+          f"mode, max err {fwd:.3g} std of the CPU logits (tol {TOL_FWD_F32_MAX}); a batch-{x.shape[0]} float32 step's "
+          f"loss {loss_card:.6f} against {loss_cpu:.6f} ({loss_rel:.3g} relative, tol {TOL_STEP_F32}), least grad "
+          f"cosine {cosines[0][0]:.6f} ({cosines[0][1]}; tol {TRAIN_MIN_COSINE}; ReLU's kinks turn float32 order "
+          f"differences into grad differences)", flush=True)
+    require(fwd <= TOL_FWD_F32_MAX, "mednist: the trained network's forward on the card disagrees with the CPU")
+    require(loss_rel <= TOL_STEP_F32 and cosines[0][0] >= TRAIN_MIN_COSINE,
+            "mednist: the float32 step on the card disagrees with the CPU")
+    mednist_step_profile(network, {"image": x.to(dev), "label": y.to(dev)}, loss_fn)
+    del trainer, evaluator, engines, network, card
+    torch.cuda.empty_cache()
+    return zoom
+
+
 def inference_phases(dev) -> tuple:
     """Phases 2 to 6, under ``torch.inference_mode()``: the forward kernels at the inference paths'
     shapes, the sliding windows, the forwards against the CPU, the Spleen path and the filtering
@@ -2434,6 +2796,10 @@ def main() -> None:
     spleen_train_counts, spleen_train = spleen_train_bundle_phase(dev)
     conv_trained = {k: brats_counts[k] + spleen_train_counts[k] for k in ("conv3d_3x3_same", "conv3d_3x3_wgrad")}
 
+    # 13. the MedNIST bundle's train.json, the native ops its RandRotated needs, and kernel 3
+    # at its 2-D zoom sites
+    mednist_zoom = mednist_bundle_phase(dev)
+
     def f32_sites(summary: dict) -> dict:
         """A kernel's numbers summed over a float32 step's sites, for the kernels line."""
         return {key: v for key, v in summary.items() if key not in ("bytes_ms", "ops_ms", "bound_side")}
@@ -2496,8 +2862,9 @@ def main() -> None:
          "launches": swin_sw_counts[2] + trained["fused_window_attention"], **summaries["swinunetr"][2],
          "swin_train_float32": f32_sites(swin["attention_forward"])},
         {"name": "separable_resample_3d", "route": "cuda", "source": "monai_tpu_torch/csrc/separable_resample_3d.cu",
-         "replaces": "monai_tpu/ops/pallas_resample.py:117", "launches": spleen_counts[3] + bundle_counts[3],
-         **spleen["resample"]},
+         "replaces": "monai_tpu/ops/pallas_resample.py:117",
+         "launches": spleen_counts[3] + bundle_counts[3] + mednist_zoom["launches"], **spleen["resample"],
+         "mednist_zoom_2d": f32_sites(mednist_zoom)},
         {"name": "bilateral_filter_2d", "route": "cuda", "source": "monai_tpu_torch/csrc/bilateral_filter.cu",
          "replaces": "monai_tpu/ops/pallas_filtering.py:99", **filtering["B"]},
         {"name": "bilateral_filter_3d", "route": "cuda", "source": "monai_tpu_torch/csrc/bilateral_filter.cu",

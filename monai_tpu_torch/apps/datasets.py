@@ -1,7 +1,8 @@
-"""Datalists (counterpart of monai_tpu/apps/datasets.py: ``load_decathlon_datalist``
-and ``make_synthetic_datalist``): a Decathlon ``dataset.json`` read into a list of
-items, or a synthetic Decathlon-style NIfTI dataset written to disk, the fallback of the
-bundles' configs where no real data is staged."""
+"""Datalists (counterpart of monai_tpu/apps/datasets.py: ``load_decathlon_datalist``,
+``make_synthetic_datalist`` and ``make_synthetic_classification_datalist``): a Decathlon
+``dataset.json`` read into a list of items, or a synthetic Decathlon-style or MedNIST-style
+NIfTI dataset written to disk, the fallback of the bundles' configs where no real data is
+staged."""
 from __future__ import annotations
 
 import json
@@ -11,9 +12,9 @@ from pathlib import Path
 import numpy as np
 
 from ..data.nifti import write_nifti
-from ..data.synthetic import create_test_image_3d
+from ..data.synthetic import create_test_image_2d, create_test_image_3d
 
-__all__ = ["load_decathlon_datalist", "make_synthetic_datalist"]
+__all__ = ["load_decathlon_datalist", "make_synthetic_classification_datalist", "make_synthetic_datalist"]
 
 
 def load_decathlon_datalist(data_list_file_path: str, is_segmentation: bool = True,
@@ -62,4 +63,26 @@ def make_synthetic_datalist(dataset_dir: str, num_images: int = 8, spatial_size=
             write_nifti(seg.astype(np.uint8), seg_p)
         items.append({"image": img_p, "label": seg_p})
     n_train = max(1, int(round(section_splits[0] * num_images)))
+    return {"training": items[:n_train], "validation": items[n_train:] or items[-1:]}
+
+
+def make_synthetic_classification_datalist(dataset_dir: str, num_images: int = 32, spatial_size=(64, 64),
+                                           num_classes: int = 3, seed: int = 0, overwrite: bool = False) -> dict:
+    """Write ``num_images`` 2-D float32 phantoms (``img000_c0.nii.gz``) under ``dataset_dir``,
+    image ``i`` of class ``i % num_classes`` drawn with ``i % num_classes + 1`` circles, from
+    one ``RandomState(seed)`` as the JAX package draws them (files already there are kept
+    unless ``overwrite``), and return ``{"training": [...], "validation": [...]}`` items of
+    ``{"image": path, "label": class}``, the first 75% for training."""
+    root = Path(dataset_dir)
+    root.mkdir(parents=True, exist_ok=True)
+    rs = np.random.RandomState(seed)
+    items = []
+    for i in range(num_images):
+        cls = int(i % num_classes)
+        img_p = str(root / f"img{i:03d}_c{cls}.nii.gz")
+        if overwrite or not os.path.exists(img_p):
+            im, _ = create_test_image_2d(*spatial_size, num_objs=cls + 1, rad_max=10, rad_min=4, random_state=rs)
+            write_nifti(im.astype(np.float32), img_p)
+        items.append({"image": img_p, "label": cls})
+    n_train = max(1, int(round(0.75 * num_images)))
     return {"training": items[:n_train], "validation": items[n_train:] or items[-1:]}

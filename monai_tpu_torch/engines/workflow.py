@@ -87,7 +87,8 @@ class Workflow(EventEmitter):
             value = metric.aggregate()
             if isinstance(value, (tuple, list)):
                 value = value[0]
-            self.state.metrics[name] = float(torch.as_tensor(value).reshape(-1)[0])
+            value = value if isinstance(value, torch.Tensor) else torch.as_tensor(value, dtype=torch.float64)
+            self.state.metrics[name] = float(value.reshape(-1)[0])
             metric.reset()
         key = self.state.key_metric_name
         if key in self.state.metrics:

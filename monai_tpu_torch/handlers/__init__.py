@@ -1,3 +1,3 @@
 from .checkpoint import CheckpointLoader, CheckpointSaver
 from .handlers import StatsHandler, ValidationHandler
-from .ignite_metric import IgniteMetricHandler, MeanDice, from_engine
+from .ignite_metric import ROCAUC, IgniteMetricHandler, MeanDice, from_engine

@@ -1,4 +1,4 @@
-"""``from_engine``, ``IgniteMetricHandler`` and ``MeanDice`` (counterpart of
+"""``from_engine``, ``IgniteMetricHandler``, ``MeanDice`` and ``ROCAUC`` (counterpart of
 monai_tpu/handlers/ignite_metric.py): pick keys out of an engine's output, and a
 cumulative metric that an engine's ``key_metric`` or ``additional_metrics`` take. The
 engine feeds such a metric each iteration's predictions and labels (stacked where it
@@ -8,11 +8,11 @@ from __future__ import annotations
 
 from collections.abc import Callable
 
-from ..metrics import DiceMetric
+from ..metrics import DiceMetric, ROCAUCMetric
 from ..utils.enums import MetricReduction
 from ..utils.misc import ensure_tuple
 
-__all__ = ["IgniteMetricHandler", "MeanDice", "from_engine"]
+__all__ = ["IgniteMetricHandler", "MeanDice", "ROCAUC", "from_engine"]
 
 
 def from_engine(keys, first: bool = False):
@@ -60,3 +60,11 @@ class MeanDice(IgniteMetricHandler):
                  num_classes: int | None = None, output_transform: Callable = lambda x: x):
         super().__init__(DiceMetric(include_background=include_background, reduction=reduction,
                                     num_classes=num_classes), output_transform)
+
+
+class ROCAUC(IgniteMetricHandler):
+    """The area under the ROC curve (``metrics.ROCAUCMetric``) over an epoch's predictions
+    and labels, averaged over the classes by ``average``."""
+
+    def __init__(self, average: str = "macro", output_transform: Callable = lambda x: x):
+        super().__init__(ROCAUCMetric(average=average), output_transform)

@@ -1,1 +1,2 @@
 from .dice import DiceCELoss, DiceLoss
+from .other import CrossEntropyLoss

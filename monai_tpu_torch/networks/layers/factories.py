@@ -20,6 +20,9 @@ factory does (``nnx.GroupNorm`` is a library op there too, no kernel). ``Act``:
 the learnable PReLU (init 0.25), ReLU, LeakyReLU (slope 0.01) and GELU in the tanh
 approximation, which is ``jax.nn.gelu``'s default (torch MONAI uses the exact erf).
 ``Dropout``: torch's dropouts (``dropout_dim`` 1 drops elements, 2 and 3 whole channels).
+``Pool``: torch's max, average and adaptive pools at 1 to 3 dimensions (a max pool pads
+with -inf and an average pool counts its zero padding, as ``nnx.max_pool`` and
+``nnx.avg_pool`` do).
 
 Constructors take ``device``, ``dtype`` and a ``torch.Generator``; weights are drawn
 from the generator on the generator's device and copied in, so one seed gives the
@@ -39,8 +42,9 @@ from ...ops.conv3d import conv3d_3x3_same
 from ...utils.backend import full_float32
 from .fast_norm import InstanceNorm
 
-__all__ = ["LayerFactory", "Conv", "ConvTrans", "Norm", "Act", "Dropout", "Conv3d", "ConvTranspose3d", "split_args",
-           "get_act_layer", "get_dropout_layer", "get_norm_layer", "init_uniform_", "linear"]
+__all__ = ["LayerFactory", "Conv", "ConvTrans", "Norm", "Act", "Dropout", "Pool", "Conv3d", "ConvTranspose3d",
+           "split_args", "get_act_layer", "get_dropout_layer", "get_norm_layer", "get_pool_layer", "init_uniform_",
+           "linear"]
 
 
 class LayerFactory:
@@ -82,6 +86,7 @@ ConvTrans = LayerFactory("ConvTrans")
 Norm = LayerFactory("Norm")
 Act = LayerFactory("Act")
 Dropout = LayerFactory("Dropout")
+Pool = LayerFactory("Pool")
 
 
 @torch.no_grad()
@@ -317,6 +322,27 @@ def dropout_factory(dim: int):
     return make
 
 
+_POOLS = {"max": (nn.MaxPool1d, nn.MaxPool2d, nn.MaxPool3d), "avg": (nn.AvgPool1d, nn.AvgPool2d, nn.AvgPool3d),
+          "adaptivemax": (nn.AdaptiveMaxPool1d, nn.AdaptiveMaxPool2d, nn.AdaptiveMaxPool3d),
+          "adaptiveavg": (nn.AdaptiveAvgPool1d, nn.AdaptiveAvgPool2d, nn.AdaptiveAvgPool3d)}
+
+
+def _pool_factory(kind: str):
+    def factory(dim: int):
+        cls = _POOLS[kind][dim - 1]
+
+        def make(*args, device=None, dtype=None, **kwargs):
+            return cls(*args, **kwargs)
+
+        return make
+
+    return factory
+
+
+for _kind in _POOLS:
+    Pool.factory_function(_kind)(_pool_factory(_kind))
+
+
 def get_norm_layer(name, spatial_dims: int = 1, channels: int | None = None, device=None, dtype=None):
     """A norm layer from a spec such as ``"INSTANCE"`` or ``("instance", {"affine": True})``."""
     norm_name, norm_args = split_args(name)
@@ -330,6 +356,12 @@ def get_act_layer(name, device=None, dtype=None):
     """An activation layer from a spec such as ``"PRELU"``."""
     act_name, act_args = split_args(name)
     return Act[act_name, 1](device=device, dtype=dtype, **act_args)
+
+
+def get_pool_layer(name, spatial_dims: int = 1):
+    """A pool layer from a spec such as ``("max", {"kernel_size": 2})``."""
+    pool_name, pool_args = split_args(name)
+    return Pool[pool_name, spatial_dims](**pool_args)
 
 
 def get_dropout_layer(name, dropout_dim: int = 1):

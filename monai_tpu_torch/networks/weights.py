@@ -1,5 +1,5 @@
-"""Weight bridge: a monai_tpu UNet's, SwinUNETR's, SegResNet's or trainable bilateral
-filter's parameters as a monai_tpu_torch ``state_dict``.
+"""Weight bridge: a monai_tpu UNet's, SwinUNETR's, SegResNet's, DenseNet's or trainable
+bilateral filter's parameters as a monai_tpu_torch ``state_dict``.
 
 The input is keyed by the flattened nnx variable paths of ``monai_tpu``'s network, e.g.
 ``model.down.convs.0.conv.kernel``, ``model.down.convs.0.adn.2.alpha`` or
@@ -19,7 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["filter_state_dict_from_jax", "segresnet_state_dict_from_jax", "swin_state_dict_from_jax",
+__all__ = ["densenet_state_dict_from_jax", "filter_state_dict_from_jax", "segresnet_state_dict_from_jax", "swin_state_dict_from_jax",
            "unet_state_dict_from_jax"]
 
 _ADN_LEAVES = {"alpha": "A.weight", "scale": "N.weight", "bias": "N.bias", "mean": "N.running_mean",
@@ -161,6 +161,57 @@ def segresnet_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.
         elif leaf != "bias":
             raise KeyError(f"cannot map {path}")
         out[".".join(toks)] = torch.tensor(np.ascontiguousarray(arr))
+    return out
+
+
+_NORM_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def densenet_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Map ``{nnx variable path: array}`` of a monai_tpu DenseNet (its ``Param``s and its
+    batch norms' ``BatchStat``s) to the port's ``state_dict``, loadable with
+    ``DenseNet.load_state_dict(strict=True)``. The JAX net's ``blocks`` list alternates dense
+    blocks and transitions and ends with the last norm: ``blocks.<2i>.layers.<j>`` is
+    ``features.denseblock<i+1>.denselayer<j+1>.layers``, ``blocks.<2i+1>``
+    ``features.transition<i+1>``, the last ``features.norm5``; ``conv0``, ``norm0`` and
+    ``classifier`` are ``features.conv0``, ``features.norm0`` and ``class_layers.out``.
+    Conv kernels (*K, I, O) become (O, I, *K), the linear kernel (I, O) is transposed, a
+    norm's ``scale``, ``mean`` and ``var`` are its ``weight``, ``running_mean`` and
+    ``running_var``, and each norm gains ``num_batches_tracked``."""
+    last = max(int(p.split(".")[1]) for p in params if p.startswith("blocks."))
+    out: dict[str, torch.Tensor] = {}
+    norms = set()
+    for path, value in params.items():
+        toks = path.split(".")
+        arr = np.asarray(value)
+        if toks[0] == "blocks":
+            b = int(toks[1])
+            if b == last:
+                head = ["features", "norm5"]
+            elif b % 2 == 0:
+                head = ["features", f"denseblock{b // 2 + 1}", f"denselayer{int(toks[3]) + 1}", "layers"]
+                toks = toks[2:]
+            else:
+                head = ["features", f"transition{b // 2 + 1}"]
+            toks = head + toks[2:]
+        elif toks[0] in ("conv0", "norm0"):
+            toks = ["features", *toks]
+        elif toks[0] == "classifier":
+            toks = ["class_layers", "out", *toks[1:]]
+        else:
+            raise KeyError(f"cannot map {path}")
+        leaf = toks[-1]
+        if leaf == "kernel":
+            arr = arr.T if toks[1] == "out" else _conv_weight(arr, False)
+            toks[-1] = "weight"
+        elif toks[1] != "out":
+            if leaf not in _NORM_LEAVES:
+                raise KeyError(f"cannot map {path}")
+            toks[-1] = _NORM_LEAVES[leaf]
+            norms.add(".".join(toks[:-1]))
+        out[".".join(toks)] = torch.tensor(np.ascontiguousarray(arr))
+    for norm in norms:
+        out[f"{norm}.num_batches_tracked"] = torch.tensor(0)
     return out
 
 

@@ -104,13 +104,15 @@ def _filter_one(x: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
     return out[:, :c].T / out[:, c].clamp(min=1e-8)[None, :]
 
 
-def permutohedral_filter(data: torch.Tensor, features: torch.Tensor) -> torch.Tensor:
-    """Gaussian filtering of ``data`` (B, C, *spatial) in the space of the sigma-scaled
-    ``features`` (B, F, *spatial), any F: the lattice approximates
-    W_ij = exp(-|f_i - f_j|^2 / 2). float32 sums; returns data's type."""
+def permutohedral_filter(data: torch.Tensor, features: torch.Tensor, sigmas=None) -> torch.Tensor:
+    """Gaussian filtering of ``data`` (B, C, *spatial) in the space of ``features``
+    (B, F, *spatial), any F, feature i divided by ``sigmas[i]`` where given: the lattice
+    approximates W_ij = exp(-|f_i - f_j|^2 / 2). float32 sums; returns data's type."""
     b, c = data.shape[:2]
     f = features.shape[1]
     n = int(np.prod(data.shape[2:]))
     x, feat = data.reshape(b, c, n).float(), features.reshape(b, f, n).float()
+    if sigmas is not None:
+        feat = feat / torch.as_tensor(sigmas, dtype=torch.float32, device=feat.device).reshape(1, f, 1)
     out = torch.stack([_filter_one(x[i], feat[i]) for i in range(b)])
     return out.reshape(data.shape).to(data.dtype)

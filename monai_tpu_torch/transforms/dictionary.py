@@ -13,11 +13,12 @@ from ..utils.enums import LazyAttr
 from ..utils.misc import ensure_tuple_rep
 from .compose import Compose
 from .croppad_array import CropForeground, RandCropByPosNegLabel, RandSpatialCrop
-from .intensity_array import NormalizeIntensity, RandScaleIntensity, RandShiftIntensity, ScaleIntensityRange
+from .intensity_array import (NormalizeIntensity, RandScaleIntensity, RandShiftIntensity, ScaleIntensity,
+                              ScaleIntensityRange)
 from .inverse import InvertibleTransform
 from .io_array import LoadImage, SaveImage
 from .post_array import Activations, AsDiscrete
-from .spatial_array import Orientation, RandFlip, RandRotate90, Spacing
+from .spatial_array import Orientation, RandFlip, RandRotate, RandRotate90, RandZoom, Spacing
 from .traits import LazyTrait
 from .transform import MapTransform, Randomizable, RandomizableTransform
 from .utility_array import ConvertToMultiChannelBasedOnBratsClasses, EnsureChannelFirst
@@ -26,7 +27,8 @@ from .utils import is_positive
 __all__ = ["LoadImaged", "EnsureChannelFirstd", "Orientationd", "Spacingd", "ScaleIntensityRanged", "Activationsd",
            "AsDiscreted", "CropForegroundd", "RandCropByPosNegLabeld", "RandFlipd", "RandRotate90d",
            "RandShiftIntensityd", "Invertd", "SaveImaged", "ConvertToMultiChannelBasedOnBratsClassesd",
-           "NormalizeIntensityd", "RandScaleIntensityd", "RandSpatialCropd"]
+           "NormalizeIntensityd", "RandScaleIntensityd", "RandSpatialCropd", "ScaleIntensityd", "RandRotated",
+           "RandZoomd"]
 
 
 def _mapped(name: str, array_cls, call_kwargs: tuple = ()):
@@ -64,6 +66,7 @@ def _mapped(name: str, array_cls, call_kwargs: tuple = ()):
 Spacingd = _mapped("Spacingd", Spacing, call_kwargs=("mode", "padding_mode", "align_corners"))
 Orientationd = _mapped("Orientationd", Orientation)
 ScaleIntensityRanged = _mapped("ScaleIntensityRanged", ScaleIntensityRange)
+ScaleIntensityd = _mapped("ScaleIntensityd", ScaleIntensity)
 EnsureChannelFirstd = _mapped("EnsureChannelFirstd", EnsureChannelFirst)
 NormalizeIntensityd = _mapped("NormalizeIntensityd", NormalizeIntensity)
 ConvertToMultiChannelBasedOnBratsClassesd = _mapped("ConvertToMultiChannelBasedOnBratsClassesd",
@@ -120,6 +123,9 @@ RandShiftIntensityd = _mapped_rand("RandShiftIntensityd", RandShiftIntensity, la
 RandScaleIntensityd = _mapped_rand("RandScaleIntensityd", RandScaleIntensity, lambda t, data: t.randomize(data))
 # the JAX package's dictionary form draws from the first key's data shape, not its pending one
 RandSpatialCropd = _mapped_rand("RandSpatialCropd", RandSpatialCrop, lambda t, data: t.randomize(data.shape[1:]))
+RandRotated = _mapped_rand("RandRotated", RandRotate, lambda t, data: t.randomize(data))
+# the zoom factors a spatial axis from the first key's data shape
+RandZoomd = _mapped_rand("RandZoomd", RandZoom, lambda t, data: t.randomize(data))
 
 
 class CropForegroundd(MapTransform, InvertibleTransform):

@@ -1,5 +1,5 @@
-"""ScaleIntensityRange, NormalizeIntensity, RandShiftIntensity and RandScaleIntensity
-(counterpart of monai_tpu/transforms/intensity_array.py)."""
+"""ScaleIntensityRange, ScaleIntensity, NormalizeIntensity, RandShiftIntensity and
+RandScaleIntensity (counterpart of monai_tpu/transforms/intensity_array.py)."""
 from __future__ import annotations
 
 from collections.abc import Sequence
@@ -11,7 +11,7 @@ from ..data.meta_image import MetaImage
 from ..utils.backend import get_torch_dtype
 from .transform import RandomizableTransform, Transform
 
-__all__ = ["NormalizeIntensity", "RandScaleIntensity", "RandShiftIntensity", "ScaleIntensityRange"]
+__all__ = ["NormalizeIntensity", "RandScaleIntensity", "RandShiftIntensity", "ScaleIntensity", "ScaleIntensityRange"]
 
 
 class ScaleIntensityRange(Transform):
@@ -35,6 +35,35 @@ class ScaleIntensityRange(Transform):
                 x = x.clamp(self.b_min, self.b_max)
             x = x.to(get_torch_dtype(self.dtype))
         return img.new_like(x) if isinstance(img, MetaImage) else x
+
+
+class ScaleIntensity(Transform):
+    """Rescale linearly onto [minv, maxv] (a constant image to minv; only maxv given: the
+    [0, 1] map times it; only minv: plus it), or, with both None, times 1 + ``factor``; over
+    the whole image or each channel (``channel_wise``), in ``dtype`` (float32)."""
+
+    def __init__(self, minv: float | None = 0.0, maxv: float | None = 1.0, factor: float | None = None,
+                 channel_wise: bool = False, dtype=torch.float32):
+        self.minv, self.maxv, self.factor = minv, maxv, factor
+        self.channel_wise = channel_wise
+        self.dtype = get_torch_dtype(dtype)
+
+    def _rescale(self, x: torch.Tensor) -> torch.Tensor:
+        if self.minv is None and self.maxv is None:
+            return (x * (1 + (self.factor or 0.0))).to(self.dtype)
+        mina, maxa = x.min(), x.max()
+        denom = maxa - mina
+        norm = torch.zeros_like(x) if denom == 0 else (x - mina) / denom
+        if self.minv is None:
+            return (norm * self.maxv).to(self.dtype)
+        if self.maxv is None:
+            return (norm + self.minv).to(self.dtype)
+        return (norm * (self.maxv - self.minv) + self.minv).to(self.dtype)
+
+    def __call__(self, img: Any):
+        x = (img.data if isinstance(img, MetaImage) else img).to(self.dtype)
+        out = torch.stack([self._rescale(c) for c in x]) if self.channel_wise else self._rescale(x)
+        return img.new_like(out) if isinstance(img, MetaImage) else out
 
 
 class RandShiftIntensity(RandomizableTransform):

@@ -6,15 +6,18 @@ float64 matrix M with data_new[x] = data_old[M @ x] (output voxel to input voxel
 image affine becomes A @ M), ``lazy_shape``, the output spatial shape, and the resample
 settings. Applying op 1 then op 2 is one operation with matrix M1 @ M2.
 
-``apply_affine_to_data`` runs on the data's device, in one of two tiers:
+``apply_affine_to_data`` runs on the data's device, in one of three tiers:
 
 1. an integer signed permutation with an integer shift (Orientation, flips, crops and
    pads): permute, slice, pad and flip, with no arithmetic;
-2. a diagonal affine (Spacing, Resize, Zoom): the separable resample,
+2. a diagonal affine (Spacing, Resize, Zoom) at order 0, 1 or 3: the separable resample,
    ``ops/separable_resample.py``, on the card's kernel for a CUDA tensor and its plain
-   version for a CPU tensor; a 2-D image runs as a depth-1 volume.
+   version for a CPU tensor; a 2-D image runs as a depth-1 volume;
+3. any other affine (Rotate, a shear): ``ops.resample.affine_resample``, the gather of
+   ``grid_pull`` at any spline order, on the data's device.
 
-The JAX package's third tier, a general affine through ``ops/resample.py``, raises here.
+The JAX package's host path for numpy float32 arrays (a C++ library of its own) has no
+counterpart: the port's data are tensors on their device.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.resample import affine_resample, resolve_mode
 from ..ops.separable import is_separable
 from ..ops.separable_resample import separable_resample_3d
 from ..utils.enums import LazyAttr
@@ -32,19 +36,11 @@ from ..utils.enums import LazyAttr
 __all__ = ["pending_op", "affine_from_pending", "kwargs_from_pending", "is_compatible_apply_kwargs",
            "combine_transforms", "requires_interp", "apply_affine_to_data", "resample", "resolve_mode"]
 
-_ORDER = {"nearest": 0, "nearest-exact": 0, 0: 0, "bilinear": 1, "linear": 1, "trilinear": 1, 1: 1,
-          "bicubic": 3, "cubic": 3, 3: 3}
 _BOUNDS = ("zeros", "border", "reflection")
-# tier 1's padding, as torch's F.pad modes
-_PAD_MODES = {"zeros": "constant", "constant": "constant", "border": "replicate", "edge": "replicate",
-              "replicate": "replicate", "reflection": "reflect", "reflect": "reflect", "wrap": "circular"}
-
-
-def resolve_mode(mode: Any) -> int:
-    """An interpolation mode name or spline order as the order: 0, 1 or 3."""
-    if mode in _ORDER:
-        return _ORDER[mode]
-    raise ValueError(f"Unsupported interpolation mode: {mode!r} (the port resamples at orders 0, 1 and 3)")
+# the padding of tier 1 and of Zoom's eager pad, as torch's F.pad modes
+PAD_MODES = {"zeros": "constant", "constant": "constant", "border": "replicate", "edge": "replicate",
+             "replicate": "replicate", "reflection": "reflect", "reflect": "reflect", "wrap": "circular",
+             "circular": "circular"}
 
 
 def pending_op(matrix: np.ndarray, shape: Sequence[int], mode: Any = None, padding_mode: Any = None,
@@ -127,10 +123,10 @@ def _apply_integer_affine(data: torch.Tensor, desc, out_shape: tuple, padding_mo
         slicer.append(slice(s0, s1))
     x = x[tuple(slicer)]
     if any(lo or hi for lo, hi in pads):
-        mode = _PAD_MODES.get(str(padding_mode))
+        mode = PAD_MODES.get(str(padding_mode))
         if mode is None:
             raise NotImplementedError(f"padding mode {padding_mode!r} is not ported; "
-                                      f"the port pads with {sorted(_PAD_MODES)}")
+                                      f"the port pads with {sorted(PAD_MODES)}")
         flat = [p for lo_hi in reversed(pads) for p in lo_hi]  # F.pad lists the last axis first
         x = F.pad(x, flat) if mode == "constant" else F.pad(x[None], flat, mode=mode)[0]
     flip_axes = [out_ax + 1 for out_ax in range(d) if desc[out_ax][1] < 0]
@@ -166,11 +162,12 @@ def apply_affine_to_data(data: torch.Tensor, matrix: np.ndarray, out_shape: Sequ
     if desc is not None:
         return _apply_integer_affine(data, desc, out_shape, padding_mode)
     m = np.asarray(matrix, dtype=np.float64)
-    if m.shape[0] - 1 == len(out_shape) and is_separable(m):
-        bound = padding_mode if padding_mode in _BOUNDS else "zeros"
-        return _separable(data, m, out_shape, resolve_mode(mode), bound, align_corners)
-    raise NotImplementedError("a rotated or sheared affine needs the general resample (monai_tpu/ops/resample.py), "
-                              "which the port has not yet: the ROADMAP item 'Native ops'")
+    bound = padding_mode if padding_mode in _BOUNDS else "zeros"
+    order = resolve_mode(mode)
+    if m.shape[0] - 1 == len(out_shape) and is_separable(m) and order in (0, 1, 3):
+        return _separable(data, m, out_shape, order, bound, align_corners)
+    x = data if data.dtype.is_floating_point else data.float()
+    return affine_resample(x, m, out_shape, mode=order, padding_mode=bound, align_corners=align_corners)
 
 
 def resample(data: torch.Tensor, matrix: np.ndarray, kwargs: dict | None = None) -> torch.Tensor:

@@ -36,8 +36,8 @@ class Activations(Transform):
 
 class AsDiscrete(Transform):
     """Argmax over the channel axis, kept with size 1, where ``argmax`` is set; then a
-    one-hot encoding into ``to_onehot`` channels (of a one-channel map of class indices)
-    where it is given; then 1 where the value is at least ``threshold``, 0 elsewhere,
+    one-hot encoding into ``to_onehot`` channels (of a one-channel map of class indices, or
+    of one class index, as a decollated classification label) where it is given; then 1 where the value is at least ``threshold``, 0 elsewhere,
     where it is given; as float32."""
 
     def __init__(self, argmax: bool = False, to_onehot: int | None = None, threshold: float | None = None):
@@ -49,12 +49,14 @@ class AsDiscrete(Transform):
 
     def __call__(self, img: Any, argmax: bool | None = None, to_onehot: int | None = None,
                  threshold: float | None = None):
-        data = img.data if isinstance(img, MetaImage) else img
+        data = img.data if isinstance(img, MetaImage) else torch.as_tensor(img)
         out = torch.argmax(data, dim=0, keepdim=True) if (self.argmax if argmax is None else argmax) else data
         to_onehot = self.to_onehot if to_onehot is None else to_onehot
         if to_onehot is not None:
             if not isinstance(to_onehot, int) or isinstance(to_onehot, bool):
                 raise ValueError(f"the number of classes for One-Hot must be an integer, got {type(to_onehot)}.")
+            if out.ndim == 0:  # a class index, as a classifier's label: one channel
+                out = out[None]
             if out.shape[0] != 1:
                 raise AssertionError("labels should have a channel with length equal to one.")
             out = torch.nn.functional.one_hot(out[0].long(), to_onehot).movedim(-1, 0)

@@ -2,7 +2,8 @@
 monai_tpu/transforms/utils.py): the foreground bounding box, the foreground and
 background voxel indices of a label, and the random crop centers drawn from them. The
 centers are the JAX package's own numpy arithmetic on the host, with the same draws from
-the same ``RandomState``, so one seed gives the same centers in both packages."""
+the same ``RandomState``, so one seed gives the same centers in both packages; and the
+rotation and translation matrices of Rotate."""
 from __future__ import annotations
 
 from collections.abc import Callable, Sequence
@@ -15,7 +16,7 @@ from ..data.meta_image import MetaImage
 from ..utils.backend import to_numpy
 from ..utils.misc import ensure_tuple, ensure_tuple_rep, fall_back_tuple
 
-__all__ = ["correct_crop_centers", "generate_pos_neg_label_crop_centers", "generate_spatial_bounding_box",
+__all__ = ["correct_crop_centers", "create_rotate", "create_translate", "generate_pos_neg_label_crop_centers", "generate_spatial_bounding_box",
            "is_positive", "map_binary_to_indices", "map_spatial_axes"]
 
 
@@ -125,3 +126,34 @@ def map_binary_to_indices(label: Any, image: Any = None, image_threshold: float 
     else:
         bg_indices = np.nonzero(~label_flat)[0]
     return fg_indices, bg_indices
+
+
+def create_rotate(spatial_dims: int, radians: Sequence[float] | float) -> np.ndarray:
+    """The float64 homogeneous rotation: 2-D by one angle; 3-D about axes 0, 1 and 2 in
+    turn, for as many angles as are given."""
+    if spatial_dims not in (2, 3):
+        raise ValueError(f"spatial rank must be 2 or 3, got {spatial_dims}")
+    radians = ensure_tuple(radians)
+    if not radians:
+        raise ValueError("radians must be non empty")
+    if spatial_dims == 2:
+        sin_, cos_ = np.sin(radians[0]), np.cos(radians[0])
+        return np.array([[cos_, -sin_, 0.0], [sin_, cos_, 0.0], [0.0, 0.0, 1.0]], dtype=np.float64)
+    affine = None
+    for axis, angle in enumerate(radians[:3]):
+        sin_, cos_ = np.sin(angle), np.cos(angle)
+        a, b = [(1, 2), (0, 2), (0, 1)][axis]
+        mat = np.eye(4)
+        mat[a, a], mat[b, b] = cos_, cos_
+        # about axis 1 the sine's signs are the other way round
+        mat[a, b], mat[b, a] = (sin_, -sin_) if axis == 1 else (-sin_, sin_)
+        affine = mat if affine is None else affine @ mat
+    return affine
+
+
+def create_translate(spatial_dims: int, shift: Sequence[float] | float) -> np.ndarray:
+    """The float64 homogeneous translation by ``shift``."""
+    affine = np.eye(spatial_dims + 1, dtype=np.float64)
+    for i, a in enumerate(ensure_tuple(shift)[:spatial_dims]):
+        affine[i, spatial_dims] = a
+    return affine

@@ -545,6 +545,73 @@ def test_separable_resample_kernel_at_the_spleen_sites(cuda, site):
         assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
+@pytest.mark.parametrize("size", range(57, 71))
+def test_separable_resample_kernel_at_the_mednist_zoom_sites(cuda, size):
+    """The MedNIST bundle's RandZoomd on a 64x64 image (z in [0.9, 1.1]): a depth-1 volume
+    (1, 1, 64, 64) resampled to (1, 1, size, size) at order 1, border, the half-pixel map of
+    Zoom, against the plain version (1e-5) and ``F.interpolate(mode="bilinear",
+    align_corners=False)``, which computes the same map (1e-5)."""
+    m = _diag([1.0, 64 / size, 64 / size], [0.0, (64 / size - 1) / 2, (64 / size - 1) / 2])
+    x = torch.rand((1, 1, 64, 64), generator=torch.Generator(device=cuda).manual_seed(size), device=cuda)
+    with torch.inference_mode():
+        before = separable_resample_3d.launches
+        got = separable_resample_3d(x, m, (1, size, size), 1, "border")
+        assert separable_resample_3d.launches == before + 1
+        ref = separable_resample_3d_plain(x, m, (1, size, size), 1, "border")
+        lib = torch.nn.functional.interpolate(x, size=(size, size), mode="bilinear", align_corners=False)
+    assert got.shape == ref.shape == lib.shape == (1, 1, size, size)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert (lib - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_mednist_zoom_runs_kernel_3_on_the_card(cuda):
+    """RandZoomd on a CUDA image launches kernel 3 once a draw that resizes, and matches
+    the same draw on the CPU (1e-5)."""
+    from monai_tpu_torch.data import MetaImage
+    from monai_tpu_torch.transforms import RandZoomd
+
+    x = torch.rand((1, 64, 64), generator=torch.Generator().manual_seed(3))
+    for seed in range(6):
+        outs, launched = [], 0
+        for device in (cuda, "cpu"):
+            t = RandZoomd(keys="image", min_zoom=0.9, max_zoom=1.1, prob=1.0).set_random_state(seed)
+            before = separable_resample_3d.launches
+            outs.append(t({"image": MetaImage(x.to(device))})["image"].data.cpu())
+            launched += separable_resample_3d.launches - before
+        assert launched == int(int(64 * t.t._zoom[0]) != 64)
+        assert (outs[0] - outs[1]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("order", range(8))
+def test_grid_pull_and_push_on_the_card_match_the_cpu(cuda, order):
+    """The general resample's pull at every bound, and its push and count, on the card
+    against the CPU's float64 on the same float32 inputs: order 0 bit-identical to the CPU's
+    float32 pull, else 1e-5 of max|ref| (float32 sums of up to 8^3 taps; the push's
+    scatter-add in no fixed order)."""
+    from monai_tpu_torch.ops import resample as R
+
+    g = torch.Generator().manual_seed(order)
+    x = torch.randn((3, 20, 18, 16), generator=g)
+    a = np.eye(4)
+    a[:3, :3] = [[0.9, -0.3, 0.1], [0.35, 0.85, -0.2], [0.05, 0.25, 1.1]]
+    a[:3, 3] = [-2.0, 3.0, -1.5]
+    grid = R.affine_grid(a, (14, 15, 13)).float()
+    y = torch.randn((3, 14, 15, 13), generator=g)
+    for bound in ("zeros", "border", "reflection", "dct1", "dst1", "dst2", "dft", "sliding"):
+        got = R.grid_pull(x.to(cuda), grid.to(cuda), order, bound).cpu()
+        if order == 0:
+            assert torch.equal(got, R.grid_pull(x, grid, order, bound)), bound
+        else:
+            ref = R.grid_pull(x.double(), grid.double(), order, bound)
+            assert (got.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item(), bound
+        push = R.grid_push(y.to(cuda), grid.to(cuda), x.shape[1:], order, bound).cpu()
+        ref = R.grid_push(y.double(), grid.double(), x.shape[1:], order, bound)
+        assert (push.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item(), bound
+        count = R.grid_count(grid.to(cuda), x.shape[1:], order, bound).cpu()
+        ref = R.grid_count(grid.double(), x.shape[1:], order, bound)
+        assert (count.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item(), bound
+
+
 def test_separable_resample_kernel_rejects_other_types(cuda):
     with torch.inference_mode(), pytest.raises(TypeError):
         separable_resample_3d(torch.zeros((1, 4, 4, 4), device=cuda, dtype=torch.bfloat16), np.eye(4), (4, 4, 4))

@@ -159,10 +159,17 @@ def test_grid_pull(order, bound, in_spatial):
 
 
 def test_grid_pull_refuses_other_orders_and_bounds():
-    img, grid = torch.zeros(1, 4, 4), torch.zeros(3, 2)
+    # the orders and bounds past 0/1 at zeros/border/reflection now run (the JAX package's
+    # values; tests/test_torch_resample_native.py covers them all); an order or a bound
+    # that neither package knows is refused
+    rng = np.random.RandomState(5)
+    img, grid = rng.randn(1, 4, 4).astype(np.float32), rng.uniform(-1, 5, (3, 2)).astype(np.float32)
     for order, bound in [(3, "zeros"), (1, "dct1"), ("linear", "border")]:
-        with pytest.raises(NotImplementedError, match="Native ops"):
-            grid_pull(img, grid, order, bound)
+        _close(grid_pull(T(img), T(grid), order, bound), jax_grid_pull(jnp.asarray(img), jnp.asarray(grid), order,
+                                                                        bound), 1e-5)
+    for order, bound in [(8, "zeros"), (1, "bogus"), (1, "sliding")]:
+        with pytest.raises(ValueError):
+            grid_pull(T(img), T(grid), order, bound)
 
 
 @pytest.mark.parametrize("shape,ss,cs", [((2, 1, 20, 24), 2.0, 0.3), ((1, 2, 17, 13), 1.0, 0.05)])

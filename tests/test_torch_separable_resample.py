@@ -157,10 +157,15 @@ def test_integer_tier_matches_jax(img, matrix, out_shape, padding_mode):
 
 
 def test_general_affine_is_not_ported(img):
+    # a rotated affine is no separable resample: it takes tier 3, ops.resample's
+    # affine_resample, as the JAX package's does on a jnp array (float32 sums of the same
+    # taps in another order: 1e-5 of max|ref|)
     rot = np.eye(4)
     rot[:2, :2] = [[0.8, -0.6], [0.6, 0.8]]
-    with pytest.raises(NotImplementedError, match="Native ops"):
-        apply_affine_to_data(torch.from_numpy(img), rot, OUT)
+    got = apply_affine_to_data(torch.from_numpy(img), rot, OUT).numpy()
+    ref = np.asarray(jax_apply_affine_to_data(jnp.asarray(img), rot, OUT))
+    assert got.shape == ref.shape == (2, *OUT)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("kwargs,error", [
