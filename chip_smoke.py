@@ -41,6 +41,16 @@ Drives the port's paths, each at full width with random weights from a seed:
   sigmoids, AdamW) and the Spleen bundle's ``train.json`` (the float32 batch-norm UNet, 8
   96³ crops a step, ``DiceCELoss``, Adam) through the port's runner, each with kernel 1's
   forward, dx and dw at its float32 sites.
+- Auto3DSeg: ``bundles/auto3dseg/configs/run.json`` through the port's runner
+  (``AutoRunner``: ``DataAnalyzer``, ``BundleGen``'s UNet and SegResNet templates over 2
+  folds, four bundles trained in float32 at batches of 2 images x 2 96³ crops, the
+  best-by-fold ensemble) on 8 phantoms at 160x160x200, and the ensemble's prediction of the
+  2 held out.
+- DynUNet: the nnU-Net plans bridge's ``DynUNet`` at the 3d_fullres width of nnU-Net's
+  default planner for a 1 mm CT (features 32-320, six stages, instance norm with affine,
+  LeakyReLU 0.01, 3 deep-supervision heads) trained by ``SupervisedTrainer`` in float32 on
+  batches of 2 128³ patches with ``DeepSupervisionLoss(DiceCELoss)`` and SGD at nnU-Net's
+  trainer defaults.
 - The Spleen bundle end to end: ``bundles/spleen_ct_segmentation/configs/inference.json``
   as it stands, through the port's bundle runner (``monai_tpu_torch.bundle.run``, then
   ``python -m monai_tpu_torch.bundle run``), over 4 copies of the spleen path's CT with its
@@ -149,6 +159,22 @@ Drives the port's paths, each at full width with random weights from a seed:
      ``F.interpolate``; ``RandRotated``, the trained net's forward and a batch-8 step against
      the CPU; one step's profile (device time, idle share, the convs', norms' and cats'
      launches)
+  14. the Auto3DSeg bundle's ``run.json`` through the port's runner, overriding its bundle
+     root, imports, initialize and ``synth_datalist`` (the file's expression at
+     160x160x200, which the templates' 96³ crops fit), after kernels 1 and B2 at the UNet
+     template's float32 sites and kernel 1 at the SegResNet's (batch 4): the analysis,
+     generation and each bundle's training times and steps/s, each iteration's launches
+     (UNet 10, 10, 10, 17, 17; SegResNet 25, 24, 25), every crop batch float32 on the card,
+     every loss and score finite, the best member of each fold chosen, each checkpoint
+     against its trained network, ``datastats.json`` against the port's CPU analyzer, the
+     ensemble's output of each held-out phantom on the card and the first against the same
+     members on the CPU; the peak memory; one UNet and one SegResNet step's profile (device
+     time, idle share, kernels by time)
+  15. DynUNet from an nnU-Net plans dict through ``get_network_from_nnunet_plans``, after
+     kernels 1 and B2 at its float32 sites (batch 2, 128³ down to 4³): a batch-1 64³ step on
+     the card against the CPU, then 2 warm-up and 5 timed trainer steps on one batch from a
+     seed: steps/s, the median step, the peak memory, each step's launches (17, 16, 17, 22,
+     22) and loss (the last below the first); one step's profile
 
 It prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0; so it is without a CUDA device.
@@ -337,6 +363,61 @@ def reset_launch_counts() -> None:
     _wrappers()[3].cuda_launches = 0  # the resample's CUDA launches, which its C function counts
 
 
+@contextlib.contextmanager
+def counted_iterations():
+    """Each training iteration's launches while the block runs: yields an object whose
+    ``start()`` is called as an iteration starts and ``stop()`` as it completes; ``stop``
+    appends the iteration's launches by wrapper name to ``iterations`` and returns them.
+    3x3x3 conv forwards are counted at the modules under autograd (``conv3d_forward``), and
+    the conv kernel's launches less those are dx (``conv3d_dx``)."""
+    from types import SimpleNamespace
+
+    from monai_tpu_torch.networks.layers.factories import Conv3d
+
+    conv_forward, forwards, before, iterations = Conv3d.forward, [0], [{}], []
+
+    def counted_forward(conv, x):
+        if conv.same_3x3x3 and torch.is_grad_enabled():
+            forwards[0] += 1
+        return conv_forward(conv, x)
+
+    def launches() -> dict:
+        return {**all_launch_counts(), "conv3d_forward": forwards[0]}
+
+    def start() -> None:
+        before[0] = launches()
+
+    def stop() -> dict:
+        after = launches()
+        it = {k: after[k] - before[0][k] for k in after}
+        it["conv3d_dx"] = it["conv3d_3x3_same"] - it["conv3d_forward"]
+        iterations.append(it)
+        return it
+
+    Conv3d.forward = counted_forward
+    try:
+        yield SimpleNamespace(iterations=iterations, start=start, stop=stop)
+    finally:
+        Conv3d.forward = conv_forward
+
+
+@contextlib.contextmanager
+def cudnn_kept():
+    """cuDNN's global settings restored after the block: a bundle's ``set_determinism``
+    turns ``deterministic`` on, which would otherwise hold for every later phase."""
+    cudnn = torch.backends.cudnn
+    kept = cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32 = kept
+
+
+def cudnn_settings() -> str:
+    cudnn = torch.backends.cudnn
+    return f"cuDNN deterministic {cudnn.deterministic}, benchmark {cudnn.benchmark}, TF32 {cudnn.allow_tf32}"
+
+
 def record_sites(net, window):
     """The shapes a path gives each kernel, read off one forward by hooks: Counters of
     (CI, CO, spatial) per 3x3x3 conv, (C, spatial, affine, slope) per norm and
@@ -432,19 +513,19 @@ def check_conv(sites: Counter, batch: int, dev, timed: torch.dtype = torch.bfloa
     return _summary(rows)
 
 
-def check_norm(sites: Counter, batch: int, dev) -> dict:
-    """Every site in bfloat16, float32 and float16; bfloat16 also timed against the plain
-    version and the library call ``F.instance_norm(x, w, b, eps=1e-5)`` on the same
-    channels-last tensor, which computes the norm and its affine but not the slope. Each
-    line names the kernel's plan (path, blocks, bytes a load, groups of units) and the
-    share of the bound the kernel reaches."""
+def check_norm(sites: Counter, batch: int, dev, checked=None, timed: torch.dtype = torch.bfloat16) -> dict:
+    """Every site in bfloat16, float32 and float16 (or the ``checked`` types); the ``timed``
+    type also timed against the plain version and the library call
+    ``F.instance_norm(x, w, b, eps=1e-5)`` on the same channels-last tensor, which computes
+    the norm and its affine but not the slope. Each line names the kernel's plan (path,
+    blocks, bytes a load, groups of units) and the share of the bound the kernel reaches."""
     from monai_tpu_torch.networks.layers.fast_norm import (_card, instance_norm_plan, instance_norm_prelu,
                                                            instance_norm_prelu_plain)
 
     g = torch.Generator(device=dev).manual_seed(3)
     rows = []
     for (c, sp, affine, slope), count in sorted(sites.items(), key=str):
-        for dtype, tol in CHECKED:
+        for dtype, tol in checked or CHECKED:
             x = (torch.randn((batch, c, *sp), generator=g, device=dev) * 3 + 1).to(dtype)
             x = x.contiguous(memory_format=torch.channels_last_3d)
             w = (torch.rand((c,), generator=g, device=dev) + 0.5).to(dtype) if affine else None
@@ -463,7 +544,7 @@ def check_norm(sites: Counter, batch: int, dev) -> dict:
                    f"{err:.4g} ({rel:.3g} of max|ref|, tol {tol})  first call {first_s:.2f} s  plan {plan['path']}, "
                    f"{plan['blocks']} blocks, {plan['vec_bytes']} B a load, {plan['units_per_group']} units a "
                    f"group x {plan['unit_groups']}")
-            if dtype == torch.bfloat16:
+            if dtype == timed:
                 k_ms, p_ms = paired_ms(lambda: instance_norm_prelu(x, w, b, a),
                                        lambda: instance_norm_prelu_plain(x, w, b, a))
                 lib_ms = cuda_ms(lambda: F.instance_norm(x, weight=w, bias=b, eps=1e-5))
@@ -2033,7 +2114,6 @@ def train_bundle_phase(name: str, config: Path, overrides, synth: dict, steps: i
     from monai_tpu_torch.bundle import run
     from monai_tpu_torch.data import CacheDataset
     from monai_tpu_torch.engines import Events, SupervisedTrainer, Workflow
-    from monai_tpu_torch.networks.layers.factories import Conv3d
 
     top = BUILD / f"{name}_bundle"
     shutil.rmtree(top, ignore_errors=True)
@@ -2042,17 +2122,8 @@ def train_bundle_phase(name: str, config: Path, overrides, synth: dict, steps: i
     make_synthetic_datalist(str(root / "data" / synth["dir"]), num_images=synth["num_images"],
                             spatial_size=synth["spatial_size"], num_seg_classes=synth["num_seg_classes"])
     data_s = time.perf_counter() - t0
-    stamps, engines, crops, losses, iterations = [], {}, [], [], []
-    fire, fill, conv_forward = Workflow.fire_event, CacheDataset.set_data, Conv3d.forward
-    forwards = [0]  # 3x3x3 conv forwards under autograd: the training iterations'
-
-    def counted_forward(conv, x):
-        if conv.same_3x3x3 and torch.is_grad_enabled():
-            forwards[0] += 1
-        return conv_forward(conv, x)
-
-    def launches() -> dict:
-        return {**all_launch_counts(), "conv3d_forward": forwards[0]}
+    stamps, engines, crops, losses = [], {}, [], []
+    fire, fill = Workflow.fire_event, CacheDataset.set_data
 
     def recorded_fire(engine, event):
         kind = "trainer" if isinstance(engine, SupervisedTrainer) else "evaluator"
@@ -2060,12 +2131,10 @@ def train_bundle_phase(name: str, config: Path, overrides, synth: dict, steps: i
         if kind == "trainer" and str(event) == str(Events.ITERATION_STARTED):
             image = engine.state.batch["image"]
             crops.append((tuple(image.data.shape), image.data.device.type))
-            iterations.append(launches())
+            counter.start()
         if kind == "trainer" and str(event) == str(Events.ITERATION_COMPLETED):
             losses.append(engine.state.output["loss"].item())
-            after = launches()
-            iterations[-1] = {k: after[k] - iterations[-1][k] for k in after}
-            iterations[-1]["conv3d_dx"] = iterations[-1]["conv3d_3x3_same"] - iterations[-1]["conv3d_forward"]
+            counter.stop()
         if str(event) in (str(Events.STARTED), str(Events.EPOCH_STARTED), str(Events.EPOCH_COMPLETED),
                           str(Events.COMPLETED)):
             torch.cuda.synchronize()
@@ -2078,15 +2147,17 @@ def train_bundle_phase(name: str, config: Path, overrides, synth: dict, steps: i
         torch.cuda.synchronize()
         stamps.append(("cache", "filled", len(dataset._cache), time.perf_counter() - t1))
 
-    Workflow.fire_event, CacheDataset.set_data, Conv3d.forward = recorded_fire, timed_fill, counted_forward
+    Workflow.fire_event, CacheDataset.set_data = recorded_fire, timed_fill
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        run(config_file=str(config), **overrides(root))
-        torch.cuda.synchronize()
+        with counted_iterations() as counter, cudnn_kept():
+            run(config_file=str(config), **overrides(root))
+            torch.cuda.synchronize()
     finally:
-        Workflow.fire_event, CacheDataset.set_data, Conv3d.forward = fire, fill, conv_forward
+        Workflow.fire_event, CacheDataset.set_data = fire, fill
+    iterations = counter.iterations
     total_s = time.perf_counter() - t0
     counts = all_launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -2178,19 +2249,32 @@ TRAIN_CHECKED_F32 = ((torch.float32, TOL_F32),)
 TRAIN_MIN_COSINE = 0.999
 
 
-def check_conv_f32_sites(name: str, net, batch: int, dev) -> tuple[dict, dict, dict, Counter]:
+def check_conv_f32_sites(name: str, net, batch: int, dev, roi: tuple[int, ...] = ROI,
+                         norms: bool = False) -> tuple[dict, ...]:
     """Kernel 1's forward, dx and dw at each 3x3x3 site of ``net`` (a CPU network) at
-    ``batch`` 96^3 inputs, in float32 (``check_conv`` and ``check_conv_backward``). Returns
-    the three kernels-line summaries, each summed over a step's sites, and the sites."""
-    window = torch.rand((batch, net.in_channels, *ROI), generator=torch.Generator(device=dev).manual_seed(1),
+    ``batch`` inputs of ``roi``, in float32 (``check_conv`` and ``check_conv_backward``);
+    where ``norms``, also kernel B2's forward and backward at each instance-norm site
+    (``check_norm`` and ``check_norm_backward``). Returns the kernels-line summaries, each
+    summed over a step's sites (forward, dx, dw, and the norm's forward and backward where
+    ``norms``), and the conv sites (and the norm sites)."""
+    window = torch.rand((batch, net.in_channels, *roi), generator=torch.Generator(device=dev).manual_seed(1),
                         device=dev)
     with torch.no_grad():
-        sites = record_sites(copy.deepcopy(net).to(dev).eval(), window)[0]
-    print(f"{name} 3x3x3 stride-1 conv sites at batch {batch} of 96^3: "
+        sites, norm_sites, _, _ = record_sites(copy.deepcopy(net).to(dev).eval(), window)
+    del window
+    side = "x".join(str(r) for r in roi)
+    print(f"{name} 3x3x3 stride-1 conv sites at batch {batch} of {side}: "
           + ", ".join(f"{ci}->{co} @{sp} x{n}" for (ci, co, sp), n in sorted(sites.items())), flush=True)
     forward = check_conv(sites, batch, dev, timed=torch.float32, checked=TRAIN_CHECKED_F32)
     dw, dx = check_conv_backward(sites, batch, dev, TRAIN_CHECKED_F32, timed=torch.float32)
-    return forward, dx, dw, sites
+    if not norms:
+        return forward, dx, dw, sites
+    print(f"{name} instance-norm sites at batch {batch} of {side}: "
+          + ", ".join(f"C={c} @{sp} affine {a} slope {sl} x{n}" for (c, sp, a, sl), n in sorted(norm_sites.items(),
+                                                                                             key=str)), flush=True)
+    norm = check_norm(norm_sites, batch, dev, checked=TRAIN_CHECKED_F32, timed=torch.float32)
+    norm_bwd = check_norm_backward(norm_sites, batch, dev, TRAIN_CHECKED_F32, timed=torch.float32)
+    return forward, dx, dw, norm, norm_bwd, sites, norm_sites
 
 
 def net_against_cpu(name: str, network, fresh_net, loss_fn, label, dev) -> None:
@@ -2231,11 +2315,13 @@ def net_against_cpu(name: str, network, fresh_net, loss_fn, label, dev) -> None:
             f"{name}: the float32 step on the card disagrees with the CPU")
 
 
-def step_profile(name: str, network, batch: dict, loss_fn, dev) -> None:
+def step_profile(name: str, network, batch: dict, loss_fn, dev, wall_steps: int = 0) -> None:
     """One float32 training step of ``network`` (forward, loss, backward) under
     ``torch.profiler`` after a warm-up step: the device time, the layout copies (``aten::copy_``
     and their device time) and the conv's channel-first grads copied, and the kernels by
-    device time."""
+    device time. With ``wall_steps``, also the step's wall time on the host (the median of
+    that many steps without the profiler), the device's idle share of it and the bytes the
+    copies wrote (their outputs' elements at the batch's element size)."""
     from torch.profiler import ProfilerActivity, profile
 
     from monai_tpu_torch.ops.conv3d import _Conv3x3Same
@@ -2247,11 +2333,28 @@ def step_profile(name: str, network, batch: dict, loss_fn, dev) -> None:
     network.train()
     step()
     torch.cuda.synchronize()
+    walls = []
+    for _ in range(wall_steps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
     _Conv3x3Same.copied_bytes = 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=wall_steps > 0) as prof:
         step()
         torch.cuda.synchronize()
     events = prof.key_averages()
+    if wall_steps:
+        wall_ms = statistics.median(walls)
+        size = batch["image"].element_size()
+        copied = sum(e.count * int(np.prod(e.input_shapes[0])) * size
+                     for e in prof.key_averages(group_by_input_shape=True)
+                     if e.key == "aten::copy_" and e.input_shapes and e.input_shapes[0])
+        total_ms = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3 for e in events
+                       if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+        print(f"{name} the step's wall {wall_ms:.3f} ms (median of {wall_steps} without the profiler), device kernel "
+              f"time {total_ms:.3f} ms, idle share {max(0.0, 1 - total_ms / wall_ms):.3f}; aten::copy_ wrote "
+              f"{copied / 1e6:.2f} MB", flush=True)
 
     def device_ms(e) -> float:
         return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)) / 1e3
@@ -2588,8 +2691,9 @@ def mednist_bundle_phase(dev) -> dict:
     reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        run(config_file=str(MEDNIST_CONFIG), **overrides)
-        torch.cuda.synchronize()
+        with cudnn_kept():
+            run(config_file=str(MEDNIST_CONFIG), **overrides)
+            torch.cuda.synchronize()
     finally:
         Workflow.fire_event, CacheDataset.set_data, RandZoomd.__call__ = fire, fill, zoom_call
     total_s = time.perf_counter() - t0
@@ -2688,6 +2792,412 @@ def mednist_bundle_phase(dev) -> dict:
     return zoom
 
 
+
+# Phase 14, the Auto3DSeg bundle: bundles/auto3dseg/configs/run.json through the port's
+# runner (DataAnalyzer, BundleGen's four train.json files, each trained in this process, the
+# best-by-fold ensemble), its synthetic phantoms at 160x160x200 (its own 64^3 ones cannot
+# feed the templates' 96^3 crops), then the ensemble's prediction of the 2 held-out phantoms
+AUTO3DSEG_CONFIG = BUNDLES / "auto3dseg" / "configs" / "run.json"
+AUTO3DSEG_SYNTH_SIZE = (160, 160, 200)
+AUTO3DSEG_BATCHES = {(4, 1, *ROI), (2, 1, *ROI)}  # 2 images x 2 crops, and an epoch's last image
+AUTO3DSEG_STEPS = 4  # a bundle's: 3 images at batch 2, two epochs
+# each iteration's launches, by template (phase 11's counts for the SegResNet; the UNet's ten
+# 3x3x3 convs take no image, so each has a dx)
+AUTO3DSEG_PER_STEP = {
+    "unet": {"conv3d_forward": 10, "conv3d_dx": 10, "conv3d_3x3_wgrad": 10, "instance_norm_prelu": 17,
+             "instance_norm_prelu_backward": 17},
+    "segresnet": {"conv3d_forward": 25, "conv3d_dx": 24, "conv3d_3x3_wgrad": 25, "instance_norm_prelu": 0,
+                  "instance_norm_prelu_backward": 0}}
+TOL_STATS = 1e-6  # datastats.json's intensities on the card against the CPU, relative
+TOL_ENSEMBLE = 1e-3  # the ensemble's output on the card against the CPU's, in std of the CPU's
+
+
+def auto3dseg_overrides(root: Path) -> dict:
+    """run.json's overrides: the bundle root, the port in ``imports`` and ``initialize``,
+    and the file's own ``synth_datalist`` expression at ``AUTO3DSEG_SYNTH_SIZE``."""
+    cfg = json.loads(AUTO3DSEG_CONFIG.read_text())
+    synth = re.sub(r"spatial_size=\([0-9, ]*\)", f"spatial_size={AUTO3DSEG_SYNTH_SIZE}", cfg["synth_datalist"])
+    require(f"spatial_size={AUTO3DSEG_SYNTH_SIZE}" in synth, f"{AUTO3DSEG_CONFIG}: the synth_datalist expression changed")
+    port = [re.sub(r"\bmonai_tpu\b", "monai_tpu_torch", i) for i in cfg["imports"]]
+    init = [re.sub(r"\bmonai_tpu\b", "monai_tpu_torch", i) for i in cfg["initialize"]]
+    return {"bundle_root": str(root), "imports": port, "initialize": init, "synth_datalist": synth}
+
+
+def _same_stats(got, ref, path: str = "") -> str | None:
+    """Where ``got`` and ``ref`` (datastats) differ: shapes, spacings and labels exactly,
+    intensities within TOL_STATS relative; None where they agree."""
+    if isinstance(ref, dict):
+        if set(got) != set(ref):
+            return f"{path}: keys {sorted(got)} against {sorted(ref)}"
+        return next((d for k in ref if (d := _same_stats(got[k], ref[k], f"{path}.{k}"))), None)
+    if isinstance(ref, list):
+        if len(got) != len(ref):
+            return f"{path}: {len(got)} items against {len(ref)}"
+        return next((d for i, (a, b) in enumerate(zip(got, ref)) if (d := _same_stats(a, b, f"{path}[{i}]"))), None)
+    if "intensity" in path and isinstance(ref, float):
+        return None if abs(got - ref) <= TOL_STATS * max(abs(ref), 1e-6) else f"{path}: {got!r} against {ref!r}"
+    return None if got == ref else f"{path}: {got!r} against {ref!r}"
+
+
+def auto3dseg_bundle_phase(dev) -> tuple[dict, dict]:
+    """Phase 14: run.json through ``monai_tpu_torch.bundle.run`` in ``build/auto3dseg_bundle``
+    after kernel 1 and B2 at the UNet template's float32 sites and kernel 1 at the
+    SegResNet's, at batch 4. Timed: the analysis, the generation, each bundle's training
+    (steps/s over its iterations, the loader's reads included), the ensemble a volume;
+    the peak memory; one UNet and one SegResNet iteration's profile. Checked: datastats.json
+    against the port's CPU analyzer, the four bundles' train.json, every loss finite, every
+    crop batch float32 on the card of a shape of AUTO3DSEG_BATCHES, each iteration's
+    launches (AUTO3DSEG_PER_STEP), each score finite and the best of its fold chosen, each
+    checkpoint against its trained network, the ensemble's output of each held-out phantom
+    on the card, and the first one's against the same members on the CPU. Returns the run's
+    launch counts and the kernels' summaries."""
+    from monai_tpu_torch.apps.auto3dseg import AlgoEnsembleBestByFold, BundleAlgo, BundleGen, DataAnalyzer
+    from monai_tpu_torch.apps.datasets import make_synthetic_datalist
+    from monai_tpu_torch.bundle import ConfigParser, run
+    from monai_tpu_torch.engines import Events, SupervisedTrainer, Workflow
+    from monai_tpu_torch.losses import DiceCELoss
+    from monai_tpu_torch.networks.nets import SegResNet, UNet
+    from monai_tpu_torch.utils import AlgoKeys
+
+    require(not torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark,
+            f"auto3dseg: an earlier phase left {cudnn_settings()}")
+
+    def unet(device):
+        return UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2), num_res_units=2,
+                    generator=torch.Generator().manual_seed(0), device=device)
+
+    def segresnet(device):
+        return SegResNet(3, init_filters=16, in_channels=1, out_channels=2, generator=torch.Generator().manual_seed(0),
+                         device=device)
+
+    unet_f, unet_dx, unet_dw, unet_norm, unet_norm_bwd, sites, norm_sites = check_conv_f32_sites(
+        "auto3dseg unet", unet("cpu"), 4, dev, norms=True)
+    require(sum(sites.values()) == 10 and sum(norm_sites.values()) == 17,
+            f"auto3dseg unet: {sum(sites.values())} conv and {sum(norm_sites.values())} norm sites, not 10 and 17")
+    seg_f, seg_dx, seg_dw, seg_sites = check_conv_f32_sites("auto3dseg segresnet", segresnet("cpu"), 4, dev)
+    require(sum(seg_sites.values()) == 25, f"auto3dseg segresnet: {sum(seg_sites.values())} conv sites, not 25")
+    kernels = {"unet": {"forward": unet_f, "dx": unet_dx, "dw": unet_dw, "norm": unet_norm,
+                        "norm_backward": unet_norm_bwd},
+               "segresnet": {"forward": seg_f, "dx": seg_dx, "dw": seg_dw}}
+    torch.cuda.empty_cache()
+
+    top = BUILD / "auto3dseg_bundle"
+    shutil.rmtree(top, ignore_errors=True)
+    overrides = auto3dseg_overrides(top)
+    data_dir = os.environ.get("MONAI_DATA_DIRECTORY", str(top / "data")) + "/Auto3dSegCT_synth"
+    t0 = time.perf_counter()
+    synth = make_synthetic_datalist(data_dir, num_images=8, spatial_size=AUTO3DSEG_SYNTH_SIZE)
+    data_s = time.perf_counter() - t0
+
+    current, stamps, times, iterations, trained = [None], [], {}, [], {}
+    fire = Workflow.fire_event
+    analyze, generate, train = DataAnalyzer.get_all_case_stats, BundleGen.generate, BundleAlgo.train
+
+    def recorded_fire(engine, event):
+        if isinstance(engine, SupervisedTrainer):
+            if str(event) == str(Events.ITERATION_STARTED):
+                image = engine.state.batch["image"]
+                data = image.data if hasattr(image, "data") else image
+                iterations.append({"bundle": current[0], "crop": (tuple(data.shape), data.dtype, data.device.type)})
+                counter.start()
+            elif str(event) == str(Events.ITERATION_COMPLETED):
+                iterations[-1]["launches"] = counter.stop()
+                iterations[-1]["loss"] = engine.state.output["loss"].item()
+            elif str(event) in (str(Events.EPOCH_STARTED), str(Events.EPOCH_COMPLETED)):
+                torch.cuda.synchronize()
+                stamps.append((current[0], str(event), engine.state.epoch, time.perf_counter()))
+        return fire(engine, event)
+
+    def timed(name, fn):
+        def wrapper(self, *args, **kwargs):
+            t1 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            times[name(self)] = time.perf_counter() - t1
+            return out
+        return wrapper
+
+    def timed_train(algo, *args, **kwargs):
+        current[0] = algo.name
+        out = timed(lambda a: f"train {a.name}", train)(algo, *args, **kwargs)
+        trained[algo.name] = (algo, algo._trained_network)
+        return out
+
+    Workflow.fire_event = recorded_fire
+    DataAnalyzer.get_all_case_stats = timed(lambda a: "analyze", analyze)
+    BundleGen.generate = timed(lambda g: "generate", generate)
+    BundleAlgo.train = timed_train
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with counted_iterations() as counter, cudnn_kept():
+            ensemble = run(config_file=str(AUTO3DSEG_CONFIG), **overrides)[0]
+            torch.cuda.synchronize()
+    finally:
+        Workflow.fire_event = fire
+        DataAnalyzer.get_all_case_stats, BundleGen.generate, BundleAlgo.train = analyze, generate, train
+    total_s = time.perf_counter() - t0
+    counts = all_launch_counts()
+    work = top / "work_dir"
+
+    # the analysis against the port's analyzer on the CPU, the bundles on disk
+    stats = json.loads((work / "datastats.json").read_text())
+    ref = DataAnalyzer(synth, output_path="", device="cpu").get_all_case_stats()
+    diff = _same_stats(stats, ref)
+    require(diff is None, f"auto3dseg: datastats.json on the card differs from the CPU's at {diff}")
+    names = [f"{a}_{f}" for a in ("unet", "segresnet") for f in range(2)]
+    require(all((work / n / "configs" / "train.json").is_file() for n in names) and sorted(trained) == sorted(names),
+            f"auto3dseg: bundles {sorted(trained)}, not {names}")
+
+    # the iterations: crops, losses, launches; each bundle's steps/s
+    lines = []
+    for n in names:
+        its = [it for it in iterations if it["bundle"] == n]
+        require(len(its) == AUTO3DSEG_STEPS, f"auto3dseg {n}: {len(its)} iterations, not {AUTO3DSEG_STEPS}")
+        for i, it in enumerate(its):
+            shape, dtype, where = it["crop"]
+            require(shape in AUTO3DSEG_BATCHES and dtype == torch.float32 and where == "cuda",
+                    f"auto3dseg {n} iteration {i + 1}: a crop batch {shape} {dtype} on {where}")
+            require(np.isfinite(it["loss"]), f"auto3dseg {n} iteration {i + 1}: loss {it['loss']}")
+            per_step = AUTO3DSEG_PER_STEP[n.split("_")[0]]
+            require(all(it["launches"][k] == v for k, v in per_step.items()),
+                    f"auto3dseg {n} iteration {i + 1} launched {it['launches']}, not {per_step}")
+        at = {(e, ep): t for b, e, ep, t in stamps if b == n}
+        epochs = [at[str(Events.EPOCH_COMPLETED), e] - at[str(Events.EPOCH_STARTED), e] for e in (1, 2)]
+        step = {k: v for k, v in its[-1]["launches"].items() if v}
+        lines.append(f"{n}: train {times[f'train {n}']:.2f} s with the parse, the net and the checkpoint; "
+                     f"{len(its) / sum(epochs):.4f} steps/s over its iterations ({sum(epochs):.2f} s, the loader's reads "
+                     f"included; epochs {epochs[0]:.2f}, {epochs[1]:.2f} s; batches "
+                     f"{[it['crop'][0][0] for it in its]}); score {trained[n][0].get_score():.6f}; losses "
+                     + ", ".join(f"{it['loss']:.4f}" for it in its) + f"; launches an iteration {step}")
+
+    # the scores and the members; each checkpoint against its trained network
+    members = ensemble.collect_algos()
+    require(isinstance(ensemble, AlgoEnsembleBestByFold) and len(members) == 2,
+            f"auto3dseg: the ensemble {type(ensemble).__name__} of {len(members)} members")
+    for fold, member in enumerate(members):
+        scores = {r[AlgoKeys.ID]: r[AlgoKeys.SCORE] for r in ensemble.algos if r[AlgoKeys.ID].endswith(f"_{fold}")}
+        require(all(np.isfinite(v) for v in scores.values()), f"auto3dseg: scores {scores}")
+        require(member[AlgoKeys.ID] == max(scores, key=scores.get), f"auto3dseg fold {fold}: chose "
+                                                                     f"{member[AlgoKeys.ID]} of {scores}")
+    for n, (algo, network) in trained.items():
+        parser = ConfigParser()
+        parser.read_config(str(work / n / "configs" / "train.json"))
+        parser["network::device"] = "cpu"
+        fresh = parser.get_parsed_content("network")
+        fresh.load_state_dict(torch.load(work / n / "model" / "model_final.pt", map_location="cpu",
+                                         weights_only=True)["model"])
+        state = network.state_dict()
+        require(all(torch.equal(v, state[k].cpu()) for k, v in fresh.state_dict().items()),
+                f"auto3dseg {n}: the checkpoint is not the trained network")
+    del trained
+
+    # the ensemble's prediction of the held-out phantoms, on the card; the first on the CPU
+    outs, volume_s = [], []
+    for item in synth["validation"]:
+        t1 = time.perf_counter()
+        out = ensemble({"infer_files": [item]})[0]
+        torch.cuda.synchronize()
+        volume_s.append(time.perf_counter() - t1)
+        out = out.data if hasattr(out, "data") else out
+        require(tuple(out.shape) == (1, 2, *AUTO3DSEG_SYNTH_SIZE) and out.device.type == "cuda"
+                and bool(torch.isfinite(out).all()), f"auto3dseg: an ensemble output {tuple(out.shape)} on {out.device}")
+        outs.append(out)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    cpu_records = []
+    for r in ensemble.algos:
+        algo = copy.copy(r[AlgoKeys.ALGO])  # its pickled state: no network, which predict loads on the CPU
+        algo.device = "cpu"
+        cpu_records.append({**r, AlgoKeys.ALGO: algo})
+    cpu_ensemble = AlgoEnsembleBestByFold(n_fold=2)
+    cpu_ensemble.set_algos(cpu_records)
+    t1 = time.perf_counter()
+    ref = cpu_ensemble({"infer_files": synth["validation"][:1]})[0]
+    cpu_s = time.perf_counter() - t1
+    ref = ref.data if hasattr(ref, "data") else ref
+    err = (outs[0].cpu() - ref).abs().max().item() / ref.std().item()
+    print(f"auto3dseg run.json (python -m monai_tpu_torch.bundle run's function; synth_datalist at "
+          f"{AUTO3DSEG_SYNTH_SIZE}, 8 phantoms written in {data_s:.1f} s): the whole run {total_s:.1f} s; analyze "
+          f"{times['analyze']:.2f} s; generate {times['generate']:.3f} s; " + "; ".join(lines)
+          + f"; the ensemble ({', '.join(m[AlgoKeys.ID] for m in members)}) {', '.join(f'{t:.2f}' for t in volume_s)} "
+          f"s a volume of {AUTO3DSEG_SYNTH_SIZE}; peak memory {peak_gb:.2f} GB; launches {counts}; the first volume's "
+          f"ensemble on the CPU {cpu_s:.1f} s, the card's within {err:.3g} std of it (tol {TOL_ENSEMBLE})", flush=True)
+    require(err <= TOL_ENSEMBLE, "auto3dseg: the ensemble's output on the card disagrees with the CPU's")
+    del ensemble, cpu_ensemble, outs, ref
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(34)
+    batch = {"image": torch.rand((4, 1, *ROI), generator=gen, device=dev),
+             "label": (torch.rand((4, 1, *ROI), generator=gen, device=dev) > 0.5).float()}
+    loss = DiceCELoss(to_onehot_y=True, softmax=True)
+    for name, make in (("auto3dseg unet", unet), ("auto3dseg segresnet", segresnet)):
+        network = make(dev)
+        step_profile(name, network, batch, loss, dev, wall_steps=3)
+        del network
+    torch.cuda.empty_cache()
+    return counts, kernels
+
+
+# Phase 15, DynUNet from an nnU-Net v2 plans dict at the 3d_fullres width of nnU-Net's default
+# planner for an isotropic 1 mm CT (default_experiment_planner.py: 32 base features doubling
+# to a cap of 320, stride-2 stages down to a 4-voxel edge of the 128^3 patch)
+DYNUNET_FEATURES = (32, 64, 128, 256, 320, 320)
+DYNUNET_PATCH, DYNUNET_BATCH = (128, 128, 128), 2
+DYNUNET_WARMUP, DYNUNET_TIMED = 2, 5
+# each step's launches: the input block's two convs, each stride-2 block's second conv and
+# both of each decoder block's run kernel 1 (the first, on the image, has no dx); two norms
+# a block
+DYNUNET_PER_STEP = {"conv3d_forward": 17, "conv3d_dx": 16, "conv3d_3x3_wgrad": 17, "instance_norm_prelu": 22,
+                    "instance_norm_prelu_backward": 22}
+DYNUNET_CHECK_PATCH = (64, 64, 64)  # the step on the card against the CPU
+
+
+def nnunet_plans() -> tuple[dict, dict]:
+    """An nnU-Net v2 plans dict (the schema of tests/test_nnunet_plans_fixture.py) of a
+    3d_fullres ``PlainConvUNet`` and its dataset dict: 1 CT channel, 2 classes."""
+    arch = {"network_class_name": "dynamic_network_architectures.architectures.unet.PlainConvUNet",
+            "arch_kwargs": {"n_stages": 6, "features_per_stage": list(DYNUNET_FEATURES),
+                            "conv_op": "torch.nn.modules.conv.Conv3d", "kernel_sizes": [[3, 3, 3]] * 6,
+                            "strides": [[1, 1, 1]] + [[2, 2, 2]] * 5, "n_conv_per_stage": [2] * 6,
+                            "n_conv_per_stage_decoder": [2] * 5, "conv_bias": True,
+                            "norm_op": "torch.nn.modules.instancenorm.InstanceNorm3d",
+                            "norm_op_kwargs": {"eps": 1e-05, "affine": True}, "dropout_op": None,
+                            "dropout_op_kwargs": None, "nonlin": "torch.nn.LeakyReLU",
+                            "nonlin_kwargs": {"inplace": True}},
+            "_kw_requires_import": ["conv_op", "norm_op", "dropout_op", "nonlin"]}
+    plans = {"dataset_name": "Dataset001_CT1mm", "plans_name": "nnUNetPlans",
+             "original_median_spacing_after_transp": [1.0, 1.0, 1.0],
+             "original_median_shape_after_transp": [300, 512, 512], "image_reader_writer": "SimpleITKIO",
+             "transpose_forward": [0, 1, 2], "transpose_backward": [0, 1, 2],
+             "experiment_planner_used": "ExperimentPlanner", "label_manager": "LabelManager",
+             "configurations": {"3d_fullres": {
+                 "data_identifier": "nnUNetPlans_3d_fullres", "preprocessor_name": "DefaultPreprocessor",
+                 "batch_size": DYNUNET_BATCH, "patch_size": list(DYNUNET_PATCH),
+                 "median_image_size_in_voxels": [300, 512, 512], "spacing": [1.0, 1.0, 1.0],
+                 "normalization_schemes": ["CTNormalization"], "use_mask_for_norm": [False],
+                 "architecture": arch, "batch_dice": False}}}
+    dataset = {"channel_names": {"0": "CT"}, "labels": {"background": 0, "foreground": 1}, "numTraining": 100,
+               "file_ending": ".nii.gz"}
+    return plans, dataset
+
+
+def dynunet_train_phase(dev) -> tuple[dict, dict]:
+    """Phase 15: the plans bridge's DynUNet (deep supervision, 3 heads), kernel 1 and B2 at
+    its float32 sites at batch 2 of 128^3; a batch-1 64^3 step on the card against the CPU
+    (the loss relative, each grad's cosine, the grads exactly 0 on the CPU under
+    TOL_STEP_F32 of the largest); then ``SupervisedTrainer`` in float32 on one batch from a
+    seed, ``DeepSupervisionLoss(DiceCELoss)`` over the heads and SGD at nnU-Net's trainer
+    defaults, 2 warm-up steps and 5 timed: steps/s, the median step, the peak memory, each
+    step's launches (DYNUNET_PER_STEP) and loss (finite, the last below the first); one
+    step's profile. Returns the trainer's launch counts and the kernels' summaries."""
+    from monai_tpu_torch.apps.nnunet import get_network_from_nnunet_plans
+    from monai_tpu_torch.engines import Events, SupervisedTrainer
+    from monai_tpu_torch.losses import DeepSupervisionLoss, DiceCELoss
+
+    require(not torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark,
+            f"dynunet: an earlier phase left {cudnn_settings()}")
+    plans, dataset = nnunet_plans()
+
+    def fresh_net(device):
+        return get_network_from_nnunet_plans(plans, dataset, "3d_fullres", deep_supervision=True, device=device,
+                                             generator=torch.Generator().manual_seed(0))
+
+    ds_loss = DeepSupervisionLoss(DiceCELoss(to_onehot_y=True, softmax=True))
+
+    def loss_fn(pred, label):
+        return ds_loss(list(torch.unbind(pred, 1)), label)
+
+    cpu = fresh_net("cpu")
+    require(len(cpu.deep_supervision_heads) == 3, f"dynunet: {len(cpu.deep_supervision_heads)} heads, not 3")
+    forward, dx, dw, norm, norm_bwd, sites, norm_sites = check_conv_f32_sites(
+        "dynunet", cpu, DYNUNET_BATCH, dev, roi=DYNUNET_PATCH, norms=True)
+    require(sum(sites.values()) == 17 and sum(norm_sites.values()) == 22,
+            f"dynunet: {sum(sites.values())} conv and {sum(norm_sites.values())} norm sites, not 17 and 22")
+    torch.cuda.empty_cache()
+
+    # a batch-1 step at 64^3 on the card against the CPU, from the same weights
+    gen = torch.Generator().manual_seed(35)
+    x = torch.rand((1, 1, *DYNUNET_CHECK_PATCH), generator=gen)
+    y = (torch.rand((1, 1, *DYNUNET_CHECK_PATCH), generator=gen) > 0.5).float()
+    card = copy.deepcopy(cpu).to(dev)
+    results = []
+    for net, device in ((cpu, "cpu"), (card, dev)):
+        net.train()
+        net.zero_grad(set_to_none=True)
+        loss = loss_fn(net(x.to(device)), y.to(device))
+        loss.backward()
+        results.append((loss.item(), {k: p.grad.double().cpu().reshape(-1) for k, p in net.named_parameters()}))
+    (loss_cpu, g_cpu), (loss_card, g_card) = results
+    largest = max(g.abs().max().item() for g in g_cpu.values())
+    zero = {k for k, g in g_cpu.items() if not g.any()}
+    zero_max = max((g[k].abs().max().item() for g in (g_cpu, g_card) for k in zero), default=0.0) / largest
+    cosines = sorted((F.cosine_similarity(g_card[k][None], g_cpu[k][None]).item(), k) for k in g_cpu if k not in zero)
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    print(f"dynunet batch-1 {DYNUNET_CHECK_PATCH} float32 step on the card against the CPU: loss {loss_card:.6f} against "
+          f"{loss_cpu:.6f} ({loss_rel:.3g} relative, tol {TOL_STEP_F32}); least grad cosine {cosines[0][0]:.6f} "
+          f"({cosines[0][1]}; tol {TRAIN_MIN_COSINE}); {len(zero)} grads exactly 0 on the CPU, at most {zero_max:.3g} "
+          f"of the largest grad (tol {TOL_STEP_F32})", flush=True)
+    require(loss_rel <= TOL_STEP_F32 and cosines[0][0] >= TRAIN_MIN_COSINE and zero_max <= TOL_STEP_F32,
+            "dynunet: the float32 step on the card disagrees with the CPU")
+    del cpu, card, results, g_cpu, g_card
+    torch.cuda.empty_cache()
+
+    # the trainer: one fixed batch, 2 warm-up steps and 5 timed
+    network = fresh_net(dev)
+    gen = torch.Generator(device=dev).manual_seed(36)
+    batch = {"image": torch.rand((DYNUNET_BATCH, 1, *DYNUNET_PATCH), generator=gen, device=dev),
+             "label": (torch.rand((DYNUNET_BATCH, 1, *DYNUNET_PATCH), generator=gen, device=dev) > 0.5).float()}
+    optimizer = torch.optim.SGD(network.parameters(), lr=1e-2, momentum=0.99, nesterov=True, weight_decay=3e-5)
+    n_steps = DYNUNET_WARMUP + DYNUNET_TIMED
+    trainer = SupervisedTrainer(device=dev, max_epochs=1, train_data_loader=[batch] * n_steps, network=network,
+                                optimizer=optimizer, loss_function=loss_fn)
+    steps = []
+
+    def started(engine):
+        torch.cuda.synchronize()
+        steps.append({"t0": time.perf_counter()})
+        counter.start()
+
+    def completed(engine):
+        torch.cuda.synchronize()
+        step = steps[-1]
+        step["ms"] = (time.perf_counter() - step["t0"]) * 1e3
+        step["launches"] = counter.stop()
+        step["loss"] = engine.state.output["loss"].item()
+
+    trainer.add_event_handler(Events.ITERATION_STARTED, started)
+    trainer.add_event_handler(Events.ITERATION_COMPLETED, completed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    with counted_iterations() as counter:
+        trainer.run()
+        torch.cuda.synchronize()
+    counts = all_launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    require(len(steps) == n_steps, f"dynunet: {len(steps)} steps, not {n_steps}")
+    timed_ms = [s["ms"] for s in steps[DYNUNET_WARMUP:]]
+    losses = [s["loss"] for s in steps]
+    step = {k: v for k, v in steps[-1]["launches"].items() if v}
+    print(f"dynunet (plans bridge, PlainConvUNet {DYNUNET_FEATURES}, deep supervision 3 heads) SupervisedTrainer float32 "
+          f"at ({DYNUNET_BATCH}, 1, {DYNUNET_PATCH}), SGD lr 1e-2 momentum 0.99 Nesterov weight decay 3e-5: "
+          f"{cudnn_settings()}: {len(timed_ms) / sum(timed_ms) * 1e3:.4f} steps/s over {len(timed_ms)} steps after "
+          f"{DYNUNET_WARMUP} warm-ups, "
+          f"median step {statistics.median(timed_ms):.2f} ms (steps {', '.join(f'{t:.2f}' for t in timed_ms)}); peak "
+          f"memory {peak_gb:.2f} GB; launches a step {step}; losses " + ", ".join(f"{v:.4f}" for v in losses),
+          flush=True)
+    require(all(np.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            f"dynunet: losses {losses} (finite, the last below the first)")
+    for i, s in enumerate(steps):
+        require(all(s["launches"][k] == v for k, v in DYNUNET_PER_STEP.items()),
+                f"dynunet step {i + 1} launched {s['launches']}, not {DYNUNET_PER_STEP}")
+    del trainer, optimizer
+    step_profile("dynunet", network, batch, loss_fn, dev, wall_steps=3)
+    del network, batch
+    torch.cuda.empty_cache()
+    return counts, {"forward": forward, "dx": dx, "dw": dw, "norm": norm, "norm_backward": norm_bwd}
+
+
 def inference_phases(dev) -> tuple:
     """Phases 2 to 6, under ``torch.inference_mode()``: the forward kernels at the inference paths'
     shapes, the sliding windows, the forwards against the CPU, the Spleen path and the filtering
@@ -2781,8 +3291,10 @@ def main() -> None:
     attn_bwd = swin["attention_backward"]
 
     # 8. the Spleen bundle's inference.json through the port's runner, file to file (after the
-    # paths above: its set_determinism changes cuDNN's global settings)
-    bundle_counts = bundle_phase(dev, spleen5)
+    # paths above: its set_determinism changes cuDNN's global settings, which it reads; they
+    # are restored after it, as after every bundle's run)
+    with cudnn_kept():
+        bundle_counts = bundle_phase(dev, spleen5)
     del spleen5
 
     # 10. the BTCV bundle's train.json through the port's runner (after the paths above, as it
@@ -2800,6 +3312,14 @@ def main() -> None:
     # at its 2-D zoom sites
     mednist_zoom = mednist_bundle_phase(dev)
 
+    # 14. the Auto3DSeg bundle's run.json: the analysis, four generated bundles trained in
+    # float32, the best-by-fold ensemble's prediction; kernel 1 and B2 at the templates' sites
+    auto3dseg_counts, auto3dseg = auto3dseg_bundle_phase(dev)
+
+    # 15. DynUNet from an nnU-Net plans dict, trained in float32; kernel 1 and B2 at its sites
+    dynunet_counts, dynunet = dynunet_train_phase(dev)
+    new_f32 = {k: auto3dseg_counts[k] + dynunet_counts[k] for k in auto3dseg_counts}  # phases 14 and 15
+
     def f32_sites(summary: dict) -> dict:
         """A kernel's numbers summed over a float32 step's sites, for the kernels line."""
         return {key: v for key, v in summary.items() if key not in ("bytes_ms", "ops_ms", "bound_side")}
@@ -2810,13 +3330,20 @@ def main() -> None:
     training = [
         {"name": "conv3d_3x3_wgrad", "route": "cuda", "source": "monai_tpu_torch/csrc/conv3d_3x3_wgrad.cu",
          "replaces": "monai_tpu/ops/pallas_conv3d.py:200",
-         "launches": train_counts["conv3d_3x3_wgrad"] + trained["conv3d_3x3_wgrad"] + conv_trained["conv3d_3x3_wgrad"],
+         "launches": train_counts["conv3d_3x3_wgrad"] + trained["conv3d_3x3_wgrad"] + conv_trained["conv3d_3x3_wgrad"]
+         + new_f32["conv3d_3x3_wgrad"],
          **train["dw"], "swin_train_float32": f32_sites(swin["dw"]), "segresnet_train_float32": f32_sites(brats["dw"]),
-         "spleen_train_float32": f32_sites(spleen_train["dw"])},
+         "spleen_train_float32": f32_sites(spleen_train["dw"]),
+         "auto3dseg_unet_train_float32": f32_sites(auto3dseg["unet"]["dw"]),
+         "auto3dseg_segresnet_train_float32": f32_sites(auto3dseg["segresnet"]["dw"]),
+         "dynunet_train_float32": f32_sites(dynunet["dw"])},
         {"name": "instance_norm_prelu_backward", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
          "replaces": "monai_tpu/networks/layers/fast_norm.py:74",
-         "launches": train_counts["instance_norm_prelu_backward"] + trained["instance_norm_prelu_backward"],
-         **train["norm_backward"], "swin_train_float32": f32_sites(swin["norm_backward"])},
+         "launches": train_counts["instance_norm_prelu_backward"] + trained["instance_norm_prelu_backward"]
+         + new_f32["instance_norm_prelu_backward"],
+         **train["norm_backward"], "swin_train_float32": f32_sites(swin["norm_backward"]),
+         "auto3dseg_unet_train_float32": f32_sites(auto3dseg["unet"]["norm_backward"]),
+         "dynunet_train_float32": f32_sites(dynunet["norm_backward"])},
         {"name": "fused_window_attention_backward", "route": "cuda",
          "source": "monai_tpu_torch/csrc/window_attention_bwd.cu",
          "replaces": "monai_tpu/ops/pallas_window_attention.py:159",
@@ -2832,8 +3359,11 @@ def main() -> None:
         f"{k} {line(train[k])}" for k in ("dw", "dx", "norm_backward")) + "; float32 swin " + "; ".join(
         f"{k} {line(swin[k])}" for k in ("dw", "dx", "norm_backward", "attention_backward", "attention_forward"))
         + "; float32 segresnet batch 1 " + "; ".join(f"{k} {line(brats[k])}" for k in ("forward", "dx", "dw"))
-        + "; float32 spleen batch 8 " + "; ".join(f"{k} {line(spleen_train[k])}" for k in ("forward", "dx", "dw")),
-        flush=True)
+        + "; float32 spleen batch 8 " + "; ".join(f"{k} {line(spleen_train[k])}" for k in ("forward", "dx", "dw"))
+        + "; float32 auto3dseg unet batch 4 " + "; ".join(f"{k} {line(auto3dseg['unet'][k])}" for k in auto3dseg["unet"])
+        + "; float32 auto3dseg segresnet batch 4 " + "; ".join(f"{k} {line(auto3dseg['segresnet'][k])}"
+                                                           for k in auto3dseg["segresnet"])
+        + "; float32 dynunet batch 2 of 128^3 " + "; ".join(f"{k} {line(dynunet[k])}" for k in dynunet), flush=True)
 
     def merged(i: int) -> dict:
         """The per-forward sums of kernel i over the UNet and SwinUNETR paths (bfloat16)."""
@@ -2848,15 +3378,21 @@ def main() -> None:
         {"name": "conv3d_3x3_same", "route": "cuda", "source": "monai_tpu_torch/csrc/conv3d_3x3_same.cu",
          "replaces": "monai_tpu/ops/pallas_conv3d.py:91",
          "launches": unet_counts[0] + swin_sw_counts[0] + spleen_counts[0] + train_counts["conv3d_3x3_same"]
-         + bundle_counts[0] + trained["conv3d_3x3_same"] + conv_trained["conv3d_3x3_same"],
+         + bundle_counts[0] + trained["conv3d_3x3_same"] + conv_trained["conv3d_3x3_same"]
+         + new_f32["conv3d_3x3_same"],
          **merged(0), "swin_train_float32_dx": f32_sites(swin["dx"]),
          "segresnet_train_float32": f32_sites(brats["forward"]), "segresnet_train_float32_dx": f32_sites(brats["dx"]),
          "spleen_train_float32": f32_sites(spleen_train["forward"]),
-         "spleen_train_float32_dx": f32_sites(spleen_train["dx"])},
+         "spleen_train_float32_dx": f32_sites(spleen_train["dx"]),
+         **{f"{name}_train_float32{suffix}": f32_sites(summary[k])
+            for name, summary in (("auto3dseg_unet", auto3dseg["unet"]), ("auto3dseg_segresnet", auto3dseg["segresnet"]),
+                                  ("dynunet", dynunet)) for k, suffix in (("forward", ""), ("dx", "_dx"))}},
         {"name": "instance_norm_prelu", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
          "replaces": "monai_tpu/networks/layers/fast_norm.py:44",
          "launches": unet_counts[1] + swin_sw_counts[1] + train_counts["instance_norm_prelu"]
-         + trained["instance_norm_prelu"], **merged(1)},
+         + trained["instance_norm_prelu"] + new_f32["instance_norm_prelu"], **merged(1),
+         "auto3dseg_unet_train_float32": f32_sites(auto3dseg["unet"]["norm"]),
+         "dynunet_train_float32": f32_sites(dynunet["norm"])},
         {"name": "fused_window_attention", "route": "cuda", "source": "monai_tpu_torch/csrc/window_attention.cu",
          "replaces": "monai_tpu/ops/pallas_window_attention.py:106",
          "launches": swin_sw_counts[2] + trained["fused_window_attention"], **summaries["swinunetr"][2],

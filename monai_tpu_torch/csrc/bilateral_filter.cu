@@ -66,6 +66,8 @@
 #include <climits>
 #include <cmath>
 
+#include "runtime_error.cuh"
+
 namespace {
 
 // the run-time-radius (tap) kernels
@@ -539,7 +541,7 @@ int resident3(int wx) {
   int n = 0;
   auto* kernel = &bilateral_3d_pair<R, false>;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, 32 * kWarps3, pair3_smem<R>(wx));
-  return e == cudaSuccess ? n : -(int)e;
+  return e == cudaSuccess ? n : -(int)cleared(e);
 }
 
 template <int R>
@@ -547,7 +549,7 @@ int resident2() {
   int n = 0;
   auto* kernel = &bilateral_2d_pair<R, false>;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, 32, pair2_smem(R));
-  return e == cudaSuccess ? n : -(int)e;
+  return e == cudaSuccess ? n : -(int)cleared(e);
 }
 
 }  // namespace

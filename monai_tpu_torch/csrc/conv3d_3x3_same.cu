@@ -60,6 +60,7 @@
 #include <type_traits>
 
 #include "mma_sync.cuh"
+#include "runtime_error.cuh"
 
 namespace {
 
@@ -763,7 +764,7 @@ cudaError_t find_plan(Plan& p, int dtype, long long N, int D, int H, int W, int 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns a cudaError_t (0 on success);
-// launches on `stream` and does not synchronise.
+// launches on `stream` and does not synchronise; a refused launch leaves no error behind.
 extern "C" int monai_conv3d_3x3_same(const void* x, const void* w, const void* bias, void* y, long long n,
                                      int d, int h, int w_, int ci, int co, int dtype, void* stream) {
   if (n <= 0 || d <= 0 || h <= 0 || w_ <= 0 || ci <= 0 || co <= 0 || dtype < 0 || dtype > 2)
@@ -780,6 +781,6 @@ extern "C" int monai_conv3d_3x3_same(const void* x, const void* w, const void* b
   }
   Plan p;
   const cudaError_t err = find_plan(p, dtype, n, d, h, w_, ci, co);
-  if (err != cudaSuccess) return (int)err;
-  return (int)p.run(p, x, w, bias, y, s);
+  if (err != cudaSuccess) return (int)cleared(err);
+  return (int)cleared(p.run(p, x, w, bias, y, s));
 }

@@ -73,6 +73,7 @@
 #include <type_traits>
 
 #include "mma_sync.cuh"
+#include "runtime_error.cuh"
 
 namespace {
 
@@ -935,7 +936,7 @@ extern "C" int monai_conv3d_3x3_wgrad_plan(long long n, int d, int h, int w, int
   if (!valid(n, d, h, w, ci, co, dtype)) return (int)cudaErrorInvalidValue;
   Plan p;
   const cudaError_t err = find_plan(p, dtype, aligned != 0, n, d, h, w, ci, co);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return (int)cleared(err);
   const long long vals[19] = {p.route, p.chunks, p.chunks > 1 ? (long long)p.chunks * 27 * ci * co : 0,
                               (long long)p.grid.x * p.grid.y, p.threads, (long long)p.smem, p.per_sm, p.rc, p.ro,
                               p.pci, p.pco, p.splits, p.g.bd, p.g.bh, p.g.bw, p.g.tiles_ci, p.tiles_co, p.g.bricks,
@@ -953,11 +954,11 @@ extern "C" int monai_conv3d_3x3_wgrad(const void* x, const void* g, void* dw, fl
   if (!valid(n, d, h, w, ci, co, dtype)) return (int)cudaErrorInvalidValue;
   Plan p;
   cudaError_t err = find_plan(p, dtype, aligned16(x) && aligned16(g), n, d, h, w, ci, co);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return (int)cleared(err);
   if (p.chunks > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   err = p.run(p, x, g, partial, dw, s);
-  if (err != cudaSuccess || p.chunks == 1) return (int)err;
+  if (err != cudaSuccess || p.chunks == 1) return (int)cleared(err);
   const long long total = 27LL * ci * co;
   const int groups = reduce_groups(p.chunks, total, 2LL * p.sms);
   const unsigned blocks = (unsigned)cdiv(total, 256 / groups);

@@ -95,6 +95,8 @@
 
 #include <type_traits>
 
+#include "runtime_error.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 256;
@@ -967,15 +969,6 @@ cudaError_t allow_smem(const void* kern, int smem) {
   return err;
 }
 
-// A launch's result: err where the launch or a call before it failed, with the runtime's
-// record of that error cleared (the caller's next launch would read it; the caller raises
-// with it), else cudaGetLastError().
-cudaError_t cleared(cudaError_t err) {
-  if (err == cudaSuccess) return cudaGetLastError();
-  cudaGetLastError();
-  return err;
-}
-
 }  // namespace
 
 // Blocks of the kernel of (dtype, path, vec) an SM holds at `threads` threads and `smem`
@@ -983,9 +976,9 @@ cudaError_t cleared(cudaError_t err) {
 extern "C" int monai_instance_norm_occupancy(int dtype, int path, int vec, int threads, int smem, int* out) {
   const void* kern = pick_kernel(dtype, path, vec);
   if (kern == nullptr || threads < 1 || threads > kMaxThreads || smem < 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kern, threads, (size_t)smem);
+  cudaError_t err = allow_smem(kern, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kern, threads, (size_t)smem);
+  return (int)cleared(err);
 }
 
 // One launch of a plan, as instance_norm_plan gives it, on x (B, S, C) into y. plan: B,
@@ -998,7 +991,8 @@ extern "C" int monai_instance_norm_occupancy(int dtype, int path, int vec, int t
 // partial sums; every launch leaves the barrier's count at 0, so launches in one stream
 // may share one scratch. stats: null, or [2][B][C] float32 that gets each instance's
 // per-channel mean and rsqrt(var + eps), which the backward reads. Returns a
-// cudaError_t: the launch's, or cudaGetLastError() after it.
+// cudaError_t: the launch's, or cudaGetLastError() after it; a refused launch leaves no
+// error behind for the next one.
 extern "C" int monai_instance_norm(const void* x, void* y, const void* w, const void* b, const void* a,
                                    void* scratch, float* stats, const long long* plan, float eps, int params,
                                    void* stream) {
@@ -1040,18 +1034,18 @@ extern "C" int monai_instance_norm(const void* x, void* y, const void* w, const 
   args.stat_stride = B * C;
   if (threads % args.gv != 0) return (int)cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return (int)err;
   if (path == 0) {
     if (blocks != args.units || args.nvec * 16 > smem) return (int)cudaErrorInvalidValue;
     args.partial = nullptr;
     args.bar = nullptr;
     args.per_unit = args.units_per_group = args.unit_groups = 1;
     args.stash = 0;
+    const cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return (int)cleared(err);
     if (dtype == 0) norm_onchip<float, 4><<<blocks, threads, smem, st>>>(args);
     else if (dtype == 1) norm_onchip<__nv_bfloat16, 8><<<blocks, threads, smem, st>>>(args);
     else norm_onchip<__half, 8><<<blocks, threads, smem, st>>>(args);
-    return (int)cudaGetLastError();
+    return (int)cleared(cudaSuccess);
   }
   if (per_unit < 1 || units_per_group < 1 || blocks != per_unit * units_per_group || scratch == nullptr ||
       ((long long)per_unit * threads) % args.gv != 0 || stash < 0 || (vec == 1 && stash != 0) ||
@@ -1064,9 +1058,9 @@ extern "C" int monai_instance_norm(const void* x, void* y, const void* w, const 
   args.bar = static_cast<unsigned*>(scratch);
   args.partial = static_cast<float*>(scratch) + 2;
   void* kargs[] = {&args};
-  err = cudaLaunchCooperativeKernel(kern, dim3(blocks), dim3(threads), kargs, (size_t)smem, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  cudaError_t err = allow_smem(kern, smem);
+  if (err == cudaSuccess) err = cudaLaunchCooperativeKernel(kern, dim3(blocks), dim3(threads), kargs, (size_t)smem, st);
+  return (int)cleared(err);
 }
 
 // The backward of monai_instance_norm (with its slope) for g on x (B, S, C) into dx, from

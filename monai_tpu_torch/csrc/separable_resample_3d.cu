@@ -53,6 +53,7 @@
 #include <cstdint>
 
 #include "mma_sync.cuh"
+#include "runtime_error.cuh"
 
 namespace {
 
@@ -400,9 +401,9 @@ extern "C" int monai_separable_resample_3d(const void* in, void* out, void* tmp1
     if (plan[2 + d] <= 0) return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   switch (plan[8]) {
-    case 1: return (int)run<1>(in, out, tmp1, tmp2, plan, s, launched);
-    case 2: return (int)run<2>(in, out, tmp1, tmp2, plan, s, launched);
-    case 4: return (int)run<4>(in, out, tmp1, tmp2, plan, s, launched);
+    case 1: return (int)cleared(run<1>(in, out, tmp1, tmp2, plan, s, launched));
+    case 2: return (int)cleared(run<2>(in, out, tmp1, tmp2, plan, s, launched));
+    case 4: return (int)cleared(run<4>(in, out, tmp1, tmp2, plan, s, launched));
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -121,6 +121,7 @@
 #include <mutex>
 
 #include "mma_sync.cuh"
+#include "runtime_error.cuh"
 
 namespace {
 
@@ -1294,9 +1295,9 @@ extern "C" int monai_window_attention(const void* q, const void* k, const void* 
   const auto* bf = static_cast<const float*>(bias);
   const auto* mf = static_cast<const float*>(mask);
   auto* lf = static_cast<float*>(lse);
-  if (dtype == 0) return (int)launch_d<float>(q, k, v, bf, mf, out, lf, B, H, N, D, nW, dtype, s);
-  if (dtype == 1) return (int)launch_d<__nv_bfloat16>(q, k, v, bf, mf, out, lf, B, H, N, D, nW, dtype, s);
-  if (dtype == 2) return (int)launch_d<__half>(q, k, v, bf, mf, out, lf, B, H, N, D, nW, dtype, s);
+  if (dtype == 0) return (int)cleared(launch_d<float>(q, k, v, bf, mf, out, lf, B, H, N, D, nW, dtype, s));
+  if (dtype == 1) return (int)cleared(launch_d<__nv_bfloat16>(q, k, v, bf, mf, out, lf, B, H, N, D, nW, dtype, s));
+  if (dtype == 2) return (int)cleared(launch_d<__half>(q, k, v, bf, mf, out, lf, B, H, N, D, nW, dtype, s));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1315,7 +1316,7 @@ extern "C" int monai_window_attention_plan(long long B, int H, int N, int D, int
   if (inst == kMma || inst == kTf32) {
     MmaPlan p;
     const cudaError_t err = find_mma_plan(p, B, H, N, D, nW > 0 ? nW : 1, dtype);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return (int)cleared(err);
     info[1] = p.g.wb;
     info[2] = (int)p.blocks;
     info[3] = p.per_sm;

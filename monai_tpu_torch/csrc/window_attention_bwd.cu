@@ -73,6 +73,7 @@
 #include <type_traits>
 
 #include "mma_sync.cuh"
+#include "runtime_error.cuh"
 
 namespace {
 
@@ -786,7 +787,7 @@ extern "C" int monai_window_attention_bwd_plan(long long B, int H, int N, int D,
   if (!valid(B, H, N, D, nW)) return (int)cudaErrorInvalidValue;
   Plan p;
   const cudaError_t err = plan_for(p, B, H, N, D, dtype);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return (int)cleared(err);
   const long long vals[16] = {p.route, p.dp, p.kt, p.qt, p.nkt, p.chunks, p.threads, (long long)p.smem,
                               p.resident, p.run, p.splits, p.blocks, p.nkt > 1 ? p.nkt : 0,
                               p.splits > 1 ? p.splits : 0, 1, p.launches};
@@ -811,7 +812,7 @@ extern "C" int monai_window_attention_bwd(const void* q, const void* k, const vo
   if (!valid(B, H, N, D, nW)) return (int)cudaErrorInvalidValue;
   Plan p;
   cudaError_t err = plan_for(p, B, H, N, D, dtype);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return (int)cleared(err);
   if ((p.nkt > 1 && dq_part == nullptr) || (p.splits > 1 && db_part == nullptr)) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, out, dout, static_cast<const float*>(bias), static_cast<const float*>(mask),
                static_cast<const float*>(lse), static_cast<float*>(delta), dq, dk, dv, static_cast<float*>(dbias),
@@ -821,5 +822,5 @@ extern "C" int monai_window_attention_bwd(const void* q, const void* k, const vo
   if (dtype == 0) err = run_t<float>(p, a, s, &ran[1]);
   else if (dtype == 1) err = run_t<__nv_bfloat16>(p, a, s, &ran[1]);
   else err = run_t<__half>(p, a, s, &ran[1]);
-  return (int)err;
+  return (int)cleared(err);
 }

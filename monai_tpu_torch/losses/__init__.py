@@ -1,2 +1,2 @@
 from .dice import DiceCELoss, DiceLoss
-from .other import CrossEntropyLoss
+from .other import CrossEntropyLoss, DeepSupervisionLoss

@@ -3,6 +3,6 @@ from .attention import MLPBlock, PatchEmbed
 from .convolutions import Convolution, ResidualUnit, same_padding, stride_minus_kernel_padding
 from .crf import CRF
 from .segresnet_block import ResBlock, get_upsample_layer
-from .dynunet_block import (UnetBasicBlock, UnetOutBlock, UnetrBasicBlock, UnetResBlock, UnetrUpBlock,
+from .dynunet_block import (UnetBasicBlock, UnetOutBlock, UnetrBasicBlock, UnetResBlock, UnetrUpBlock, UnetUpBlock,
                             get_conv_layer)
 from .upsample import UpSample, interpolate

@@ -1,5 +1,5 @@
-"""DynUNet-style conv blocks of the UNETR family (counterpart of
-monai_tpu/networks/blocks/dynunet_block.py, for the blocks SwinUNETR uses), with torch
+"""DynUNet-style conv blocks (counterpart of monai_tpu/networks/blocks/dynunet_block.py,
+for the blocks DynUNet and SwinUNETR use), with torch
 MONAI's module names: a block holds ``conv1``, ``conv2`` (and ``conv3`` on the
 downsampling path), ``norm1``, ``norm2`` (``norm3``) and ``lrelu``; every conv is a
 ``Convolution`` with only a ``conv`` child, so its weight is ``conv1.conv.weight``.
@@ -20,7 +20,7 @@ from ..layers.factories import get_act_layer, get_norm_layer
 from ..layers.fast_norm import InstanceNorm, channels_last
 from .convolutions import Convolution
 
-__all__ = ["UnetBasicBlock", "UnetResBlock", "UnetOutBlock", "UnetrBasicBlock", "UnetrUpBlock",
+__all__ = ["UnetBasicBlock", "UnetResBlock", "UnetUpBlock", "UnetOutBlock", "UnetrBasicBlock", "UnetrUpBlock",
            "get_conv_layer", "get_output_padding", "get_padding"]
 
 _LRELU = ("leakyrelu", {"negative_slope": 0.01})
@@ -117,6 +117,25 @@ class UnetResBlock(_NormActMixin, nn.Module):
         out = self.norm2(self.conv2(out))
         residual = self.norm3(self.conv3(x)) if self.downsample else x
         return self.lrelu(out + residual)
+
+
+class UnetUpBlock(nn.Module):
+    """DynUNet's decoder block: a transposed conv of kernel and stride
+    ``upsample_kernel_size`` (with a bias where ``trans_bias``), the skip concatenated
+    after it, then a ``UnetBasicBlock`` of ``kernel_size``."""
+
+    def __init__(self, spatial_dims: int, in_channels: int, out_channels: int, kernel_size=3, stride=1,
+                 upsample_kernel_size=2, norm_name=_INSTANCE_AFFINE, act_name=_LRELU, trans_bias: bool = False,
+                 device=None, dtype=None, generator: torch.Generator | None = None):
+        super().__init__()
+        self.transp_conv = get_conv_layer(spatial_dims, in_channels, out_channels, upsample_kernel_size,
+                                          upsample_kernel_size, bias=trans_bias, is_transposed=True, device=device,
+                                          dtype=dtype, generator=generator)
+        self.conv_block = UnetBasicBlock(spatial_dims, out_channels * 2, out_channels, kernel_size, 1, norm_name,
+                                         act_name, device=device, dtype=dtype, generator=generator)
+
+    def forward(self, inp: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        return self.conv_block(channels_last(torch.cat((self.transp_conv(inp), skip), dim=1)))
 
 
 class UnetOutBlock(nn.Module):

@@ -1,4 +1,4 @@
-"""Weight bridge: a monai_tpu UNet's, SwinUNETR's, SegResNet's, DenseNet's or trainable
+"""Weight bridge: a monai_tpu UNet's, SwinUNETR's, SegResNet's, DenseNet's, DynUNet's or trainable
 bilateral filter's parameters as a monai_tpu_torch ``state_dict``.
 
 The input is keyed by the flattened nnx variable paths of ``monai_tpu``'s network, e.g.
@@ -19,7 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["densenet_state_dict_from_jax", "filter_state_dict_from_jax", "segresnet_state_dict_from_jax", "swin_state_dict_from_jax",
+__all__ = ["densenet_state_dict_from_jax", "dynunet_state_dict_from_jax", "filter_state_dict_from_jax", "segresnet_state_dict_from_jax", "swin_state_dict_from_jax",
            "unet_state_dict_from_jax"]
 
 _ADN_LEAVES = {"alpha": "A.weight", "scale": "N.weight", "bias": "N.bias", "mean": "N.running_mean",
@@ -114,22 +114,44 @@ def swin_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tenso
             else:
                 key.append(t)
             i += 1
-        parent, leaf = key[-1], toks[-1]
-        if parent in _CONV_WRAPPED:
-            key.append("conv")
-        if leaf == "kernel":
-            if arr.ndim == 2:  # nnx.Linear (I, O)
-                arr = arr.T
-            else:
-                arr = _conv_weight(arr, parent == "transp_conv")
-            leaf = "weight"
-        elif leaf == "scale":
-            leaf = "weight"
-        elif leaf not in ("bias", "relative_position_bias_table", "relative_position_index"):
-            raise KeyError(f"cannot map {path}")
-        if leaf == "relative_position_index":
-            arr = arr.astype(np.int64)
-        out[".".join(key + [leaf])] = torch.tensor(np.ascontiguousarray(arr))
+        name, arr = _block_param(key, toks[-1], arr, path)
+        out[name] = torch.tensor(np.ascontiguousarray(arr))
+    return out
+
+
+def _block_param(key: list[str], leaf: str, arr: np.ndarray, path: str) -> tuple[str, np.ndarray]:
+    """The port's name and array of a DynUNet-family parameter: ``key`` the module path,
+    ``leaf`` the nnx leaf. A conv of ``_CONV_WRAPPED`` gains the ``.conv`` level of torch
+    MONAI's ``Convolution``; ``kernel`` and ``scale`` become ``weight``."""
+    parent = key[-1]
+    if parent in _CONV_WRAPPED:
+        key = key + ["conv"]
+    if leaf == "kernel":
+        if arr.ndim == 2:  # nnx.Linear (I, O)
+            arr = arr.T
+        else:
+            arr = _conv_weight(arr, parent == "transp_conv")
+        leaf = "weight"
+    elif leaf == "scale":
+        leaf = "weight"
+    elif leaf not in ("bias", "relative_position_bias_table", "relative_position_index"):
+        raise KeyError(f"cannot map {path}")
+    if leaf == "relative_position_index":
+        arr = arr.astype(np.int64)
+    return ".".join(key + [leaf]), arr
+
+
+def dynunet_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Map ``{nnx variable path: array}`` of a monai_tpu DynUNet (its ``Param``s) to the
+    port's ``state_dict``, loadable with ``DynUNet.load_state_dict(strict=True)``: the
+    module paths are the same (``upsamples.0.conv_block.conv1``), each conv gains the
+    ``.conv`` level of torch MONAI's ``Convolution``, a transposed conv's kernel is flipped,
+    and ``kernel`` / ``scale`` become ``weight``."""
+    out: dict[str, torch.Tensor] = {}
+    for path, value in params.items():
+        toks = path.split(".")
+        name, arr = _block_param(toks[:-1], toks[-1], np.asarray(value), path)
+        out[name] = torch.tensor(np.ascontiguousarray(arr))
     return out
 
 

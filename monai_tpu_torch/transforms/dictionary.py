@@ -17,7 +17,7 @@ from .intensity_array import (NormalizeIntensity, RandScaleIntensity, RandShiftI
                               ScaleIntensityRange)
 from .inverse import InvertibleTransform
 from .io_array import LoadImage, SaveImage
-from .post_array import Activations, AsDiscrete
+from .post_array import Activations, AsDiscrete, MeanEnsemble, VoteEnsemble
 from .spatial_array import Orientation, RandFlip, RandRotate, RandRotate90, RandZoom, Spacing
 from .traits import LazyTrait
 from .transform import MapTransform, Randomizable, RandomizableTransform
@@ -28,7 +28,7 @@ __all__ = ["LoadImaged", "EnsureChannelFirstd", "Orientationd", "Spacingd", "Sca
            "AsDiscreted", "CropForegroundd", "RandCropByPosNegLabeld", "RandFlipd", "RandRotate90d",
            "RandShiftIntensityd", "Invertd", "SaveImaged", "ConvertToMultiChannelBasedOnBratsClassesd",
            "NormalizeIntensityd", "RandScaleIntensityd", "RandSpatialCropd", "ScaleIntensityd", "RandRotated",
-           "RandZoomd"]
+           "RandZoomd", "MeanEnsembled", "VoteEnsembled"]
 
 
 def _mapped(name: str, array_cls, call_kwargs: tuple = ()):
@@ -271,4 +271,34 @@ class SaveImaged(MapTransform):
             if meta_key is None and postfix is not None:
                 meta_key = f"{key}_{postfix}"
             self.saver(d[key], meta_data=d.get(meta_key) if meta_key is not None else None)
+        return d
+
+
+class MeanEnsembled(MapTransform):
+    """``MeanEnsemble`` over the items of ``keys``, written to ``output_key`` (the first
+    key by default)."""
+
+    def __init__(self, keys, output_key: str | None = None, weights=None):
+        MapTransform.__init__(self, keys)
+        self.output_key = output_key if output_key is not None else self.keys[0]
+        self.ensemble = MeanEnsemble(weights=weights)
+
+    def __call__(self, data: Mapping) -> dict:
+        d = dict(data)
+        d[self.output_key] = self.ensemble([d[key] for key in self.key_iterator(d)])
+        return d
+
+
+class VoteEnsembled(MapTransform):
+    """``VoteEnsemble`` over the items of ``keys``, written to ``output_key`` (the first
+    key by default)."""
+
+    def __init__(self, keys, output_key: str | None = None, num_classes: int | None = None):
+        MapTransform.__init__(self, keys)
+        self.output_key = output_key if output_key is not None else self.keys[0]
+        self.ensemble = VoteEnsemble(num_classes=num_classes)
+
+    def __call__(self, data: Mapping) -> dict:
+        d = dict(data)
+        d[self.output_key] = self.ensemble([d[key] for key in self.key_iterator(d)])
         return d

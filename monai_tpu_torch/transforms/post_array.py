@@ -1,16 +1,21 @@
-"""Activations and AsDiscrete (counterpart of monai_tpu/transforms/post_array.py), on
-channel-first single samples: the sigmoid, the softmax, the argmax, the one-hot encoding
-and the threshold of the bundles' postprocessing."""
+"""Activations, AsDiscrete, MeanEnsemble and VoteEnsemble (counterparts of the classes in
+monai_tpu/transforms/post_array.py), on channel-first single samples: the sigmoid, the
+softmax, the argmax, the one-hot encoding and the threshold of the bundles'
+postprocessing, and the Auto3DSeg ensemble's mean or vote over its members' outputs, on
+the outputs' device."""
 from __future__ import annotations
 
+import warnings
+from collections.abc import Sequence
 from typing import Any
 
 import torch
 
 from ..data.meta_image import MetaImage
+from ..networks.utils import one_hot
 from .transform import Transform
 
-__all__ = ["Activations", "AsDiscrete"]
+__all__ = ["Activations", "AsDiscrete", "Ensemble", "MeanEnsemble", "VoteEnsemble"]
 
 
 class Activations(Transform):
@@ -65,3 +70,60 @@ class AsDiscrete(Transform):
             out = out >= threshold
         out = out.float()
         return img.new_like(out) if isinstance(img, MetaImage) else out
+
+
+class Ensemble:
+    """The members' outputs stacked on a new first axis, and the result given the first
+    member's meta where it is a ``MetaImage``."""
+
+    @staticmethod
+    def get_stacked_torch(img: Any) -> torch.Tensor:
+        if isinstance(img, Sequence):
+            return torch.stack([torch.as_tensor(i.data if isinstance(i, MetaImage) else i) for i in img])
+        return img.data if isinstance(img, MetaImage) else torch.as_tensor(img)
+
+    @staticmethod
+    def post_convert(out: torch.Tensor, orig: Any):
+        ref = orig[0] if isinstance(orig, Sequence) else orig
+        return ref.new_like(out) if isinstance(ref, MetaImage) else out
+
+
+class MeanEnsemble(Ensemble, Transform):
+    """The mean over the members, each scaled by its weight over the weights' mean where
+    ``weights`` (one a member, or one a member and channel) are given."""
+
+    def __init__(self, weights: Sequence[float] | None = None):
+        self.weights = None if weights is None else torch.as_tensor(weights, dtype=torch.float32)
+
+    def __call__(self, img: Any):
+        stacked = self.get_stacked_torch(img)
+        if self.weights is not None:
+            w = self.weights.to(device=stacked.device, dtype=stacked.dtype)
+            w = w.reshape(*w.shape, *(1,) * (stacked.ndim - w.ndim))
+            stacked = stacked * w / w.mean(dim=0, keepdim=True)
+        return self.post_convert(stacked.mean(dim=0), img)
+
+
+class VoteEnsemble(Ensemble, Transform):
+    """A majority vote: with ``num_classes``, of one-channel label maps (the argmax of the
+    members' one-hot mean, one channel); without, of one-hot or binary outputs (1 where
+    at least half the members say 1), as float32."""
+
+    def __init__(self, num_classes: int | None = None):
+        self.num_classes = num_classes
+
+    def __call__(self, img: Any):
+        stacked = self.get_stacked_torch(img)
+        has_ch_dim = True
+        if self.num_classes is not None:
+            if stacked.ndim > 1 and stacked.shape[1] > 1:
+                warnings.warn("no need to specify num_classes for One-Hot format data.")
+            else:
+                has_ch_dim = stacked.ndim > 1
+                stacked = one_hot(stacked if stacked.ndim > 1 else stacked[:, None], self.num_classes, dim=1)
+        out = stacked.float().mean(dim=0)
+        if self.num_classes is not None:
+            out = torch.argmax(out, dim=0, keepdim=has_ch_dim).float()
+        else:
+            out = (out >= 0.5).float()
+        return self.post_convert(out, img)

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 from enum import Enum
 
-__all__ = ["StrEnum", "BlendMode", "CommonKeys", "GridSampleMode", "GridSamplePadMode", "LazyAttr", "LossReduction",
+__all__ = ["StrEnum", "AlgoKeys", "BlendMode", "CommonKeys", "GridSampleMode", "GridSamplePadMode", "LazyAttr", "LossReduction",
            "MetaKeys", "MetricReduction", "SpaceKeys", "TraceKeys"]
 
 
@@ -110,3 +110,12 @@ class CompInitMode(StrEnum):
     CALLABLE = "callable"
     DEBUG = "debug"
     PARTIAL = "partial"
+
+
+class AlgoKeys(StrEnum):
+    """The keys of an Auto3DSeg history record (``apps.auto3dseg``)."""
+
+    ID = "identifier"
+    ALGO = "algo_instance"
+    IS_TRAINED = "is_trained"
+    SCORE = "best_metric"

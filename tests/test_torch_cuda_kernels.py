@@ -43,6 +43,8 @@ from monai_tpu_torch.ops.window_attention import (_forward as _attention_forward
 
 # every conv site of the two training steps, and of the BraTS and Spleen bundles' float32 steps
 from test_torch_conv3d_wgrad_plan import F32_BUNDLE_SITES, STEP_SITES
+# every site of the Auto3DSeg templates' and DynUNet's float32 steps
+from test_torch_float32_step_sites import NEW_F32_CONV_SITES, NEW_F32_NORM_SITES
 from test_torch_norm_bwd_plan import SWIN_NORM_SITES, UNET_NORM_SITES  # every norm site of the two training steps
 # every attention site of the float32 Swin step and of the bench SwinUNETR (head dim 8)
 from test_torch_window_attention_bwd_plan import BENCH_ATTN_SITES, STEP_D8_SITES, SWIN_ATTN_SITES
@@ -909,6 +911,34 @@ def test_conv_kernels_at_the_float32_bundle_sites(cuda, batch, ci, co, spatial):
     bundle's SegResNet step (batch 1; its 1 -> 16 input conv included) and of the Spleen
     bundle's batch-norm UNet step (batch 8), through autograd of the wrapper: three launches,
     each result against autograd of the plain version; and the host's dw plan is the card's."""
+    _conv_kernels_f32(cuda, batch, ci, co, spatial)
+
+
+@pytest.mark.parametrize("batch,ci,co,spatial", sorted(NEW_F32_CONV_SITES))
+def test_conv_kernels_at_the_auto3dseg_and_dynunet_sites(cuda, batch, ci, co, spatial):
+    """As at the bundle sites, at each float32 site of the Auto3DSeg UNet and SegResNet
+    templates' steps (batch 4) and of the DynUNet step (batch 2 of 128^3)."""
+    _conv_kernels_f32(cuda, batch, ci, co, spatial)
+
+
+@pytest.mark.parametrize("batch,c,spatial,affine,slope", sorted(NEW_F32_NORM_SITES, key=str))
+def test_norm_kernels_at_the_auto3dseg_and_dynunet_sites(cuda, batch, c, spatial, affine, slope):
+    """Kernel B2's forward and backward in float32 at each norm site of the Auto3DSeg UNet
+    template's step (no affine, the PReLU's slope) and of the DynUNet step (affine, the
+    LeakyReLU's slope): each against its plain version, one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(c * 13 + spatial[0])
+    x, gy, w, b, a = _norm_bwd_inputs(g, (batch, c, *spatial), torch.float32, cuda, affine, "one")
+    a.fill_(slope)
+    with torch.inference_mode():
+        before = instance_norm_prelu.launches
+        got = instance_norm_prelu(x, w, b, a)
+        torch.cuda.synchronize()
+        assert instance_norm_prelu.launches == before + 1
+        _assert_close(got, instance_norm_prelu_plain(x, w, b, a), torch.float32)
+    _norm_bwd_check(x, gy, w, b, a, torch.float32)
+
+
+def _conv_kernels_f32(cuda, batch, ci, co, spatial):
     g = torch.Generator(device=cuda).manual_seed(ci * 31 + co)
     x = torch.randn((batch, *spatial, ci), generator=g, device=cuda).requires_grad_()
     w = (torch.randn((3, 3, 3, ci, co), generator=g, device=cuda) / (27 * ci) ** 0.5).requires_grad_()
@@ -1150,6 +1180,36 @@ def test_norm_backward_refuses_a_grid_the_card_cannot_hold(cuda, monkeypatch):
     assert instance_norm_prelu_backward.launches == before
     monkeypatch.undo()
     _norm_bwd_check(x, gy, w, b, a, torch.float32)
+
+
+@pytest.mark.parametrize("shape", [(2, 24, 24, 24, 24), (2, 32, 128, 128, 128)])
+def test_norm_forward_refuses_a_grid_the_card_cannot_hold(cuda, monkeypatch, shape):
+    """The forward's cooperative grid of more blocks than the card holds at once is refused
+    by the launch and raises, nothing is counted, and the runtime keeps no record of the
+    refusal: the next forward launch runs and matches the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x, _, w, b, a = _norm_bwd_inputs(g, shape, torch.float32, cuda, True, "one")
+    p, plan = fast_norm._launch_args(tuple(x.shape), x.dtype, cuda.index or 0, True)
+    assert p["path"] == "persistent"
+    (sms, _), occupancy = _card(cuda.index or 0)
+    grid = sms * occupancy(0, 1, p["vec"], p["threads"], p["smem"])
+    per_unit = grid // p["units_per_group"] + 1
+    units = shape[0] * shape[1] // p["group"]
+    big = dict(p, per_unit=per_unit, blocks=per_unit * p["units_per_group"],
+               scratch=2 + 2 * units * per_unit * p["group"])
+    arr = (ctypes.c_longlong * 13)(*plan)
+    arr[8], arr[9] = big["blocks"], per_unit
+    monkeypatch.setattr(fast_norm, "_launch_args", lambda *args: (big, arr))
+    before = instance_norm_prelu.launches
+    with torch.inference_mode(), pytest.raises(RuntimeError, match="CUDA launch failed"):
+        instance_norm_prelu(x, w, b, a)
+    assert instance_norm_prelu.launches == before
+    monkeypatch.undo()
+    with torch.inference_mode():
+        got = instance_norm_prelu(x, w, b, a)
+        torch.cuda.synchronize()
+        assert instance_norm_prelu.launches == before + 1
+        _assert_close(got, instance_norm_prelu_plain(x, w, b, a), torch.float32)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
