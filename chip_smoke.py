@@ -175,6 +175,14 @@ Drives the port's paths, each at full width with random weights from a seed:
      the card against the CPU, then 2 warm-up and 5 timed trainer steps on one batch from a
      seed: steps/s, the median step, the peak memory, each step's launches (17, 16, 17, 22,
      22) and loss (the last below the first); one step's profile
+  16. the Spleen model selected, exported and shipped (``ship_phase``): ``train.json`` with
+     ``amp`` on the trainer and the evaluator, key-metric and interval checkpoints (the
+     files the JAX rules keep, the best holding its validation's weights) and a print
+     logger; ``verify_metadata``, ``verify_net_in_out`` and ``ckpt_export``, whose
+     ``torch.export`` program launches kernel 1 and agrees with the module;
+     ``inference.json`` with the label map resampled onto the input's grid on write (kernel
+     3), equal to the Invertd route's but at near ties; ``TestTimeAugmentation`` over a 96³
+     ROI (kernel 1 at each forward, kernel 3 at each zoom and its inverse)
 
 It prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0; so it is without a CUDA device.
@@ -1556,7 +1564,10 @@ def bundle_phase(dev, spleen5: dict) -> tuple[int, ...]:
     the bundle sets its loader (no worker thread) and once with 2 threads, after a warm-up
     over one volume; then through the command line, in a process of its own, over one.
     Each file is checked against phase 5's label map; then a spleen forward and a volume
-    under torch's default TF32 setting. Returns the launch counts of the two timed runs."""
+    under torch's default TF32 setting. Returns the launch counts of the two timed runs,
+    and what phase 16 holds its label map to: phase 5's label map, the path's under the
+    bundle's settings (``same``), the top-two logit margins, the CT's affine and phase 5's
+    weights."""
     from monai_tpu_torch.bundle import run
     from monai_tpu_torch.data import read_nifti
     from monai_tpu_torch.transforms import Invertd, SaveImage
@@ -1701,7 +1712,9 @@ def bundle_phase(dev, spleen5: dict) -> tuple[int, ...]:
                   f"{float(margins()[bad].max()) if bad.any() else 0.0:.3g} std)", flush=True)
     finally:
         torch.backends.cudnn.allow_tf32 = False
-    return tuple(totals)
+    tie = {"labels": labels, "same": same, "margins": margins(), "affine": affine,
+           "state": spleen5["net_cpu"].state_dict()}
+    return tuple(totals), tie
 
 
 def training_phase(dev) -> tuple[dict, dict]:
@@ -3198,6 +3211,388 @@ def dynunet_train_phase(dev) -> tuple[dict, dict]:
     return counts, {"forward": forward, "dx": dx, "dw": dw, "norm": norm, "norm_backward": norm_bwd}
 
 
+# Phase 16, the Spleen model selected, exported and shipped: the bundle's train.json with amp
+# on the trainer and the evaluator, key-metric and interval checkpoints and a StatsHandler's
+# print logger; the bundle verbs and ckpt_export's program; inference.json with the label map
+# resampled onto the input's grid on write; test-time augmentation over one 96^3 ROI
+SHIP_ROOT = BUILD / "spleen_ship"
+SHIP_STEPS = 6  # 2 epochs of 3 steps of 2 images x 4 crops, as phase 12
+SHIP_TTA_EXAMPLES, SHIP_TTA_BATCH = 8, 4
+SHIP_METADATA = BUNDLES / "spleen_ct_segmentation" / "configs" / "metadata.json"
+
+
+def jax_saver_files(dice: list[float], steps: int, key: str = "val_mean_dice", n_best: int = 2,
+                    n_saved: int = 2) -> set[str]:
+    """The files the JAX package's CheckpointSaver rules keep (monai_tpu/handlers/checkpoint.py
+    ``metrics_completed`` and ``interval_completed``) for a key metric of ``dice`` at the
+    validations in turn, ``key_metric_n_saved`` ``n_best``; one interval save an iteration,
+    ``n_saved`` of them kept; and the final file."""
+    best: list[tuple[float, str]] = []
+    for epoch, metric in enumerate(dice, 1):
+        if len(best) < n_best or metric > best[-1][0]:
+            best.append((metric, f"{key}={metric:.4f}_epoch={epoch}.ckpt"))
+            best.sort(key=lambda t: -t[0])
+            del best[n_best:]
+    interval = [f"checkpoint_iteration={i}.ckpt" for i in range(1, steps + 1)][-n_saved:]
+    return {name for _, name in best} | set(interval) | {"model_final.ckpt"}
+
+
+def operator_cost(sites: Counter, dev) -> None:
+    """The cost of the operator ``torch.ops.monai_tpu_torch.conv3d_3x3_same``, which an
+    exported program calls, beside the eager wrapper, which calls the ctypes launch
+    (``ops.conv3d._forward``) directly, and that launch alone, at ``sites`` at phase 2's
+    batch and type (bfloat16, ``UNET_BATCH`` windows): the event time of back-to-back calls
+    summed over a forward's sites, as phase 2 reads it, and the host's time to issue a call,
+    in turns launch, wrapper, operator, operator, wrapper, launch. A measurement only: these
+    launches follow the part's count."""
+    from monai_tpu_torch.ops.conv3d import _forward, conv3d_3x3_same
+
+    op = torch.ops.monai_tpu_torch.conv3d_3x3_same
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def host_us(fn, iters: int = 30) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / iters * 1e6
+
+    ms, us, n = Counter(), Counter(), 0
+    with torch.inference_mode():
+        for (ci, co, sp), count in sorted(sites.items()):
+            x = torch.randn((UNET_BATCH, *sp, ci), generator=g, device=dev).to(torch.bfloat16)
+            w = (torch.randn((3, 3, 3, ci, co), generator=g, device=dev) / (27 * ci) ** 0.5).to(torch.bfloat16)
+            b = torch.randn((co,), generator=g, device=dev).to(torch.bfloat16)
+            calls = {"launch": lambda: _forward(x, w, b), "wrapper": lambda: conv3d_3x3_same(x, w, b),
+                     "operator": lambda: op(x, w, b)}
+            require(torch.equal(op(x, w, b), conv3d_3x3_same(x, w, b)),
+                    f"kernel 1's operator and wrapper differ at {ci}->{co} @{sp}")
+            turns = ("launch", "wrapper", "operator", "operator", "wrapper", "launch")
+            for name in turns:
+                ms[name] += count * cuda_ms(calls[name]) / 2
+                us[name] += count * host_us(calls[name]) / 2
+            n += count
+    print(f"kernel 1's operator beside the eager wrapper and the ctypes launch alone at phase 2's {n} UNet sites "
+          f"(bfloat16, batch {UNET_BATCH}): per forward launch {ms['launch']:.4f} ms, wrapper {ms['wrapper']:.4f} ms, "
+          f"operator {ms['operator']:.4f} ms (event time of back-to-back calls); host time to issue a call, mean over "
+          f"the sites, launch {us['launch'] / n:.1f} us, wrapper {us['wrapper'] / n:.1f} us, operator "
+          f"{us['operator'] / n:.1f} us", flush=True)
+
+
+def ship_phase(dev, tie: dict) -> tuple[dict, dict]:
+    """Phase 16, at the Spleen bundle's full width (the batch-norm UNet, 16-256 channels, two
+    residual units, ROI 96^3), in four parts, each timed:
+
+    (a) ``train.json`` through ``bundle.run`` as phase 12 runs it, with ``amp`` on the trainer
+        and the evaluator, the trainer's CheckpointSaver saving every iteration (2 kept) and
+        the final file, a key-metric CheckpointSaver on the evaluator (2 best), and a
+        StatsHandler with an ``iteration_print_logger``. Checked: the files kept are those the
+        JAX rules name (``jax_saver_files``), the best holds the weights of its validation,
+        the logger ran once an iteration, every loss finite; each 3x3x3 site's output type,
+        read by a forward hook: in the evaluator every site float32 (the strided first conv
+        promotes the bfloat16 input to float32), one kernel-1 launch each; in the training
+        steps every site bfloat16 (the bfloat16 view), 10 an iteration, kernel 1 launched
+        twice a site (forward and dx: the image goes into a stride-2 conv) and dw once.
+    (b) ``verify_metadata`` (the bundle's metadata lacks two keys the check requires: the JAX
+        verdict; a copy with them passes), ``verify_net_in_out`` on the card, ``ckpt_export``
+        of the best checkpoint and its ``torch.export`` program run by
+        ``load_exported_network`` on a 96^3 input: within TOL_F32 of the module's forward,
+        launching kernel 1 at each of its 10 sites. Then kernel 1's operator, the program's
+        call, beside the eager wrapper and the ctypes launch alone at phase 2's UNet sites
+        (``operator_cost``).
+    (c) ``inference.json`` over one copy of phase 5's CT with phase 5's weights, ``Invertd``
+        dropped and ``SaveImaged(resample=True)`` (nearest, onto the image's meta): the file
+        on the input's grid and affine, its labels those of the Invertd route (phase 8's
+        ``same``) but at near ties (phase 8's rule); kernel 3 at Spacingd and at the write.
+    (d) ``TestTimeAugmentation`` with RandFlipd, RandRotated and RandZoomd over a 96^3 ROI of
+        the preprocessed CT, the trained net's softmax as the inferrer: its four outputs; at
+        probability 0 every prediction, and the mean of two, is the plain forward bit for bit
+        (a mean of more is a sum that rounds); with flips only at
+        probability 1 and the image as the prediction, each inverse gives the image back bit
+        for bit; kernel 1 at each forward, kernel 3 at each zoom and its inverse.
+
+    Returns the launches of the four parts' runs and the part times."""
+    from monai_tpu_torch.bundle import (ckpt_export, load_exported_network, run, verify_metadata,
+                                        verify_net_in_out)
+    from monai_tpu_torch.data import MetaImage, read_nifti
+    from monai_tpu_torch.data.test_time_augmentation import TestTimeAugmentation
+    from monai_tpu_torch.engines import Events
+    from monai_tpu_torch.networks.layers.factories import Conv3d
+    from monai_tpu_torch.networks.nets import UNet
+    from monai_tpu_torch.transforms import Compose, RandFlipd, RandRotated, RandZoomd, SpatialCrop
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SHIP_ROOT, ignore_errors=True)
+    totals, times = Counter(), {}
+
+    def fresh_net(device="cpu"):
+        return UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2), num_res_units=2, norm="batch",
+                    device=device)
+
+    # (a) training with validation, checkpoints and a print logger
+    root = SHIP_ROOT / "train"
+    from monai_tpu_torch.apps.datasets import make_synthetic_datalist
+
+    make_synthetic_datalist(str(root / "data" / "Task09_Spleen_synth"), num_images=8,
+                            spatial_size=SPLEEN_SYNTH_SIZE, num_seg_classes=1)
+    logged, validations, sites, engines = [], [], Counter(), {}
+    in_eval = [False]
+
+    class EvalWindow:
+        """The evaluator's runs: marks them for the conv hook, counts their launches and
+        keeps the weights and key metric of each validation."""
+
+        def attach(self, engine):
+            engine.add_event_handler(Events.STARTED, self.started)
+            engine.add_event_handler(Events.EPOCH_COMPLETED, self.completed)
+
+        def started(self, engine):
+            in_eval[0], self.before = True, all_launch_counts()
+
+        def completed(self, engine):
+            in_eval[0] = False
+            after = all_launch_counts()
+            validations.append({"epoch": engine.state.epoch, "dice": float(engine.state.metrics["val_mean_dice"]),
+                                "launches": {k: after[k] - self.before[k] for k in after},
+                                "weights": {k: v.detach().cpu().clone() for k, v in engine.network.state_dict().items()}})
+
+    def log_iteration(engine):
+        engines["trainer"] = engine
+        logged.append(engine.state.iteration)
+
+    def on_conv(mod, inp, out):  # the type each 3x3x3 stride-1 site's kernel 1 ran in: its output's
+        if isinstance(mod, Conv3d) and mod.same_3x3x3:
+            sites[("eval" if in_eval[0] else "train", str(out.dtype).replace("torch.", ""))] += 1
+
+    overrides = bundle_overrides(SPLEEN_TRAIN_CONFIG, root, SPLEEN_SYNTH_SIZE, 123,
+                                 {"_target_": "torch.optim.Adam", "lr": 1e-4})
+    overrides.update({
+        "trainer::amp": True, "evaluator::amp": True,
+        "handlers::1::iteration_print_logger": log_iteration,
+        "handlers::2::save_interval": 1, "handlers::2::n_saved": 2, "handlers::2::epoch_level": False,
+        "evaluator::val_handlers": [{"_target_": "CheckpointSaver", "save_dir": "@ckpt_dir",
+                                     "save_dict": {"model": "@network"}, "save_key_metric": True,
+                                     "key_metric_n_saved": 2}, EvalWindow()]})
+    hook = torch.nn.modules.module.register_module_forward_hook(on_conv)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with cudnn_kept():
+            run(config_file=str(SPLEEN_TRAIN_CONFIG), **overrides)
+            torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    times["train"] = time.perf_counter() - t0
+    train_counts = all_launch_counts()
+    totals.update(train_counts)
+    trainer = engines["trainer"]
+    network = trainer.network
+    n_steps, losses = trainer.state.iteration, trainer.state.output
+    dice = [v["dice"] for v in validations]
+    kept = {p.name for p in (root / "models").iterdir()}
+    want = jax_saver_files(dice, n_steps)
+    eval_conv = sum(v["launches"]["conv3d_3x3_same"] for v in validations)
+    train_conv = train_counts["conv3d_3x3_same"] - eval_conv
+    train_sites = sites[("train", "bfloat16")]
+    print(f"ship (a) train.json with amp on the trainer and the evaluator: {n_steps} steps, {len(validations)} "
+          f"validations (val_mean_dice {', '.join(f'{d:.6f}' for d in dice)}) in {times['train']:.1f} s; checkpoints "
+          f"kept {sorted(kept)}; the print logger ran at iterations {logged}; 3x3x3 conv sites by type "
+          f"{dict(sorted(sites.items()))}; kernel 1 launches in the evaluator {eval_conv} (float32 "
+          f"{sites[('eval', 'float32')]}, bfloat16 {sites[('eval', 'bfloat16')]}), in the training steps "
+          f"{train_conv} (bfloat16 forward {train_sites}, dx the rest), dw {train_counts['conv3d_3x3_wgrad']}; "
+          f"resample {train_counts['separable_resample_3d']}",
+          flush=True)
+    require(n_steps == SHIP_STEPS and trainer.state.epoch == 2 and len(validations) == 2,
+            f"ship (a): {trainer.state.epoch} epochs, {n_steps} steps, {len(validations)} validations")
+    require(all(np.isfinite(d) and 0.0 <= d <= 1.0 for d in dice), f"ship (a): val_mean_dice {dice}")
+    require(np.isfinite(float(losses["loss"])), "ship (a): the last loss is not finite")
+    require(kept == want, f"ship (a): checkpoints kept {sorted(kept)}, the JAX rules name {sorted(want)}")
+    require(logged == list(range(1, n_steps + 1)), f"ship (a): the print logger ran at {logged}")
+    require(sites[("eval", "bfloat16")] == 0 and sites[("eval", "float32")] == eval_conv > 0,
+            f"ship (a): the evaluator's 3x3x3 sites ran {dict(sites)}, its kernel 1 launches {eval_conv}")
+    require(train_sites == SHIP_STEPS * UNET_PER_FORWARD[0] and sites[("train", "float32")] == 0,
+            f"ship (a): the amp training steps' 3x3x3 sites ran {dict(sites)}")
+    require(train_conv == 2 * train_sites and train_counts["conv3d_3x3_wgrad"] == train_sites,
+            f"ship (a): the training steps launched kernel 1 {train_conv} times and dw "
+            f"{train_counts['conv3d_3x3_wgrad']} at {train_sites} bfloat16 sites")
+    best_epoch, best_dice = max(((v["epoch"], v["dice"]) for v in validations), key=lambda t: (t[1], -t[0]))
+    best = root / "models" / f"val_mean_dice={best_dice:.4f}_epoch={best_epoch}.ckpt"
+    best_state = torch.load(best, map_location="cpu", weights_only=True)["model"]
+    held = next(v["weights"] for v in validations if v["epoch"] == best_epoch)
+    require(set(best_state) == set(held) and all(torch.equal(best_state[k], held[k]) for k in held),
+            f"ship (a): {best.name} does not hold the weights of validation {best_epoch}")
+    del trainer, engines, validations, held
+    torch.cuda.empty_cache()
+
+    # (b) the bundle verbs: verify, export, the exported program
+    t0 = time.perf_counter()
+    inference = str(BUNDLE_CONFIG)
+    try:
+        verify_metadata(meta_file=str(SHIP_METADATA))
+        verdict = "passed"
+    except ValueError as e:
+        verdict = str(e)
+    require(verdict == "metadata missing required keys: ['monai_version', 'numpy_version']",
+            f"ship (b): verify_metadata's verdict on the bundle's metadata: {verdict}")
+    complete = SHIP_ROOT / "metadata.json"
+    complete.write_text(json.dumps({**json.loads(SHIP_METADATA.read_text()), "monai_version": "0.1.0",
+                                    "numpy_version": np.__version__}))
+    require(verify_metadata(meta_file=str(complete)) is True, "ship (b): the completed metadata is refused")
+    checked = verify_net_in_out(net_id="network", config_file=inference, meta_file=str(SHIP_METADATA))
+    require(next(checked.parameters()).device.type == dev.type, "ship (b): verify_net_in_out's network is not on the card")
+    del checked
+    t1 = time.perf_counter()
+    out = Path(ckpt_export(net_id="network", filepath=str(SHIP_ROOT / "export"), ckpt_file=str(best),
+                           config_file=inference, meta_file=str(SHIP_METADATA), input_shape=(1, 1, *ROI)))
+    export_s = time.perf_counter() - t1
+    require(sorted(p.name for p in out.iterdir()) == ["config.json", "export_meta.json", "model.pt", "model.pt2"],
+            f"ship (b): the export wrote {sorted(p.name for p in out.iterdir())}")
+    program = load_exported_network(str(out / "model.pt2"))
+    x = torch.rand((1, 1, *ROI), generator=torch.Generator(device=dev).manual_seed(16), device=dev)
+    reset_launch_counts()
+    y = program(x)
+    torch.cuda.synchronize()
+    export_counts = all_launch_counts()
+    totals.update(export_counts)
+    module = fresh_net(dev)
+    module.load_state_dict(best_state)
+    with torch.inference_mode():
+        ref = module.eval()(x)
+    err = (y - ref).abs().max().item() / ref.abs().max().item()
+    times["verify_export"] = time.perf_counter() - t0
+    print(f"ship (b) verify_metadata on the bundle's metadata: {verdict} (the JAX verdict); with the two keys: "
+          f"passed; verify_net_in_out on the card: passed; ckpt_export of {best.name} in {export_s:.1f} s "
+          f"({', '.join(sorted(p.name for p in out.iterdir()))}); the torch.export program on a 96^3 input: max "
+          f"err {err:.3g} of max|module| (tolerance {TOL_F32}), kernel 1 launches "
+          f"{export_counts['conv3d_3x3_same']}; part (b) {times['verify_export']:.1f} s", flush=True)
+    require(tuple(y.shape) == (1, 2, *ROI) and bool(torch.isfinite(y).all()), f"ship (b): the program gave {y.shape}")
+    require(err <= TOL_F32, f"ship (b): the exported program is {err:.3g} off the module's forward")
+    require(export_counts["conv3d_3x3_same"] == UNET_PER_FORWARD[0],
+            f"ship (b): the program launched kernel 1 {export_counts['conv3d_3x3_same']} times, not "
+            f"{UNET_PER_FORWARD[0]}")
+    with torch.inference_mode():
+        conv_sites, _, _, _ = record_sites(module, x)
+    operator_cost(conv_sites, dev)
+    del program, module, y, ref
+    torch.cuda.empty_cache()
+
+    # (c) inference.json with the label map resampled onto the input's grid on write
+    infer_root = SHIP_ROOT / "infer"
+    make_bundle_root(infer_root, 1, tie["state"])
+    post = [{"_target_": "Activationsd", "keys": "pred", "softmax": True},
+            {"_target_": "AsDiscreted", "keys": "pred", "argmax": True},
+            {"_target_": "SaveImaged", "keys": "pred", "meta_keys": "image", "output_dir": "@output_dir",
+             "output_postfix": "seg", "resample": True, "mode": "nearest"}]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with cudnn_kept():
+        run(config_file=inference, bundle_root=str(infer_root), **BUNDLE_OVERRIDES,
+            **{"postprocessing::transforms": post})
+        torch.cuda.synchronize()
+    times["resample_on_write"] = time.perf_counter() - t0
+    write_counts = all_launch_counts()
+    totals.update(write_counts)
+    path = infer_root / "eval" / "spleen_0" / "spleen_0_seg.nii.gz"
+    require(path.is_file(), f"ship (c): {path} was not written")
+    got, meta = read_nifti(path)
+    differ = got != tie["same"]
+    worst = float(tie["margins"][differ].max()) if differ.any() else 0.0
+    print(f"ship (c) inference.json with SaveImaged(resample=True) and no Invertd: {path.relative_to(SHIP_ROOT)} "
+          f"{got.dtype} {got.shape} in {times['resample_on_write']:.1f} s; {int(differ.sum())} voxels differ from the "
+          f"Invertd route's label map (top-two logit margins up to {worst:.3g} std, tie tolerance {TOL_TIE}); "
+          f"launches conv {write_counts['conv3d_3x3_same']}, resample {write_counts['separable_resample_3d']} "
+          f"(Spacingd's and the write's)", flush=True)
+    require(got.shape == CT_SHAPE and np.abs(meta["affine"] - tie["affine"]).max() <= 1e-6,
+            f"ship (c): the file is {got.shape} on {meta['affine'].tolist()}, not the input's grid")
+    require(bool(np.isin(got, (0.0, 1.0)).all()), "ship (c): the file holds values other than 0 and 1")
+    require(worst < TOL_TIE, f"ship (c): {int(differ.sum())} voxels differ from the Invertd route beyond a near tie")
+    require(write_counts["separable_resample_3d"] == 2 and write_counts["conv3d_3x3_same"] == SPLEEN_PER_VOLUME[0],
+            f"ship (c): launches {write_counts}")
+
+    # (d) test-time augmentation over a 96^3 ROI of the preprocessed CT
+    pre, _ = spleen_pipelines(dev)
+    t0 = time.perf_counter()
+    # cuDNN's deterministic algorithms, as a bundle's set_determinism asks for them: the
+    # transposed convs' default one adds in no fixed order, and the bit-for-bit checks below
+    # run the same forward twice
+    with torch.inference_mode(), cudnn_kept():
+        torch.backends.cudnn.deterministic = True
+        image = pre({"image": str(CT_PATH)})["image"]
+        roi = SpatialCrop([s // 2 for s in image.shape[1:]], ROI)(image)
+        image = MetaImage(roi.data.contiguous(), affine=roi.affine)
+        network.eval()
+
+        def infer(x):
+            return torch.softmax(network(x), dim=1)
+
+        fired = []
+        zoom_call = RandZoomd.__call__
+
+        def zoom_counted(self, data, lazy=None):
+            out = zoom_call(self, data, lazy=lazy)
+            fired.append(bool(self.t._do_transform))
+            return out
+
+        def augment(prob, flips_only=False):
+            ts = [RandFlipd("image", prob=prob, spatial_axis=0)]
+            if not flips_only:
+                ts += [RandRotated("image", range_x=0.26, prob=prob), RandZoomd("image", prob=prob, min_zoom=0.9,
+                                                                                  max_zoom=1.1)]
+            else:
+                ts += [RandFlipd("image", prob=prob, spatial_axis=1), RandFlipd("image", prob=prob, spatial_axis=2)]
+            return Compose(ts).set_random_state(seed=16)
+
+        RandZoomd.__call__ = zoom_counted
+        reset_launch_counts()
+        try:
+            mode, mean, std, vvc = TestTimeAugmentation(augment(0.5), SHIP_TTA_BATCH, inferrer_fn=infer)(
+                {"image": image}, num_examples=SHIP_TTA_EXAMPLES)
+            torch.cuda.synchronize()
+        finally:
+            RandZoomd.__call__ = zoom_call
+        tta_counts = all_launch_counts()
+        totals.update(tta_counts)
+        times["tta"] = time.perf_counter() - t0
+        zooms = sum(fired)
+        # at probability 0: every prediction is the plain forward of the same batch, and the
+        # mean of two (a sum of two equal floats and a halving, both exact) is it bit for bit
+        plain = {b: infer(image.data[None].expand(b, -1, -1, -1, -1).contiguous())[0] for b in (2, SHIP_TTA_BATCH)}
+        full0 = TestTimeAugmentation(augment(0.0), SHIP_TTA_BATCH, inferrer_fn=infer, return_full_data=True)(
+            {"image": image}, num_examples=SHIP_TTA_EXAMPLES)
+        _, mean0, std0, _ = TestTimeAugmentation(augment(0.0), 2, inferrer_fn=infer)({"image": image}, num_examples=2)
+        full = TestTimeAugmentation(augment(1.0, flips_only=True), SHIP_TTA_BATCH, inferrer_fn=lambda v: v,
+                                    return_full_data=True)({"image": image}, num_examples=SHIP_TTA_EXAMPLES)
+    print(f"ship (d) TestTimeAugmentation (RandFlipd, RandRotated, RandZoomd at 0.5; {SHIP_TTA_EXAMPLES} examples in "
+          f"batches of {SHIP_TTA_BATCH}) over a 96^3 ROI: {times['tta']:.2f} s with the preprocessing; mode "
+          f"{tuple(mode.shape)}, mean in [{mean.min().item():.4f}, {mean.max().item():.4f}], std up to "
+          f"{std.max().item():.4f}, vvc {vvc:.6f}; launches conv {tta_counts['conv3d_3x3_same']}, resample "
+          f"{tta_counts['separable_resample_3d']} ({zooms} zooms drawn, each a resample and its inverse's); at "
+          f"probability 0 each prediction equals the plain forward: "
+          f"{all(torch.equal(p, plain[SHIP_TTA_BATCH]) for p in full0)}, the mean of two: "
+          f"{torch.equal(mean0, plain[2])}; flips at probability 1, "
+          f"each inverse the image bit for bit: {all(torch.equal(p, image.data) for p in full)}", flush=True)
+    require(tuple(mean.shape) == tuple(std.shape) == tuple(mode.shape) == (2, *ROI) and np.isfinite(vvc)
+            and bool(torch.isfinite(mean).all()) and mean.device.type == dev.type, "ship (d): the TTA's outputs")
+    require(tta_counts["conv3d_3x3_same"] == SHIP_TTA_EXAMPLES // SHIP_TTA_BATCH * UNET_PER_FORWARD[0],
+            f"ship (d): kernel 1 launched {tta_counts['conv3d_3x3_same']} times")
+    require(zooms > 0 and tta_counts["separable_resample_3d"] == 2 * zooms,
+            f"ship (d): {zooms} zooms drawn, kernel 3 launched {tta_counts['separable_resample_3d']} times")
+    require(all(torch.equal(p, plain[SHIP_TTA_BATCH]) for p in full0) and torch.equal(mean0, plain[2])
+            and torch.equal(std0, torch.zeros_like(std0)), "ship (d): at probability 0 the mean is not the plain forward")
+    require(len(full) == SHIP_TTA_EXAMPLES and all(torch.equal(p, image.data) for p in full),
+            "ship (d): a flip's inverse did not give the image back")
+    del network, image, full, full0
+    torch.cuda.empty_cache()
+    times["phase"] = time.perf_counter() - t_phase
+    print(f"ship phase: {times['phase']:.1f} s (train {times['train']:.1f}, verify and export "
+          f"{times['verify_export']:.1f}, resample on write {times['resample_on_write']:.1f}, TTA {times['tta']:.1f}); "
+          f"launches {dict(totals)}", flush=True)
+    return dict(totals), times
+
+
 def inference_phases(dev) -> tuple:
     """Phases 2 to 6, under ``torch.inference_mode()``: the forward kernels at the inference paths'
     shapes, the sliding windows, the forwards against the CPU, the Spleen path and the filtering
@@ -3268,6 +3663,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     from monai_tpu_torch.ops._build import library, library_path
 
+    t_main = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False  # float32 references in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3294,7 +3690,7 @@ def main() -> None:
     # paths above: its set_determinism changes cuDNN's global settings, which it reads; they
     # are restored after it, as after every bundle's run)
     with cudnn_kept():
-        bundle_counts = bundle_phase(dev, spleen5)
+        bundle_counts, tie = bundle_phase(dev, spleen5)
     del spleen5
 
     # 10. the BTCV bundle's train.json through the port's runner (after the paths above, as it
@@ -3320,6 +3716,11 @@ def main() -> None:
     dynunet_counts, dynunet = dynunet_train_phase(dev)
     new_f32 = {k: auto3dseg_counts[k] + dynunet_counts[k] for k in auto3dseg_counts}  # phases 14 and 15
 
+    # 16. the Spleen model selected, exported and shipped: amp evaluation, checkpoints, the
+    # bundle verbs, resampling on write, test-time augmentation
+    ship_counts, _ = ship_phase(dev, tie)
+    del tie
+
     def f32_sites(summary: dict) -> dict:
         """A kernel's numbers summed over a float32 step's sites, for the kernels line."""
         return {key: v for key, v in summary.items() if key not in ("bytes_ms", "ops_ms", "bound_side")}
@@ -3331,7 +3732,7 @@ def main() -> None:
         {"name": "conv3d_3x3_wgrad", "route": "cuda", "source": "monai_tpu_torch/csrc/conv3d_3x3_wgrad.cu",
          "replaces": "monai_tpu/ops/pallas_conv3d.py:200",
          "launches": train_counts["conv3d_3x3_wgrad"] + trained["conv3d_3x3_wgrad"] + conv_trained["conv3d_3x3_wgrad"]
-         + new_f32["conv3d_3x3_wgrad"],
+         + new_f32["conv3d_3x3_wgrad"] + ship_counts["conv3d_3x3_wgrad"],
          **train["dw"], "swin_train_float32": f32_sites(swin["dw"]), "segresnet_train_float32": f32_sites(brats["dw"]),
          "spleen_train_float32": f32_sites(spleen_train["dw"]),
          "auto3dseg_unet_train_float32": f32_sites(auto3dseg["unet"]["dw"]),
@@ -3379,7 +3780,7 @@ def main() -> None:
          "replaces": "monai_tpu/ops/pallas_conv3d.py:91",
          "launches": unet_counts[0] + swin_sw_counts[0] + spleen_counts[0] + train_counts["conv3d_3x3_same"]
          + bundle_counts[0] + trained["conv3d_3x3_same"] + conv_trained["conv3d_3x3_same"]
-         + new_f32["conv3d_3x3_same"],
+         + new_f32["conv3d_3x3_same"] + ship_counts["conv3d_3x3_same"],
          **merged(0), "swin_train_float32_dx": f32_sites(swin["dx"]),
          "segresnet_train_float32": f32_sites(brats["forward"]), "segresnet_train_float32_dx": f32_sites(brats["dx"]),
          "spleen_train_float32": f32_sites(spleen_train["forward"]),
@@ -3399,7 +3800,8 @@ def main() -> None:
          "swin_train_float32": f32_sites(swin["attention_forward"])},
         {"name": "separable_resample_3d", "route": "cuda", "source": "monai_tpu_torch/csrc/separable_resample_3d.cu",
          "replaces": "monai_tpu/ops/pallas_resample.py:117",
-         "launches": spleen_counts[3] + bundle_counts[3] + mednist_zoom["launches"], **spleen["resample"],
+         "launches": spleen_counts[3] + bundle_counts[3] + mednist_zoom["launches"]
+         + ship_counts["separable_resample_3d"], **spleen["resample"],
          "mednist_zoom_2d": f32_sites(mednist_zoom)},
         {"name": "bilateral_filter_2d", "route": "cuda", "source": "monai_tpu_torch/csrc/bilateral_filter.cu",
          "replaces": "monai_tpu/ops/pallas_filtering.py:99", **filtering["B"]},
@@ -3414,6 +3816,7 @@ def main() -> None:
     for k in kernels:  # the bound's sides were for bound_by only
         del k["bytes_ms"], k["ops_ms"]
         k.pop("bound_side", None)
+    print(f"chip_smoke: the whole run {time.perf_counter() - t_main:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,7 @@
-"""``python -m monai_tpu_torch.bundle run --config_file <file> [--<id> <value> ...]``
-(counterpart of monai_tpu/bundle/__main__.py, the ``run`` verb). Each ``--key value``
+"""``python -m monai_tpu_torch.bundle <verb> [--key value ...]`` (counterpart of
+monai_tpu/bundle/__main__.py): the verbs ``run``, ``run_workflow``, ``download``, ``load``,
+``ckpt_export``, ``verify_metadata``, ``verify_net_in_out`` and ``init_bundle`` of
+``scripts``. Each ``--key value``
 becomes a keyword: an int, a float, ``true``/``false``, JSON (a list or a dict), or
 else the string as it is; a last ``--key`` without a value is ``true``."""
 from __future__ import annotations
@@ -7,9 +9,19 @@ from __future__ import annotations
 import json
 import sys
 
-from monai_tpu_torch.bundle.scripts import run
+from monai_tpu_torch.bundle.scripts import (ckpt_export, download, init_bundle, load, run, run_workflow,
+                                            verify_metadata, verify_net_in_out)
 
-VERBS = {"run": run}
+VERBS = {
+    "run": run,
+    "run_workflow": run_workflow,
+    "download": download,
+    "load": load,
+    "ckpt_export": ckpt_export,
+    "verify_metadata": verify_metadata,
+    "verify_net_in_out": verify_net_in_out,
+    "init_bundle": init_bundle,
+}
 
 
 def _parse(value: str):

@@ -187,6 +187,21 @@ class ConfigParser:
         return merged.get()
 
     @classmethod
+    def export_config_file(cls, config: dict, filepath: str, fmt: str = "json", **kwargs) -> None:
+        """Write ``config`` to ``filepath`` as JSON or YAML (``fmt``); ``kwargs`` go to
+        ``json.dump`` or ``yaml.safe_dump``."""
+        writer = fmt.lower()
+        if writer not in ("json", "yaml", "yml"):
+            raise ValueError(f"only support JSON or YAML config file so far, got {writer}.")
+        with open(str(Path(filepath)), "w") as f:
+            if writer == "json":
+                json.dump(config, f, **kwargs)
+            else:
+                import yaml
+
+                yaml.safe_dump(config, f, **kwargs)
+
+    @classmethod
     def split_path_id(cls, src: str) -> tuple[str, str]:
         """``"file.json::a::b"`` as ``("file.json", "a::b")``; an id alone as ``("", id)``."""
         src = ReferenceResolver.normalize_id(src)

@@ -1,6 +1,6 @@
 """Bundle workflows: the initialize, run and finalize of a config-driven bundle
-(counterpart of monai_tpu/bundle/workflows.py: ``BundleWorkflow`` and
-``ConfigWorkflow``)."""
+(counterpart of monai_tpu/bundle/workflows.py: ``BundleWorkflow``, ``ConfigWorkflow`` and
+``PythonicWorkflow``)."""
 from __future__ import annotations
 
 import os
@@ -14,7 +14,7 @@ from ..utils.misc import ensure_tuple
 from .config_parser import ConfigParser
 from .properties import InferProperties, MetaProperties, TrainProperties
 
-__all__ = ["BundleWorkflow", "ConfigWorkflow"]
+__all__ = ["BundleWorkflow", "ConfigWorkflow", "PythonicWorkflow"]
 
 
 class BundleWorkflow(ABC):
@@ -141,3 +141,54 @@ class ConfigWorkflow(BundleWorkflow):
     def check_properties(self) -> list[str] | None:
         return [n for n, p in self.properties.items()
                 if p.get("required", False) and self._get_prop_id(n, {**p, "required": False}) is None]
+
+
+class PythonicWorkflow(BundleWorkflow):
+    """A workflow written in Python: subclass it and write ``run``. A property is, in this
+    order, the value set on the workflow, the cached value of its ``get_<name>`` method,
+    or the parsed item of that id of the config and meta files (``override`` applied);
+    a required property that none of them gives raises."""
+
+    def __init__(self, workflow_type: str | None = None, workflow: str | None = None, properties_path=None,
+                 config_file=None, meta_file=None, logging_file=None, **override):
+        super().__init__(workflow_type=workflow or workflow_type, properties_path=properties_path)
+        self._props_vals: dict = {}
+        self._set_props_vals: dict = {}
+        self.parser = ConfigParser()
+        if config_file is not None:
+            self.parser.read_config(f=config_file)
+        if meta_file is not None:
+            self.parser.read_meta(f=meta_file)
+        self.parser.update(pairs=override)
+        self._is_initialized: bool = False
+
+    def initialize(self, *args, **kwargs):
+        self._props_vals = {}
+        self._is_initialized = True
+
+    def _get_property(self, name: str, property: dict):
+        if not self._is_initialized:
+            raise RuntimeError("initialize the workflow before getting any properties.")
+        if name in self._set_props_vals:
+            return self._set_props_vals[name]
+        if name in self._props_vals:
+            return self._props_vals[name]
+        getter = getattr(self, f"get_{name}", None)
+        if callable(getter):
+            self._props_vals[name] = getter()
+            return self._props_vals[name]
+        try:
+            return self.parser.get_parsed_content(name)
+        except Exception as e:
+            if property.get("required", False):
+                raise KeyError(f"required property {name} is not resolvable") from e
+            return None
+
+    def _set_property(self, name: str, property: dict, value) -> None:
+        self._set_props_vals[name] = value
+
+    def run(self, *args, **kwargs):
+        raise NotImplementedError("subclass a PythonicWorkflow and implement run().")
+
+    def finalize(self, *args, **kwargs):
+        pass

@@ -12,6 +12,8 @@ from typing import Any
 
 import torch.utils.data
 
+from .utils import pickle_hashing
+
 __all__ = ["CacheDataset", "Dataset"]
 
 
@@ -56,26 +58,46 @@ class CacheDataset(Dataset):
     its first ``min(cache_num, len(data) * cache_rate)`` items, when it is made, and keeps
     the results where the transforms left them (the port's ``LoadImaged`` and ``Spacingd``
     leave them on the card). A read of a cached item runs the rest of the transforms on a
-    deep copy of it, so a transform that changes its input in place never reaches the
-    cache; an item past the cache runs all of them. ``num_workers`` threads
-    fill the cache (threads, not processes: the transforms run on the card). The JAX
-    package's ``runtime_cache``, ``hash_as_key`` and ``copy_cache=False`` are not ported."""
+    deep copy of it (``copy_cache``; without, on the cached item itself, which a transform
+    that changes its input in place then changes), so a transform that changes its input
+    in place never reaches the cache; an item past the cache runs all of them.
+    ``hash_as_key`` caches the items of distinct content (``hash_func``, the md5 of the
+    pickle) once each, the first of each; ``runtime_cache`` fills each cached item at its
+    first read instead of when the dataset is made. ``num_workers`` threads fill the cache
+    (threads, not processes: the transforms run on the card). ``progress`` and
+    ``as_contiguous`` are taken for the JAX package's signature."""
 
     def __init__(self, data: Sequence, transform: Sequence[Callable] | Callable | None = None,
-                 cache_num: int = sys.maxsize, cache_rate: float = 1.0, num_workers: int | None = 1):
+                 cache_num: int = sys.maxsize, cache_rate: float = 1.0, num_workers: int | None = 1,
+                 progress: bool = True, copy_cache: bool = True, as_contiguous: bool = True,
+                 hash_as_key: bool = False, hash_func: Callable = pickle_hashing, runtime_cache: bool = False):
         super().__init__(data=data, transform=transform)
         self.set_num = cache_num
         self.set_rate = cache_rate
         self.num_workers = 1 if num_workers is None else max(int(num_workers), 1)
+        self.copy_cache, self.hash_as_key, self.hash_func = copy_cache, hash_as_key, hash_func
+        self.runtime_cache = runtime_cache
+        self._hash_keys: list = []
         self.set_data(data)
 
     def set_data(self, data: Sequence) -> None:
-        """Take a new list of items and fill the cache for it."""
+        """Take a new list of items and fill the cache for it (at its reads, with
+        ``runtime_cache``)."""
         self.data = data
-        self.cache_num = min(int(self.set_num), int(len(data) * self.set_rate), len(data))
         self._start = None if self.transform is None else _first_random_index(self.transform)
-        items = list(data[: self.cache_num])
-        if self.num_workers > 1:
+        if self.hash_as_key:
+            unique: dict = {}
+            for item in data:
+                unique.setdefault(self.hash_func(item), item)
+            self.cache_num = min(int(self.set_num), int(len(unique) * self.set_rate), len(unique))
+            self._hash_keys = list(unique)[:self.cache_num]
+            items = [unique[k] for k in self._hash_keys]
+        else:
+            self.cache_num = min(int(self.set_num), int(len(data) * self.set_rate), len(data))
+            items = list(data[: self.cache_num])
+        if self.runtime_cache:
+            self._cache = [None] * self.cache_num
+        elif self.num_workers > 1:
             with ThreadPoolExecutor(self.num_workers, thread_name_prefix="CacheDataset") as pool:
                 self._cache = list(pool.map(self._load_cache_item, items))
         else:
@@ -86,10 +108,19 @@ class CacheDataset(Dataset):
             return item
         return self.transform(item, end=self._start)
 
+    def _cache_index(self, index: int) -> int | None:
+        if self.hash_as_key:
+            key = self.hash_func(self.data[index])
+            return self._hash_keys.index(key) if key in self._hash_keys else None
+        return index if index < self.cache_num else None
+
     def _transform(self, index: int):
-        if index >= self.cache_num:
+        at = self._cache_index(index)
+        if at is None:
             return super()._transform(index)
-        item = copy.deepcopy(self._cache[index])
+        if self._cache[at] is None:  # runtime_cache: filled at the first read
+            self._cache[at] = self._load_cache_item(self.data[index])
+        item = copy.deepcopy(self._cache[at]) if self.copy_cache else self._cache[at]
         if self.transform is None or self._start is None:
             return item
         from ..transforms.transform import apply_transform

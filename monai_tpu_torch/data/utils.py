@@ -2,10 +2,13 @@
 items into batches and back (counterpart of the same functions in
 monai_tpu/data/utils.py). The grid is Python ints on the host, the importance map is
 computed with numpy in float32 and handed over as a tensor; a batch stays on its
-items' device."""
+items' device. ``pickle_hashing`` is the content hash ``CacheDataset(hash_as_key=True)``
+keys its items by."""
 from __future__ import annotations
 
+import hashlib
 import math
+import pickle
 from collections.abc import Iterable, Mapping, Sequence
 from copy import deepcopy
 from itertools import zip_longest
@@ -19,7 +22,7 @@ from ..utils.misc import ensure_tuple_rep, ensure_tuple_size, first
 from .meta_image import MetaImage
 
 __all__ = ["collate_meta_tensor", "compute_importance_map", "decollate_batch", "dense_patch_slices",
-           "get_valid_patch_size", "list_data_collate"]
+           "get_valid_patch_size", "list_data_collate", "pickle_hashing"]
 
 
 def get_valid_patch_size(image_size: Sequence[int], patch_size: Sequence[int] | int) -> tuple:
@@ -155,3 +158,17 @@ def decollate_batch(batch: Any, detach: bool = True, pad: bool = True, fill_valu
     columns = list(deco.values()) if isinstance(deco, dict) else deco
     rows = zip_longest(*columns, fillvalue=fill_value) if pad else zip(*columns)
     return [dict(zip(deco, row)) for row in rows] if isinstance(deco, dict) else [list(row) for row in rows]
+
+
+def pickle_hashing(item, protocol=pickle.HIGHEST_PROTOCOL) -> bytes:
+    """A content hash of ``item``: the md5 of its pickle, its dicts' keys sorted and its
+    tensors as numpy arrays (a tensor's own pickle differs between equal tensors)."""
+    return hashlib.md5(pickle.dumps(_hashable(item), protocol=protocol), usedforsecurity=False).hexdigest().encode()
+
+
+def _hashable(item):
+    if isinstance(item, torch.Tensor):
+        return item.detach().cpu().numpy()
+    if not isinstance(item, dict):
+        return item
+    return {k: _hashable(v) for k, v in sorted(item.items())}

@@ -56,9 +56,12 @@ class Evaluator(Workflow):
 
 class SupervisedEvaluator(Evaluator):
     """Each batch's image through ``inferer`` and ``network`` without autograd, the
-    predictions in float32. The network runs eagerly, as it is given. ``amp`` is not
-    ported yet (a batch norm's running statistics would need their bfloat16 view too)
-    and raises."""
+    predictions in float32. The network runs eagerly, as it is given. ``amp=True`` casts
+    the input to bfloat16 and leaves the network's weights as they are, as the JAX
+    evaluator does: each layer then runs in the type its rule gives a bfloat16 input and
+    float32 weights (``networks.layers.factories``: a 3x3x3 stride-1 conv with
+    min(CI, 128) >= 2 min(CO, 128) casts its kernel and runs in bfloat16, every other conv
+    promotes to float32, and the layers after it see float32)."""
 
     def __init__(self, device=None, val_data_loader: Iterable | None = None, network: torch.nn.Module | None = None,
                  epoch_length: int | None = None, non_blocking: bool = False,
@@ -72,9 +75,6 @@ class SupervisedEvaluator(Evaluator):
                          postprocessing=postprocessing, key_val_metric=key_val_metric,
                          additional_metrics=additional_metrics, metric_cmp_fn=metric_cmp_fn,
                          val_handlers=val_handlers, amp=amp, mode=mode, decollate=decollate)
-        if amp:
-            raise NotImplementedError("SupervisedEvaluator(amp=True) is not ported; evaluate in float32, or run a "
-                                      "network cast to bfloat16")
         self.network = network
         self.inferer = SimpleInferer() if inferer is None else inferer
 
@@ -87,6 +87,7 @@ class SupervisedEvaluator(Evaluator):
         else:
             inputs, targets, args, kwargs = batch
         x = inputs.data if isinstance(inputs, MetaImage) else inputs
+        x = x.to(torch.bfloat16) if self.amp else x
         with torch.no_grad():
             preds = self.inferer(x, self.network, *args, **kwargs)
         engine.fire_event(IterationEvents.FORWARD_COMPLETED)

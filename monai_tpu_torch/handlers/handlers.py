@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import logging
 import sys
-from collections.abc import Callable
+from collections.abc import Callable, Sequence
 
 import torch
 
@@ -20,15 +20,27 @@ DEFAULT_TAG = "Loss"
 class StatsHandler:
     """Log the iteration's loss (``tag_name``) at each iteration, and the engine's metrics
     and best key metric at each epoch, to the logger ``name`` (INFO, to standard output
-    where it has no handler yet). Reading the loss waits for the card."""
+    where it has no handler yet). Reading the loss waits for the card.
+    ``iteration_print_logger`` and ``epoch_print_logger``, where given, are called with the
+    engine in place of the default lines; ``global_epoch_transform`` maps the epoch the
+    metrics line names, ``state_attributes`` are logged after it, and
+    ``key_var_format`` formats a name and a value."""
 
-    def __init__(self, iteration_log: bool = True, epoch_log: bool = True,
+    def __init__(self, iteration_log: bool | Callable = True, epoch_log: bool | Callable = True,
+                 epoch_print_logger: Callable | None = None, iteration_print_logger: Callable | None = None,
                  output_transform: Callable = lambda x: x[0] if isinstance(x, (list, tuple)) else x,
-                 name: str | None = "StatsHandler", tag_name: str = DEFAULT_TAG):
+                 global_epoch_transform: Callable = lambda x: x, state_attributes: Sequence[str] | None = None,
+                 name: str | None = "StatsHandler", tag_name: str = DEFAULT_TAG,
+                 key_var_format: str = KEY_VAL_FORMAT):
         self.iteration_log = iteration_log
         self.epoch_log = epoch_log
+        self.epoch_print_logger = epoch_print_logger
+        self.iteration_print_logger = iteration_print_logger
         self.output_transform = output_transform
+        self.global_epoch_transform = global_epoch_transform
+        self.state_attributes = state_attributes
         self.tag_name = tag_name
+        self.key_var_format = key_var_format
         self.logger = logging.getLogger(name)
         self.logger.setLevel(logging.INFO)
         if not self.logger.handlers:
@@ -44,6 +56,9 @@ class StatsHandler:
         engine.add_event_handler(Events.EXCEPTION_RAISED, self.exception_raised)
 
     def iteration_completed(self, engine) -> None:
+        if self.iteration_print_logger is not None:
+            self.iteration_print_logger(engine)
+            return
         out = self.output_transform(engine.state.output)
         loss = out.get(CommonKeys.LOSS) if isinstance(out, dict) else None
         if loss is None:
@@ -53,16 +68,22 @@ class StatsHandler:
         it = engine.state.iteration
         cur = (it - 1) % engine.state.epoch_length + 1 if engine.state.epoch_length else it
         self.logger.info(f"Epoch: {engine.state.epoch}/{engine.state.max_epochs}, Iter: {cur}/{per_epoch} -- "
-                         + KEY_VAL_FORMAT.format(self.tag_name, value))
+                         + self.key_var_format.format(self.tag_name, value))
 
     def epoch_completed(self, engine) -> None:
+        if self.epoch_print_logger is not None:
+            self.epoch_print_logger(engine)
+            return
         metrics = {k: v for k, v in engine.state.metrics.items() if isinstance(v, (int, float))}
         if metrics:
-            self.logger.info(f"Epoch[{engine.state.epoch}] Metrics -- "
-                             + "".join(KEY_VAL_FORMAT.format(k, metrics[k]) for k in sorted(metrics)))
+            self.logger.info(f"Epoch[{self.global_epoch_transform(engine.state.epoch)}] Metrics -- "
+                             + "".join(self.key_var_format.format(k, metrics[k]) for k in sorted(metrics)))
         if engine.state.key_metric_name is not None:
             self.logger.info(f"Key metric: {engine.state.key_metric_name} best value: {engine.state.best_metric} "
                              f"at epoch: {engine.state.best_metric_epoch}")
+        if self.state_attributes:
+            self.logger.info("State values: " + "".join(f"{a}: {getattr(engine.state, a, None)}; "
+                                                        for a in self.state_attributes))
 
     def exception_raised(self, engine, e: Exception | None = None) -> None:
         self.logger.exception(f"Exception: {e}")

@@ -24,6 +24,13 @@ approximation, which is ``jax.nn.gelu``'s default (torch MONAI uses the exact er
 with -inf and an average pool counts its zero padding, as ``nnx.max_pool`` and
 ``nnx.avg_pool`` do).
 
+Mixed types follow the JAX package's default conv path (what its ``SupervisedEvaluator(amp=True)``
+runs: a bfloat16 input into float32 weights). A 3x3x3 stride-1 SAME conv casts its kernel to the
+input's type where min(CI, 128) >= 2 min(CO, 128) (``PallasConv``'s swapped weight-grad path casts
+there) and runs in that type; every other conv, transposed or not, promotes its input and kernel to
+their common type (``nnx.Conv`` and ``nnx.ConvTranspose``), so a bfloat16 input meets float32
+weights in float32 (``kernel_takes_input_type``, ``_promoted``).
+
 Constructors take ``device``, ``dtype`` and a ``torch.Generator``; weights are drawn
 from the generator on the generator's device and copied in, so one seed gives the
 same weights whatever device the module lives on.
@@ -44,7 +51,7 @@ from .fast_norm import InstanceNorm
 
 __all__ = ["LayerFactory", "Conv", "ConvTrans", "Norm", "Act", "Dropout", "Pool", "Conv3d", "ConvTranspose3d",
            "GroupNorm", "split_args", "get_act_layer", "get_dropout_layer", "get_norm_layer", "get_pool_layer", "init_uniform_",
-           "linear"]
+           "kernel_takes_input_type", "linear"]
 
 
 class LayerFactory:
@@ -137,14 +144,32 @@ class _Float32Conv(torch.autograd.Function):
         return dx, dw, db, None, None, None, None, None, None
 
 
+def kernel_takes_input_type(in_channels: int, out_channels: int) -> bool:
+    """Whether a 3x3x3 stride-1 SAME conv of an input of another type than its weights
+    casts its kernel to the input's type, as the JAX package's default path does
+    (``PallasConv``: its swapped weight-grad orientation, taken where min(CI, 128) >=
+    2 min(CO, 128), casts the kernel; ``nnx.Conv`` elsewhere promotes both)."""
+    return min(in_channels, 128) >= 2 * min(out_channels, 128)
+
+
+def _promoted(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``x`` in the weights' type where that is the wider of the two (``nnx.Conv``'s
+    promotion of a bfloat16 input into float32 weights); as it is otherwise."""
+    if x.dtype != weight.dtype and torch.promote_types(x.dtype, weight.dtype) == weight.dtype:
+        return x.to(weight.dtype)
+    return x
+
+
 def _exact_float32(base: type) -> type:
     """``base``, a torch convolution module, with its calls in ``full_float32``: on a
     float32 CUDA input with numeric zero padding, forward and backward (``_Float32Conv``);
     otherwise the module's own call inside ``full_float32`` (TF32 does not touch the
-    other types)."""
+    other types). A narrower input than the weights is promoted to their type
+    (``_promoted``)."""
 
     class Exact(base):
         def forward(self, x: torch.Tensor, *args) -> torch.Tensor:
+            x = _promoted(x, self.weight)
             if (x.device.type == "cuda" and x.dtype == torch.float32 and self.padding_mode == "zeros"
                     and not isinstance(self.padding, str) and not args):
                 transposed = isinstance(self, nn.modules.conv._ConvTransposeNd)
@@ -155,7 +180,8 @@ def _exact_float32(base: type) -> type:
                 return super().forward(x, *args)
 
     Exact.__name__ = Exact.__qualname__ = base.__name__
-    Exact.__doc__ = f"``nn.{base.__name__}`` in full float32 on float32 CUDA inputs (``full_float32``)."
+    Exact.__doc__ = (f"``nn.{base.__name__}`` in full float32 on float32 CUDA inputs (``full_float32``), a narrower "
+                     f"input promoted to the weights' type.")
     return Exact
 
 
@@ -165,7 +191,9 @@ ConvTranspose3d = _exact_float32(nn.ConvTranspose3d)
 class Conv3d(_exact_float32(nn.Conv3d)):
     """``nn.Conv3d`` whose 3x3x3, stride-1, dilation-1, ungrouped, zero-padded SAME case
     runs ``ops.conv3d.conv3d_3x3_same`` on the channels-last view of its input; any other
-    runs cuDNN, in full float32 on float32 CUDA inputs (``full_float32``)."""
+    runs cuDNN, in full float32 on float32 CUDA inputs (``full_float32``). A bfloat16 input
+    into float32 weights runs the SAME case in bfloat16 where ``kernel_takes_input_type``
+    says so, else in float32."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -176,8 +204,13 @@ class Conv3d(_exact_float32(nn.Conv3d)):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.same_3x3x3:
             return super().forward(x)
-        w = self.weight.permute(2, 3, 4, 1, 0).contiguous()  # (O,I,kd,kh,kw) -> (kd,kh,kw,I,O)
-        y = conv3d_3x3_same(x.permute(0, 2, 3, 4, 1).contiguous(), w, self.bias)
+        w, b = self.weight, self.bias
+        if x.dtype != w.dtype and kernel_takes_input_type(self.in_channels, self.out_channels):
+            w, b = w.to(x.dtype), None if b is None else b.to(x.dtype)
+        else:
+            x = _promoted(x, w)
+        w = w.permute(2, 3, 4, 1, 0).contiguous()  # (O,I,kd,kh,kw) -> (kd,kh,kw,I,O)
+        y = conv3d_3x3_same(x.permute(0, 2, 3, 4, 1).contiguous(), w, b)
         return y.permute(0, 4, 1, 2, 3)  # channel-first view, channels-last memory
 
 

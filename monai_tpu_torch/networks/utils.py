@@ -38,10 +38,15 @@ def cast_params_to_compute(params: Mapping[str, torch.Tensor],
 
 
 def amp_model_view(model: nn.Module, dtype: torch.dtype = torch.bfloat16) -> Callable[..., torch.Tensor]:
-    """The model as a callable that runs on a ``dtype`` copy of its parameters
-    (``torch.func.functional_call``); the buffers (a batch norm's running statistics)
-    stay the module's own. Make the view inside the step, so its casts are in the graph."""
+    """The model as a callable that runs on a ``dtype`` copy of its parameters and of its
+    buffers (``torch.func.functional_call``), as the JAX package's view casts every
+    floating leaf of the model's state. A batch norm in train mode so updates the view's
+    copies of its running statistics and leaves the model's own as they were, as the JAX
+    amp step does (its view's statistics are not merged back): under amp the model learns no
+    running statistics, a fault of the reference kept for parity (ROADMAP C13). Make the view inside the
+    step, so its casts are in the graph."""
     view = cast_params_to_compute(dict(model.named_parameters()), dtype)
+    view.update({k: v.to(dtype) if v.is_floating_point() else v.clone() for k, v in model.named_buffers()})
 
     def run(*args, **kwargs):
         return torch.func.functional_call(model, view, args, kwargs, strict=False)

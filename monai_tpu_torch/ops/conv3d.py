@@ -72,6 +72,8 @@ def conv3d_3x3_same(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None 
     ``conv3d_3x3_same.launches``. Under autograd the backward runs the kernel again for dx
     (one more launch) and ``conv3d_3x3_wgrad`` for dw."""
     _check(x, w, bias)
+    if type(x) is not torch.Tensor:  # a fake or functional tensor: torch.export is tracing
+        return torch.ops.monai_tpu_torch.conv3d_3x3_same(x, w, bias)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, bias)):
         return _Conv3x3Same.apply(x, w, bias)
     return _forward(x, w, bias)
@@ -97,6 +99,23 @@ def _forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> tor
 
 
 conv3d_3x3_same.launches = 0
+
+
+# The wrapper's forward as a torch operator, ``torch.ops.monai_tpu_torch.conv3d_3x3_same``:
+# ``torch.export`` (the bundle's ``ckpt_export``, an inference forward) cannot trace a
+# ctypes launch, and its graph calls the operator. Its kernel is the ctypes launch
+# (``_forward``, which counts it) and its fake version gives the output's shape; it has no
+# backward. An exported program so needs this module imported to run. The eager wrapper
+# calls ``_forward`` directly: the dispatcher adds host time a call at the small sites,
+# which are bound by it (``chip_smoke.py``'s ``operator_cost`` measures it).
+@torch.library.custom_op("monai_tpu_torch::conv3d_3x3_same", mutates_args=())
+def _conv3d_op(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    return _forward(x, w, bias)
+
+
+@_conv3d_op.register_fake
+def _(x, w, bias):
+    return x.new_empty((*x.shape[:4], w.shape[4]))
 
 
 class _Conv3x3Same(torch.autograd.Function):

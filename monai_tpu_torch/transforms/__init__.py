@@ -1,7 +1,7 @@
-from .compose import Compose, execute_compose
+from .compose import Compose, OneOf, RandomOrder, SomeOf, execute_compose
 from .croppad_array import Crop, CropForeground, RandCropByPosNegLabel, RandSpatialCrop, SpatialCrop
 from .dictionary import (Activationsd, AsDiscreted, ConvertToMultiChannelBasedOnBratsClassesd, CropForegroundd,
-                         EnsureChannelFirstd, Invertd, LoadImaged, MeanEnsembled, NormalizeIntensityd, Orientationd,
+                         EnsureChannelFirstd, FgBgToIndicesd, Invertd, LoadImaged, MeanEnsembled, NormalizeIntensityd, Orientationd,
                          RandCropByPosNegLabeld, RandFlipd, RandRotate90d, RandRotated, RandScaleIntensityd,
                          RandShiftIntensityd, RandSpatialCropd, RandZoomd, SaveImaged, ScaleIntensityd,
                          ScaleIntensityRanged, Spacingd, VoteEnsembled)
@@ -12,6 +12,6 @@ from .io_array import LoadImage, SaveImage
 from .lazy_executor import apply_pending
 from .post_array import Activations, AsDiscrete, MeanEnsemble, VoteEnsemble
 from .spatial_array import (Flip, Orientation, RandFlip, RandRotate, RandRotate90, RandZoom, Rotate, Rotate90, Spacing,
-                            Zoom)
+                            SpatialResample, Zoom)
 from .transform import LazyTransform, MapTransform, Randomizable, RandomizableTransform, Transform, apply_transform
-from .utility_array import ConvertToMultiChannelBasedOnBratsClasses, EnsureChannelFirst
+from .utility_array import ConvertToMultiChannelBasedOnBratsClasses, EnsureChannelFirst, FgBgToIndices

@@ -6,7 +6,9 @@ data_old[x + offset] on the new shape, so it flushes as tier 1 of
 ``lazy_utils.apply_affine_to_data`` (a slice, on the data's device, with zeros where
 the box reaches past the image), moves the affine by the offset, and inverts through
 ``InvertibleTransform.inverse``. ``CropForeground``'s crop and pad are one such
-operation (the JAX package records a crop and then a pad)."""
+operation (the JAX package records a crop and then a pad). ``RandCropByPosNegLabel``
+draws from the flat foreground and background indices that ``utility_array.FgBgToIndices``
+gives, where they are passed."""
 from __future__ import annotations
 
 from collections.abc import Callable, Sequence
@@ -107,18 +109,24 @@ class RandSpatialCrop(Randomizable, Crop):
 
 class CropForeground(Crop):
     """Crop to the bounding box of the voxels where ``select_fn`` holds in any channel (of
-    ``channel_indices``), widened by ``margin``, padding with zeros where that box reaches
-    past the image (only where ``allow_smaller`` is off). The box is found where the image
-    lies. The JAX package's ``k_divisible``, other pad modes and ``return_coords`` are not
-    ported."""
+    ``channel_indices``), widened by ``margin`` and grown about its centre to a multiple of
+    ``k_divisible``, padding where that box reaches past the image (by ``mode``: "constant"
+    zeros, "edge", "reflect" or "wrap", np.pad's names, or the resample's "zeros",
+    "border", "reflection"). The box is found where the image lies. ``return_coords``
+    returns the box's start and end beside the crop."""
 
     def __init__(self, select_fn: Callable = is_positive, channel_indices=None, margin: Sequence[int] | int = 0,
-                 allow_smaller: bool = True, lazy: bool = False):
+                 allow_smaller: bool = True, return_coords: bool = False, k_divisible: Sequence[int] | int = 1,
+                 mode: str = "constant", lazy: bool = False, **pad_kwargs):
         super().__init__(lazy=lazy)
         self.select_fn = select_fn
         self.channel_indices = ensure_tuple(channel_indices) if channel_indices is not None else None
         self.margin = margin
         self.allow_smaller = allow_smaller
+        self.return_coords = return_coords
+        self.k_divisible = k_divisible
+        self.mode = mode
+        _check_pad_kwargs(pad_kwargs)
 
     @property
     def requires_current_data(self):
@@ -127,23 +135,52 @@ class CropForeground(Crop):
     def compute_bounding_box(self, img: Any) -> tuple[np.ndarray, np.ndarray]:
         box_start, box_end = generate_spatial_bounding_box(img, self.select_fn, self.channel_indices, self.margin,
                                                            self.allow_smaller)
-        return np.asarray(box_start, dtype=np.int64), np.asarray(box_end, dtype=np.int64)
+        box_start, box_end = np.asarray(box_start, dtype=np.int64), np.asarray(box_end, dtype=np.int64)
+        size = box_end - box_start
+        k = np.asarray(fall_back_tuple(self.k_divisible, (1,) * len(size)), dtype=np.int64)
+        grown = np.where(k > 0, -(-size // np.maximum(k, 1)) * k, size)  # the smallest multiple of k >= size
+        box_start = box_start - (grown - size) // 2
+        return box_start, box_start + grown
 
-    def crop_pad(self, img: Any, box_start: np.ndarray, box_end: np.ndarray, lazy: bool | None = None):
-        """The box [box_start, box_end), zeros outside the image."""
-        return self._translate(img, [int(s) for s in box_start], [int(e - s) for s, e in zip(box_start, box_end)],
-                               lazy, extra_info={"box_start": [int(s) for s in box_start],
-                                                 "box_end": [int(e) for e in box_end]})
+    def crop_pad(self, img: Any, box_start: np.ndarray, box_end: np.ndarray, mode=None, lazy: bool | None = None,
+                 **pad_kwargs):
+        """The box [box_start, box_end), padded by ``mode`` (default the transform's)
+        outside the image."""
+        _check_pad_kwargs(pad_kwargs)
+        pad = PAD_NAMES.get(str(mode or self.mode))
+        if pad is None:
+            raise ValueError(f"CropForeground pads with {sorted(PAD_NAMES)}, not {mode or self.mode!r}")
+        matrix = np.eye(len(box_start) + 1, dtype=np.float64)
+        matrix[:-1, -1] = np.asarray(box_start, dtype=np.float64)
+        return self._op(img, matrix, tuple(int(e - s) for s, e in zip(box_start, box_end)), mode="nearest",
+                        padding_mode=pad, lazy=lazy,
+                        extra_info={"box_start": [int(s) for s in box_start], "box_end": [int(e) for e in box_end]})
 
-    def __call__(self, img: Any, lazy: bool | None = None):
-        return self.crop_pad(img, *self.compute_bounding_box(img), lazy=lazy)
+    def __call__(self, img: Any, mode=None, lazy: bool | None = None, **pad_kwargs):
+        box_start, box_end = self.compute_bounding_box(img)
+        cropped = self.crop_pad(img, box_start, box_end, mode, lazy=lazy, **pad_kwargs)
+        return (cropped, box_start, box_end) if self.return_coords else cropped
+
+
+# CropForeground's pad modes (np.pad's names and the resample's) as the padding modes of
+# the tier-1 resample (``lazy_utils.PAD_MODES``)
+PAD_NAMES = {"constant": "zeros", "zeros": "zeros", "edge": "border", "border": "border", "replicate": "border",
+             "reflect": "reflection", "reflection": "reflection", "wrap": "circular", "circular": "circular"}
+
+
+def _check_pad_kwargs(pad_kwargs: dict) -> None:
+    """A constant pad is zeros: another ``constant_values`` (np.pad's) or ``value`` is refused."""
+    value = pad_kwargs.get("constant_values", pad_kwargs.get("value", 0))
+    if value != 0 or set(pad_kwargs) - {"constant_values", "value"}:
+        raise ValueError(f"CropForeground pads a constant of 0 only, not {pad_kwargs}")
 
 
 class RandCropByPosNegLabel(Randomizable, Transform):
     """``num_samples`` crops of ``spatial_size``, each centred on a foreground voxel of the
     label with probability pos / (pos + neg), else on a background voxel (of ``image``,
     where given, above ``image_threshold``); a list of crops, each with its
-    ``patch_index`` in its meta."""
+    ``patch_index`` in its meta. ``fg_indices`` and ``bg_indices``, where both are given
+    (``FgBgToIndices``'s flat indices), stand in for the label's."""
 
     def __init__(self, spatial_size: Sequence[int] | int, pos: float = 1.0, neg: float = 1.0, num_samples: int = 1,
                  image_threshold: float = 0.0, allow_smaller: bool = False, lazy: bool = False):
@@ -159,17 +196,19 @@ class RandCropByPosNegLabel(Randomizable, Transform):
         self.lazy = lazy
         self.centers: list = []
 
-    def randomize(self, label, image=None) -> None:
-        fg_indices, bg_indices = map_binary_to_indices(label, image, self.image_threshold)
+    def randomize(self, label, image=None, fg_indices=None, bg_indices=None) -> None:
+        if fg_indices is None or bg_indices is None:
+            fg_indices, bg_indices = map_binary_to_indices(label, image, self.image_threshold)
         self.centers = generate_pos_neg_label_crop_centers(self.spatial_size, self.num_samples, self.pos_ratio,
-                                                           label.shape[1:], fg_indices, bg_indices, self.R,
-                                                           self.allow_smaller)
+                                                           label.shape[1:], np.asarray(fg_indices),
+                                                           np.asarray(bg_indices), self.R, self.allow_smaller)
 
-    def __call__(self, img: Any, label=None, image=None, randomize: bool = True, lazy: bool | None = None) -> list:
+    def __call__(self, img: Any, label=None, image=None, fg_indices=None, bg_indices=None, randomize: bool = True,
+                 lazy: bool | None = None) -> list:
         if randomize:
             if label is None:
                 raise ValueError("label must be provided.")
-            self.randomize(label, image)
+            self.randomize(label, image, fg_indices, bg_indices)
         results = []
         roi_size = fall_back_tuple(self.spatial_size, default=_spatial_shape(img))
         for i, center in enumerate(self.centers):
@@ -178,3 +217,4 @@ class RandCropByPosNegLabel(Randomizable, Transform):
                 cropped.meta["patch_index"] = i
             results.append(cropped)
         return results
+

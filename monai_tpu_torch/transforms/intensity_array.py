@@ -68,9 +68,12 @@ class ScaleIntensity(Transform):
 
 class RandShiftIntensity(RandomizableTransform):
     """With probability ``prob``, img + an offset drawn uniformly from ``offsets`` (a pair,
-    or ±a number), in the image's type. The JAX package's ``channel_wise`` is not ported."""
+    or ±a number), in the image's type; ``channel_wise`` draws one offset a channel (after
+    the probability, in channel order). A call's ``factor`` scales the offset. ``safe`` is
+    taken for the JAX package's signature, which clips nothing for it either."""
 
-    def __init__(self, offsets: tuple[float, float] | float, prob: float = 0.1):
+    def __init__(self, offsets: tuple[float, float] | float, safe: bool = False, prob: float = 0.1,
+                 channel_wise: bool = False):
         RandomizableTransform.__init__(self, prob)
         if isinstance(offsets, (int, float)):
             self.offsets = (min(-offsets, offsets), max(-offsets, offsets))
@@ -78,20 +81,30 @@ class RandShiftIntensity(RandomizableTransform):
             raise ValueError(f"offsets should be a number or pair of numbers, got {offsets}.")
         else:
             self.offsets = (min(offsets), max(offsets))
+        self.channel_wise = channel_wise
         self._offset = self.offsets[0]
 
     def randomize(self, data: Any = None) -> None:
         super().randomize(None)
-        if self._do_transform:
+        if not self._do_transform:
+            return
+        if self.channel_wise:
+            self._offset = [self.R.uniform(low=self.offsets[0], high=self.offsets[1]) for _ in range(data.shape[0])]
+        else:
             self._offset = self.R.uniform(low=self.offsets[0], high=self.offsets[1])
 
-    def __call__(self, img: Any, randomize: bool = True):
+    def __call__(self, img: Any, factor: float | None = None, randomize: bool = True):
+        x = img.data if isinstance(img, MetaImage) else img
         if randomize:
-            self.randomize()
+            self.randomize(x)
         if not self._do_transform:
             return img
-        x = img.data if isinstance(img, MetaImage) else img
-        out = (x + self._offset).to(x.dtype)
+        scale = 1.0 if factor is None else factor
+        if self.channel_wise:
+            offset = torch.tensor([o * scale for o in self._offset], dtype=x.dtype, device=x.device)
+            out = (x + offset.reshape(-1, *(1,) * (x.ndim - 1))).to(x.dtype)
+        else:
+            out = (x + self._offset * scale).to(x.dtype)
         return img.new_like(out) if isinstance(img, MetaImage) else out
 
 

@@ -26,10 +26,11 @@ class TraceableTransform(Transform):
     """Keeps the applied and pending operation stacks of a MetaImage."""
 
     def push_transform(self, data: MetaImage, matrix: np.ndarray, sp_size, orig_size, extra_info: dict,
-                       mode=None, padding_mode=None, align_corners=None) -> MetaImage:
+                       mode=None, padding_mode=None, align_corners=None, dtype=None) -> MetaImage:
         """Record a pending operation of this transform on ``data``: its output-to-input
         voxel ``matrix``, output shape ``sp_size``, input shape and resample settings."""
-        op = pending_op(matrix, sp_size, mode=mode, padding_mode=padding_mode, align_corners=align_corners)
+        op = pending_op(matrix, sp_size, mode=mode, padding_mode=padding_mode, align_corners=align_corners,
+                        dtype=dtype)
         op[TraceKeys.CLASS_NAME] = self.__class__.__name__
         op[TraceKeys.ID] = id(self)
         op[TraceKeys.ORIG_SIZE] = tuple(int(s) for s in orig_size)

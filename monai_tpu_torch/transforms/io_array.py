@@ -55,12 +55,13 @@ class SaveImage(Transform):
     file name in the image's ``filename_or_obj`` (else a running index), as
     ``output_dtype``, channel last on disk and squeezed where it is one channel. The
     writer is the first of those registered for ``output_ext`` (or ``writer``) that
-    succeeds."""
+    succeeds. With ``resample`` the writer resamples the image onto its meta's original
+    affine at ``mode`` and ``padding_mode`` (``data.image_writer``)."""
 
     def __init__(self, output_dir: str = "./", output_postfix: str = "trans", output_ext: str = ".nii.gz",
-                 output_dtype=np.float32, resample: bool = False, squeeze_end_dims: bool = True,
-                 data_root_dir: str = "", separate_folder: bool = True, print_log: bool = True, writer=None,
-                 folder_layout: FolderLayout | None = None):
+                 output_dtype=np.float32, resample: bool = False, mode: str = "nearest", padding_mode: str = "border",
+                 squeeze_end_dims: bool = True, data_root_dir: str = "", separate_folder: bool = True,
+                 print_log: bool = True, writer=None, folder_layout: FolderLayout | None = None):
         self.folder_layout = folder_layout or FolderLayout(output_dir=output_dir, postfix=output_postfix,
                                                            extension=output_ext, parent=separate_folder,
                                                            makedirs=True, data_root_dir=data_root_dir)
@@ -68,7 +69,7 @@ class SaveImage(Transform):
         self.output_ext = ext if ext.startswith(".") else f".{ext}"
         self.writers = (writer,) if writer is not None else image_writer.resolve_writer(self.output_ext)
         self.output_dtype = output_dtype
-        self.resample = resample
+        self.resample, self.mode, self.padding_mode = resample, mode, padding_mode
         self.squeeze_end_dims = squeeze_end_dims
         self.print_log = print_log
         self._data_index = 0
@@ -84,7 +85,7 @@ class SaveImage(Transform):
             try:
                 writer = writer_cls(output_dtype=self.output_dtype)
                 writer.set_data_array(img, channel_dim=0, squeeze_end_dims=self.squeeze_end_dims)
-                writer.set_metadata(meta, resample=self.resample)
+                writer.set_metadata(meta, resample=self.resample, mode=self.mode, padding_mode=self.padding_mode)
                 writer.write(filename, verbose=self.print_log)
             except Exception as e:
                 errors.append(f"{writer_cls.__name__}: {e!r}")

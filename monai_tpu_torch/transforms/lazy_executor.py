@@ -84,13 +84,15 @@ def apply_pending_transforms(data: Any, keys: Sequence | None = None):
     return data
 
 
-def apply_pending_transforms_in_order(transform: Any, data: Any):
-    """Flush pending operations before ``transform`` unless it is lazy and needs no
-    current data (then its own operation joins the pending ones)."""
+def apply_pending_transforms_in_order(transform: Any, data: Any, lazy: bool | None = None):
+    """Flush pending operations before ``transform`` unless it runs lazily (``lazy``, else
+    its own setting) and needs no current data (then its own operation joins the pending
+    ones)."""
     from .compose import Compose
 
     if isinstance(transform, Compose):
         return data  # a Compose flushes for itself
-    if isinstance(transform, LazyTrait) and transform.lazy and not transform.requires_current_data:
+    if isinstance(transform, LazyTrait) and (transform.lazy if lazy is None else lazy) \
+            and not transform.requires_current_data:
         return data
     return apply_pending_transforms(data)

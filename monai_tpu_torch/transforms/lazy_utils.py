@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from ..ops.resample import affine_resample, resolve_mode
 from ..ops.separable import is_separable
 from ..ops.separable_resample import separable_resample_3d
+from ..utils.backend import get_torch_dtype
 from ..utils.enums import LazyAttr
 
 __all__ = ["pending_op", "affine_from_pending", "kwargs_from_pending", "is_compatible_apply_kwargs",
@@ -44,11 +45,11 @@ PAD_MODES = {"zeros": "constant", "constant": "constant", "border": "replicate",
 
 
 def pending_op(matrix: np.ndarray, shape: Sequence[int], mode: Any = None, padding_mode: Any = None,
-               align_corners: bool | None = None) -> dict:
-    """A pending-operation record."""
+               align_corners: bool | None = None, dtype: Any = None) -> dict:
+    """A pending-operation record; ``dtype`` is the type its resample's output is cast to."""
     op = {LazyAttr.AFFINE: np.asarray(matrix, dtype=np.float64), LazyAttr.SHAPE: tuple(int(s) for s in shape)}
     for key, value in ((LazyAttr.INTERP_MODE, mode), (LazyAttr.PADDING_MODE, padding_mode),
-                       (LazyAttr.ALIGN_CORNERS, align_corners)):
+                       (LazyAttr.ALIGN_CORNERS, align_corners), (LazyAttr.DTYPE, dtype)):
         if value is not None:
             op[key] = value
     return op
@@ -64,14 +65,14 @@ def kwargs_from_pending(pending_item: dict) -> dict:
     """The resample settings of a pending operation, with its output shape."""
     if not isinstance(pending_item, dict):
         return {}
-    keys = (LazyAttr.INTERP_MODE, LazyAttr.PADDING_MODE, LazyAttr.ALIGN_CORNERS, LazyAttr.SHAPE)
+    keys = (LazyAttr.INTERP_MODE, LazyAttr.PADDING_MODE, LazyAttr.ALIGN_CORNERS, LazyAttr.DTYPE, LazyAttr.SHAPE)
     return {k: pending_item[k] for k in keys if k in pending_item}
 
 
 def is_compatible_apply_kwargs(kwargs_1: dict, kwargs_2: dict) -> bool:
     """Whether two pending operations can fuse into one resample: their interpolation,
-    padding and corner alignment agree where both set them."""
-    for k in (LazyAttr.INTERP_MODE, LazyAttr.PADDING_MODE, LazyAttr.ALIGN_CORNERS):
+    padding, corner alignment and output type agree where both set them."""
+    for k in (LazyAttr.INTERP_MODE, LazyAttr.PADDING_MODE, LazyAttr.ALIGN_CORNERS, LazyAttr.DTYPE):
         v1, v2 = kwargs_1.get(k), kwargs_2.get(k)
         if v1 is not None and v2 is not None and v1 != v2:
             return False
@@ -171,11 +172,14 @@ def apply_affine_to_data(data: torch.Tensor, matrix: np.ndarray, out_shape: Sequ
 
 
 def resample(data: torch.Tensor, matrix: np.ndarray, kwargs: dict | None = None) -> torch.Tensor:
-    """Resample ``data`` by a pending operation's matrix and settings."""
+    """Resample ``data`` by a pending operation's matrix and settings, the output cast to
+    its ``dtype`` where it has one."""
     kwargs = kwargs or {}
     mode = kwargs.get(LazyAttr.INTERP_MODE)
     padding_mode = kwargs.get(LazyAttr.PADDING_MODE)
-    return apply_affine_to_data(data, matrix, kwargs.get(LazyAttr.SHAPE, data.shape[1:]),
-                                mode=1 if mode is None else mode,
-                                padding_mode="zeros" if padding_mode is None else padding_mode,
-                                align_corners=bool(kwargs.get(LazyAttr.ALIGN_CORNERS) or False))
+    out = apply_affine_to_data(data, matrix, kwargs.get(LazyAttr.SHAPE, data.shape[1:]),
+                               mode=1 if mode is None else mode,
+                               padding_mode="zeros" if padding_mode is None else padding_mode,
+                               align_corners=bool(kwargs.get(LazyAttr.ALIGN_CORNERS) or False))
+    dtype = kwargs.get(LazyAttr.DTYPE)
+    return out if dtype is None else out.to(get_torch_dtype(dtype))

@@ -9,7 +9,11 @@ affine: Orientation, a flip and a 90-degree rotation are integer permutations an
 Spacing and Zoom diagonal affines that run the separable resample kernel, Rotate a
 general affine (``ops.resample.affine_resample``). They invert through
 ``InvertibleTransform.inverse``. The random forms draw from their ``R`` as the JAX
-package's do; a skipped one returns its input and records nothing.
+package's do. RandFlip, RandRotate90, RandRotate and RandZoom invert too: the record of
+the transform they ran is relabelled as theirs, and a skipped one records
+``{"skipped": True}``, which their inverse pops and leaves the data as it is.
+SpatialResample resamples onto another affine (``dst_affine``), as the image writers'
+``resample`` does.
 """
 from __future__ import annotations
 
@@ -22,8 +26,8 @@ import torch.nn.functional as F
 from ..data.affine_utils import (affine_to_spacing, axcodes2ornt, compute_shape_offset, inv_ornt_aff,
                                  io_orientation, ornt_transform, to_affine_nd, zoom_affine)
 from ..data.meta_image import MetaImage
-from ..utils.enums import GridSampleMode, GridSamplePadMode
-from ..utils.misc import ensure_tuple, ensure_tuple_rep
+from ..utils.enums import GridSampleMode, GridSamplePadMode, TraceKeys
+from ..utils.misc import ensure_tuple, ensure_tuple_rep, fall_back_tuple, issequenceiterable
 from .inverse import InvertibleTransform
 from .lazy_executor import apply_pending, promote_pending_with_data
 from .lazy_utils import PAD_MODES, apply_affine_to_data, resolve_mode
@@ -31,7 +35,7 @@ from .transform import LazyTransform, RandomizableTransform
 from .utils import create_rotate, create_translate, map_spatial_axes
 
 __all__ = ["Flip", "Orientation", "RandFlip", "RandRotate", "RandRotate90", "RandZoom", "Rotate", "Rotate90", "Spacing",
-           "Zoom"]
+           "SpatialResample", "Zoom"]
 
 
 def resolves_modes(interp_mode, padding_mode) -> tuple[int, str]:
@@ -49,7 +53,8 @@ class _SpatialLazyTransform(InvertibleTransform, LazyTransform):
         LazyTransform.__init__(self, lazy=lazy)
 
     def _op(self, img: Any, matrix: np.ndarray, sp_size: Sequence[int], mode=None, padding_mode=None,
-            align_corners=None, lazy: bool | None = None, extra_info: dict | None = None):
+            align_corners=None, lazy: bool | None = None, extra_info: dict | None = None, dtype=None):
+        """``dtype``: the type the resample's output is cast to (a bare tensor's is not)."""
         lazy_ = self.lazy if lazy is None else lazy
         m, pm = resolves_modes(mode, padding_mode)
         if not isinstance(img, MetaImage):  # a bare tensor: resample at once, no trace
@@ -57,8 +62,74 @@ class _SpatialLazyTransform(InvertibleTransform, LazyTransform):
                                         align_corners=bool(align_corners))
         img = img.new_like(img.data)  # never change the caller's image
         self.push_transform(img, matrix, sp_size, img.peek_pending_shape(), extra_info or {}, mode=m,
-                            padding_mode=pm, align_corners=align_corners)
+                            padding_mode=pm, align_corners=align_corners, dtype=dtype)
         return img if lazy_ else apply_pending(img)[0]
+
+
+class SpatialResample(_SpatialLazyTransform):
+    """Resample an image from its affine onto ``dst_affine`` (default its own), at
+    ``spatial_size`` (default: the extent that holds the input, ``compute_shape_offset``).
+    The pull matrix is inv(src) @ dst, so the resample takes the tiers of
+    ``lazy_utils.apply_affine_to_data``: a permutation or flip moves voxels, a diagonal
+    map (the inverse of Orientation and Spacing) runs the separable resample kernel, any
+    other map ``affine_resample``. ``dtype`` (None: the input's floating type) is the
+    output's type."""
+
+    def __init__(self, mode=GridSampleMode.BILINEAR, padding_mode=GridSamplePadMode.BORDER,
+                 align_corners: bool = False, dtype=None, lazy: bool = False):
+        super().__init__(lazy=lazy)
+        self.mode, self.padding_mode, self.align_corners, self.dtype = mode, padding_mode, align_corners, dtype
+
+    def __call__(self, img: Any, dst_affine=None, spatial_size=None, mode=None, padding_mode=None,
+                 align_corners=None, dtype=None, lazy: bool | None = None):
+        img = MetaImage.ensure_meta(img)
+        src_affine = img.peek_pending_affine()
+        spatial_rank = min(len(img.peek_pending_shape()), 3)
+        src = to_affine_nd(spatial_rank, src_affine)
+        dst = src if dst_affine is None else to_affine_nd(spatial_rank, np.asarray(dst_affine, dtype=np.float64))
+        in_spatial_size = np.asarray(img.peek_pending_shape()[:spatial_rank])
+        if spatial_size is None or (issequenceiterable(spatial_size) and tuple(spatial_size) == (-1,)):
+            spatial_size, _ = compute_shape_offset(in_spatial_size, src, dst)
+        spatial_size = tuple(int(v) for v in np.asarray(fall_back_tuple(spatial_size, in_spatial_size)))
+        try:
+            matrix = np.linalg.solve(src, dst)
+        except np.linalg.LinAlgError as e:
+            raise ValueError(f"src affine is not invertible: {src}") from e
+        full_rank = len(img.peek_pending_shape())
+        full_size = spatial_size + tuple(img.peek_pending_shape()[spatial_rank:])
+        return self._op(img, to_affine_nd(full_rank, matrix), full_size, mode=mode or self.mode,
+                        padding_mode=padding_mode or self.padding_mode,
+                        align_corners=self.align_corners if align_corners is None else align_corners,
+                        lazy=lazy, extra_info={"dst_affine": dst.tolist()}, dtype=dtype or self.dtype)
+
+
+class _RandomInvertible(InvertibleTransform):
+    """The records and inverse of a random spatial transform that runs another one: the
+    inner transform's record is relabelled as this one's, and a skipped call records
+    ``{"skipped": True}``."""
+
+    def _skipped(self, img: Any) -> Any:
+        if not isinstance(img, MetaImage):
+            return img
+        out = img.new_like(img.data)
+        out.push_applied_operation({TraceKeys.CLASS_NAME: self.__class__.__name__, TraceKeys.ID: id(self),
+                                    TraceKeys.ORIG_SIZE: tuple(int(v) for v in out.peek_pending_shape()),
+                                    TraceKeys.EXTRA_INFO: {"skipped": True}})
+        return out
+
+    def _relabel(self, out: Any, lazy: bool) -> Any:
+        if isinstance(out, MetaImage):
+            stack = out.pending_operations if lazy else out.applied_operations
+            if stack:
+                stack[-1] = {**stack[-1], TraceKeys.CLASS_NAME: self.__class__.__name__, TraceKeys.ID: id(self)}
+        return out
+
+    def inverse(self, data: Any) -> Any:
+        if self.get_most_recent_transform(data).get(TraceKeys.EXTRA_INFO, {}).get("skipped"):
+            out = data.new_like(data.data)
+            out.pop_applied_operation()
+            return out
+        return InvertibleTransform.inverse(self, data)
 
 
 class Spacing(_SpatialLazyTransform):
@@ -167,8 +238,8 @@ class Rotate90(_SpatialLazyTransform):
                         extra_info={"k": self.k, "axes": [a, b]})
 
 
-class RandFlip(RandomizableTransform, LazyTransform):
-    """With probability ``prob``, ``Flip(spatial_axis)``."""
+class RandFlip(RandomizableTransform, _RandomInvertible, LazyTransform):
+    """With probability ``prob``, ``Flip(spatial_axis)``; inverts it."""
 
     def __init__(self, prob: float = 0.1, spatial_axis: Sequence[int] | int | None = None, lazy: bool = False):
         RandomizableTransform.__init__(self, prob)
@@ -179,13 +250,14 @@ class RandFlip(RandomizableTransform, LazyTransform):
         if randomize:
             self.randomize(None)
         if not self._do_transform:
-            return img
-        return self.flipper(img, lazy=self.lazy if lazy is None else lazy)
+            return self._skipped(img)
+        lazy_ = self.lazy if lazy is None else lazy
+        return self._relabel(self.flipper(img, lazy=lazy_), lazy_)
 
 
-class RandRotate90(RandomizableTransform, LazyTransform):
+class RandRotate90(RandomizableTransform, _RandomInvertible, LazyTransform):
     """With probability ``prob``, ``Rotate90`` by k in 1..``max_k`` turns, k drawn after
-    the probability."""
+    the probability; inverts it."""
 
     def __init__(self, prob: float = 0.1, max_k: int = 3, spatial_axes: tuple[int, int] = (0, 1),
                  lazy: bool = False):
@@ -204,24 +276,28 @@ class RandRotate90(RandomizableTransform, LazyTransform):
         if randomize:
             self.randomize()
         if not self._do_transform:
-            return img
-        return Rotate90(self._rand_k, self.spatial_axes)(img, lazy=self.lazy if lazy is None else lazy)
+            return self._skipped(img)
+        lazy_ = self.lazy if lazy is None else lazy
+        return self._relabel(Rotate90(self._rand_k, self.spatial_axes)(img, lazy=lazy_), lazy_)
 
 
 class Rotate(_SpatialLazyTransform):
     """Rotate a 2-D or 3-D image by ``angle`` (radians; three for 3-D, about axes 0, 1, 2)
     about its centre. The pull matrix is c_in @ rot @ c_out, the centres' shifts about the
     rotation, so the content turns by -angle in index space. ``keep_size=False`` grows the
-    output to hold the rotated corners."""
+    output to hold the rotated corners. ``dtype`` is the resample's output type (a bare
+    tensor keeps its own)."""
 
     def __init__(self, angle: Sequence[float] | float, keep_size: bool = True, mode=GridSampleMode.BILINEAR,
-                 padding_mode=GridSamplePadMode.BORDER, align_corners: bool = False, lazy: bool = False):
+                 padding_mode=GridSamplePadMode.BORDER, align_corners: bool = False, dtype=np.float32,
+                 lazy: bool = False):
         super().__init__(lazy=lazy)
         self.angle = angle
         self.keep_size = keep_size
-        self.mode, self.padding_mode, self.align_corners = mode, padding_mode, align_corners
+        self.mode, self.padding_mode, self.align_corners, self.dtype = mode, padding_mode, align_corners, dtype
 
-    def __call__(self, img: Any, mode=None, padding_mode=None, align_corners=None, lazy: bool | None = None):
+    def __call__(self, img: Any, mode=None, padding_mode=None, align_corners=None, dtype=None,
+                 lazy: bool | None = None):
         in_shape = _spatial_shape(img)
         sr = len(in_shape)
         if sr not in (2, 3):
@@ -239,22 +315,23 @@ class Rotate(_SpatialLazyTransform):
         return self._op(img, c_in @ rot @ c_out, out_size, mode=mode or self.mode,
                         padding_mode=padding_mode or self.padding_mode,
                         align_corners=self.align_corners if align_corners is None else align_corners, lazy=lazy,
-                        extra_info={"angle": list(ensure_tuple(angle))})
+                        extra_info={"angle": list(ensure_tuple(angle))}, dtype=dtype or self.dtype)
 
 
-class RandRotate(RandomizableTransform, LazyTransform):
+class RandRotate(RandomizableTransform, _RandomInvertible, LazyTransform):
     """With probability ``prob``, ``Rotate`` by angles drawn uniformly from ``range_x``,
     ``range_y`` and ``range_z`` (a pair, or ±a number); 2-D takes the x angle. The three
-    angles are drawn after the probability, x first."""
+    angles are drawn after the probability, x first. A call's ``mode``, ``padding_mode``,
+    ``align_corners`` and ``dtype`` override the transform's; it inverts."""
 
     def __init__(self, range_x=0.0, range_y=0.0, range_z=0.0, prob: float = 0.1, keep_size: bool = True,
                  mode=GridSampleMode.BILINEAR, padding_mode=GridSamplePadMode.BORDER, align_corners: bool = False,
-                 lazy: bool = False):
+                 dtype=np.float32, lazy: bool = False):
         RandomizableTransform.__init__(self, prob)
         LazyTransform.__init__(self, lazy=lazy)
         self.range_x, self.range_y, self.range_z = (_symmetric_range(r) for r in (range_x, range_y, range_z))
         self.keep_size = keep_size
-        self.mode, self.padding_mode, self.align_corners = mode, padding_mode, align_corners
+        self.mode, self.padding_mode, self.align_corners, self.dtype = mode, padding_mode, align_corners, dtype
         self.x = self.y = self.z = 0.0
 
     def randomize(self, data: Any = None) -> None:
@@ -264,15 +341,19 @@ class RandRotate(RandomizableTransform, LazyTransform):
             self.y = self.R.uniform(low=self.range_y[0], high=self.range_y[1])
             self.z = self.R.uniform(low=self.range_z[0], high=self.range_z[1])
 
-    def __call__(self, img: Any, randomize: bool = True, lazy: bool | None = None):
+    def __call__(self, img: Any, mode=None, padding_mode=None, align_corners=None, dtype=None, randomize: bool = True,
+                 lazy: bool | None = None):
         if randomize:
             self.randomize()
         if not self._do_transform:
-            return img
+            return self._skipped(img)
         ndim = len(_spatial_shape(img))
-        rotator = Rotate(self.x if ndim == 2 else (self.x, self.y, self.z), keep_size=self.keep_size, mode=self.mode,
-                         padding_mode=self.padding_mode, align_corners=self.align_corners)
-        return rotator(img, lazy=self.lazy if lazy is None else lazy)
+        rotator = Rotate(self.x if ndim == 2 else (self.x, self.y, self.z), keep_size=self.keep_size,
+                         mode=mode or self.mode, padding_mode=padding_mode or self.padding_mode,
+                         align_corners=self.align_corners if align_corners is None else align_corners,
+                         dtype=dtype or self.dtype)
+        lazy_ = self.lazy if lazy is None else lazy
+        return self._relabel(rotator(img, lazy=lazy_), lazy_)
 
 
 def _symmetric_range(r) -> tuple:
@@ -287,16 +368,20 @@ class Zoom(_SpatialLazyTransform):
     centre-crops it back to the input's shape. Eagerly that is the resample, at the border
     bound, and a pad or crop of the array, as the reference's interpolate and
     ResizeWithPadOrCrop; lazily one composed affine, which differs from it in the padded
-    band. Nearest zooms index floor(y * s), torch's legacy nearest."""
+    band. Nearest zooms index floor(y * s), torch's legacy nearest. ``dtype`` is the
+    output type of a resample through the pending operations (the JAX package's eager
+    resize keeps the data's type, and so does the port's)."""
 
     def __init__(self, zoom: Sequence[float] | float, mode=GridSampleMode.BILINEAR, padding_mode="edge",
-                 align_corners: bool = False, keep_size: bool = True, lazy: bool = False):
+                 align_corners: bool = False, keep_size: bool = True, dtype=np.float32, lazy: bool = False):
         super().__init__(lazy=lazy)
         self.zoom = zoom
         self.mode, self.padding_mode, self.align_corners = mode, padding_mode, align_corners
         self.keep_size = keep_size
+        self.dtype = dtype
 
-    def __call__(self, img: Any, mode=None, padding_mode=None, align_corners=None, lazy: bool | None = None):
+    def __call__(self, img: Any, mode=None, padding_mode=None, align_corners=None, dtype=None,
+                 lazy: bool | None = None):
         in_shape = _spatial_shape(img)
         sr = len(in_shape)
         z = ensure_tuple_rep(self.zoom, sr)
@@ -329,7 +414,7 @@ class Zoom(_SpatialLazyTransform):
         resized = self.keep_size and zoomed != tuple(in_shape)
         if lazy_ or pending or not (resized or nearest):
             return self._op(img, m, out_size, mode=mode_, padding_mode=pm, align_corners=ac, lazy=lazy,
-                            extra_info={"zoom": list(z)})
+                            extra_info={"zoom": list(z)}, dtype=dtype or self.dtype)
         order, pm_ = resolves_modes(mode_, pm)
         data = img.data if isinstance(img, MetaImage) else img
         if resized:  # resample to the zoomed size, then centre-crop or pad back
@@ -356,17 +441,19 @@ class Zoom(_SpatialLazyTransform):
             return dat
         tracked = img.new_like(img.data)
         self.push_transform(tracked, m, out_size, in_shape, {"zoom": list(z)}, mode=order, padding_mode=pm_,
-                            align_corners=ac)
+                            align_corners=ac, dtype=dtype or self.dtype)
         return promote_pending_with_data(tracked, dat)
 
 
-class RandZoom(RandomizableTransform, LazyTransform):
+class RandZoom(RandomizableTransform, _RandomInvertible, LazyTransform):
     """With probability ``prob``, ``Zoom`` by factors drawn uniformly between ``min_zoom``
     and ``max_zoom`` (one, or one an axis; two on 3-D data: the first for the first two
-    axes), after the probability."""
+    axes), after the probability. A call's ``mode``, ``padding_mode``, ``align_corners``
+    and ``dtype`` override the transform's; it inverts."""
 
     def __init__(self, prob: float = 0.1, min_zoom=0.9, max_zoom=1.1, mode=GridSampleMode.BILINEAR,
-                 padding_mode="edge", align_corners: bool = False, keep_size: bool = True, lazy: bool = False):
+                 padding_mode="edge", align_corners: bool = False, keep_size: bool = True, dtype=np.float32,
+                 lazy: bool = False):
         RandomizableTransform.__init__(self, prob)
         LazyTransform.__init__(self, lazy=lazy)
         self.min_zoom, self.max_zoom = ensure_tuple(min_zoom), ensure_tuple(max_zoom)
@@ -374,6 +461,7 @@ class RandZoom(RandomizableTransform, LazyTransform):
             raise ValueError(f"min_zoom and max_zoom must have same length, got {min_zoom} and {max_zoom}.")
         self.mode, self.padding_mode, self.align_corners = mode, padding_mode, align_corners
         self.keep_size = keep_size
+        self.dtype = dtype
         self._zoom: Sequence[float] = (1.0,)
 
     def randomize(self, img: Any) -> None:
@@ -387,11 +475,14 @@ class RandZoom(RandomizableTransform, LazyTransform):
         elif len(self._zoom) == 2 and ndim > 2:
             self._zoom = ensure_tuple_rep(self._zoom[0], ndim - 1) + ensure_tuple(self._zoom[-1])
 
-    def __call__(self, img: Any, randomize: bool = True, lazy: bool | None = None):
+    def __call__(self, img: Any, mode=None, padding_mode=None, align_corners=None, dtype=None, randomize: bool = True,
+                 lazy: bool | None = None):
         if randomize:
             self.randomize(img)
         if not self._do_transform:
-            return img
-        zoomer = Zoom(self._zoom, mode=self.mode, padding_mode=self.padding_mode, align_corners=self.align_corners,
-                      keep_size=self.keep_size)
-        return zoomer(img, lazy=self.lazy if lazy is None else lazy)
+            return self._skipped(img)
+        zoomer = Zoom(self._zoom, mode=mode or self.mode, padding_mode=padding_mode or self.padding_mode,
+                      align_corners=self.align_corners if align_corners is None else align_corners,
+                      keep_size=self.keep_size, dtype=dtype or self.dtype)
+        lazy_ = self.lazy if lazy is None else lazy
+        return self._relabel(zoomer(img, lazy=lazy_), lazy_)

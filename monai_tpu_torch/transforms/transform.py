@@ -114,18 +114,20 @@ class MapTransform(Transform):
             yield entry if extra_iterables else key
 
 
-def _apply_transform(transform: Callable, data: Any):
+def _apply_transform(transform: Callable, data: Any, lazy: bool | None = None):
     from .lazy_executor import apply_pending_transforms_in_order
 
-    return transform(apply_pending_transforms_in_order(transform, data))
+    data = apply_pending_transforms_in_order(transform, data, lazy)
+    return transform(data, lazy=lazy) if isinstance(transform, LazyTrait) else transform(data)
 
 
-def apply_transform(transform: Callable, data: Any, map_items: bool = True) -> Any:
+def apply_transform(transform: Callable, data: Any, map_items: bool = True, lazy: bool | None = None) -> Any:
     """Apply ``transform`` to ``data``, to each item where ``data`` is a list or tuple and
-    ``map_items`` is set; a failure is raised with the transform named."""
+    ``map_items`` is set; a failure is raised with the transform named. ``lazy`` is given
+    to a lazy-capable transform (None: its own setting)."""
     try:
         if isinstance(data, (list, tuple)) and map_items:
-            return [_apply_transform(transform, item) for item in data]
-        return _apply_transform(transform, data)
+            return [_apply_transform(transform, item, lazy) for item in data]
+        return _apply_transform(transform, data, lazy)
     except Exception as e:
         raise RuntimeError(f"applying transform {transform}") from e

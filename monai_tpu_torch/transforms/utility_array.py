@@ -1,7 +1,8 @@
-"""EnsureChannelFirst and ConvertToMultiChannelBasedOnBratsClasses (counterpart of
-monai_tpu/transforms/utility_array.py)."""
+"""EnsureChannelFirst, ConvertToMultiChannelBasedOnBratsClasses and FgBgToIndices
+(counterpart of monai_tpu/transforms/utility_array.py)."""
 from __future__ import annotations
 
+from collections.abc import Sequence
 from typing import Any
 
 import numpy as np
@@ -10,8 +11,9 @@ import torch
 from ..data.meta_image import MetaImage
 from ..utils.enums import MetaKeys
 from .transform import Transform
+from .utils import map_binary_to_indices
 
-__all__ = ["ConvertToMultiChannelBasedOnBratsClasses", "EnsureChannelFirst"]
+__all__ = ["ConvertToMultiChannelBasedOnBratsClasses", "EnsureChannelFirst", "FgBgToIndices"]
 
 
 class EnsureChannelFirst(Transform):
@@ -55,3 +57,20 @@ class ConvertToMultiChannelBasedOnBratsClasses(Transform):
         else:
             out = torch.stack([core, whole, enhancing]).to(data.dtype)
         return img.new_like(out) if isinstance(img, MetaImage) else out
+
+
+class FgBgToIndices(Transform):
+    """The flat indices of a label's foreground and background voxels
+    (``map_binary_to_indices``), as ``RandCropByPosNegLabel`` takes them; with
+    ``output_shape``, each index as its coordinates in that shape."""
+
+    def __init__(self, image_threshold: float = 0.0, output_shape: Sequence[int] | None = None):
+        self.image_threshold = image_threshold
+        self.output_shape = output_shape
+
+    def __call__(self, label: Any, image: Any = None, output_shape=None) -> tuple[np.ndarray, np.ndarray]:
+        shape = self.output_shape if output_shape is None else output_shape
+        fg, bg = map_binary_to_indices(label, image, self.image_threshold)
+        if shape is not None:
+            fg, bg = (np.stack(np.unravel_index(i, shape), axis=-1) for i in (fg, bg))
+        return fg, bg

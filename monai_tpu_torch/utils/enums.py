@@ -75,6 +75,7 @@ class LazyAttr(StrEnum):
     PADDING_MODE = "lazy_padding_mode"
     INTERP_MODE = "lazy_interpolation_mode"
     ALIGN_CORNERS = "lazy_align_corners"
+    DTYPE = "lazy_dtype"
 
 
 class CommonKeys(StrEnum):

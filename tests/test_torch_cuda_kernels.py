@@ -97,6 +97,38 @@ def test_conv_kernel_matches_plain(cuda, dtype, shape, ci, co, with_bias):
         _assert_close(got, conv3d_3x3_same_plain(x, w, b), dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv_operator_is_the_ctypes_launch(cuda, dtype):
+    """Kernel 1 as the operator an exported program calls (``torch.ops.monai_tpu_torch``)
+    against its ctypes launch (``_forward``, the eager wrapper's call): the same bits, one
+    launch counted each; and a
+    ``torch.export`` program of a batch-norm UNet on the card: the module's output, one
+    launch a 3x3x3 site."""
+    from monai_tpu_torch.networks.nets import UNet
+    from monai_tpu_torch.ops.conv3d import _forward
+
+    g = torch.Generator(device=cuda).manual_seed(21)
+    x = torch.randn((2, 6, 7, 5, 32), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((3, 3, 3, 32, 16), generator=g, device=cuda) / (27 * 32) ** 0.5).to(dtype)
+    b = torch.randn((16,), generator=g, device=cuda).to(dtype)
+    with torch.inference_mode():
+        before = conv3d_3x3_same.launches
+        eager = _forward(x, w, b)
+        op = torch.ops.monai_tpu_torch.conv3d_3x3_same(x, w, b)
+        assert conv3d_3x3_same.launches == before + 2
+    assert torch.equal(op, eager)
+    net = UNet(3, 1, 2, (16, 32), (2,), num_res_units=2, norm="batch", device=cuda).eval()
+    v = torch.rand((1, 1, 32, 32, 32), generator=g, device=cuda)
+    with torch.no_grad():
+        program = torch.export.export(net, (v,), strict=False).module()
+        want = net(v)
+        before = conv3d_3x3_same.launches
+        got = program(v)
+    sites = sum(1 for m in net.modules() if getattr(m, "same_3x3x3", False))
+    assert conv3d_3x3_same.launches == before + sites
+    _assert_close(got, want, torch.float32)
+
+
 # ragged spatial shapes no brick divides, N in {1, 3}, every CI and CO class of the kernel
 CONV_GRID_SHAPES = [(1, 5, 7, 9), (3, 5, 7, 9), (1, 1, 1, 1), (3, 1, 1, 1), (1, 3, 96, 5), (3, 3, 96, 5)]
 

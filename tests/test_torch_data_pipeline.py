@@ -270,7 +270,9 @@ def test_checkpoint_loader_strict_raises_on_a_missing_key(tmp_path, bridged_weig
 def test_supervised_evaluator_decollates_postprocesses_and_restores_the_mode():
     """Each iteration's output becomes one dict an item, each postprocessed, the batch
     decollated beside it; the metrics take the items stacked; the network is in eval
-    mode for the run and back in train mode after; amp is not ported and raises."""
+    mode for the run and back in train mode after; with amp the input is cast to bfloat16
+    and the network's strided first conv promotes it back to float32 (the JAX evaluator's
+    rule), so the prediction is the float32 forward of the rounded input."""
     from monai_tpu_torch.engines import Events, SupervisedEvaluator
     from monai_tpu_torch.transforms import AsDiscreted
 
@@ -308,5 +310,8 @@ def test_supervised_evaluator_decollates_postprocesses_and_restores_the_mode():
         ref = net.eval()(torch.stack([i["image"].data for i in items[:2]]))
     got = evaluator._iteration(evaluator, list_data_collate(items[:2]))["pred"]
     assert got.dtype == torch.float32 and (got - ref).abs().max() <= 1e-6
-    with pytest.raises(NotImplementedError, match="amp"):
-        SupervisedEvaluator(device="cpu", val_data_loader=[], network=net, amp=True)
+    amp = SupervisedEvaluator(device="cpu", val_data_loader=[], network=net, amp=True)
+    got = amp._iteration(amp, list_data_collate(items[:2]))["pred"]
+    with torch.no_grad():
+        ref = net.eval()(torch.stack([i["image"].data for i in items[:2]]).to(torch.bfloat16).float())
+    assert got.dtype == torch.float32 and torch.equal(got, ref)
