@@ -53,7 +53,7 @@ Drives the port's paths, each at full width with random weights from a seed:
   trainer defaults.
 - The Spleen bundle end to end: ``bundles/spleen_ct_segmentation/configs/inference.json``
   as it stands, through the port's bundle runner (``monai_tpu_torch.bundle.run``, then
-  ``python -m monai_tpu_torch.bundle run``), over 4 copies of the spleen path's CT with its
+  ``python -m monai_tpu_torch.bundle run``), over 2 copies of the spleen path's CT with its
   weights as the bundle's checkpoint: Dataset, DataLoader, SupervisedEvaluator with
   decollation, CheckpointLoader, the path above, and SaveImaged writing one label map a
   volume.
@@ -183,6 +183,16 @@ Drives the port's paths, each at full width with random weights from a seed:
      ``inference.json`` with the label map resampled onto the input's grid on write (kernel
      3), equal to the Invertd route's but at near ties; ``TestTimeAugmentation`` over a 96³
      ROI (kernel 1 at each forward, kernel 3 at each zoom and its inverse)
+  17. the rest of Auto3DSeg and the exports (``auto3dseg_more_phase``): ``ckpt_export`` of
+     BTCV's SwinUNETR (phase 10's checkpoint), the Auto3DSeg UNet template (phase 14's fold-0
+     bundle) and the bench UNet, each program with kernel 1, B2 and kernel 2 as torch
+     operators, against its module on a 96³ float32 input with the eager forward's launches,
+     timed beside it; kernels 1, B2 and 2 (head dim 8, float32) at the swinunetr template's
+     sites, then ``run.json`` with ``algos`` ["swinunetr"] and ``runner::hpo`` (each fold's
+     two trials and the best one's training, each iteration's launches 39, 20, 26, 26, 8, 8,
+     the ensemble's output, a 96³ window of a held-out phantom against the CPU);
+     ``SegSummarizer`` on the card against the CPU, ``EnsureSameShaped`` (kernel 3 once), an
+     epoch of ``SegAlgo``'s UNet
 
 It prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0; so it is without a CUDA device.
@@ -201,6 +211,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from collections import Counter
 from pathlib import Path
 
@@ -223,12 +234,12 @@ SPLEEN_BATCH, SPLEEN_WINDOWS = 4, 48
 SPLEEN_PER_VOLUME = (120, 0, 0, 2, 0)  # 12 forwards of 10 convs; Spacing and its inverse
 SPLEEN_TIMED = 5  # volumes timed end to end, after one warm-up
 CT_PATH = Path(__file__).resolve().parent / "build" / "spleen_ct" / "ct_512x512x90.nii.gz"
-# The Spleen bundle's own inference.json through the port's runner: 4 copies of the CT, at 0
+# The Spleen bundle's own inference.json through the port's runner: 2 copies of the CT, at 0
 # and 2 loader threads, the bundle root overridden and its imports and initialize naming the
 # port (as README gives them)
 BUNDLE_CONFIG = Path(__file__).resolve().parent / "bundles" / "spleen_ct_segmentation" / "configs" / "inference.json"
 BUNDLE_ROOT = Path(__file__).resolve().parent / "build" / "spleen_bundle"
-BUNDLE_VOLUMES, BUNDLE_WORKERS = 4, (0, 2)
+BUNDLE_VOLUMES, BUNDLE_WORKERS = 2, (0, 2)  # 2 copies: the label maps' gzip is the run's largest part
 BUNDLE_OVERRIDES = {"imports": ["$import os", "$import glob", "$from monai_tpu_torch.handlers import from_engine"],
                     "initialize": ["$import monai_tpu_torch", "$monai_tpu_torch.utils.set_determinism(seed=123)"]}
 # a voxel where a label map differs from another run's must be a near tie: its top-two
@@ -1778,7 +1789,7 @@ def _attention_bwd_inputs(g, site, dtype, masks, dev):
     return q, k, v, bias, mask, dout
 
 
-def check_attention_backward(masks: dict, dev) -> dict:
+def check_attention_backward(masks: dict, dev, sites: dict | None = None, checked=CHECKED) -> dict:
     """The backward kernel at each site of the BTCV step (head dim 16) and of the bench
     SwinUNETR (head dim 8), masked and unmasked, in float32, bfloat16 and float16: dq, dk,
     dv and dbias against the plain backward on the kernel forward's output, each at the
@@ -1791,7 +1802,9 @@ def check_attention_backward(masks: dict, dev) -> dict:
     dv, dbias written once; the five N^2 D products as 3xTF32 on the tensor cores (the
     kernel's arithmetic; the line gives its share of the bound, and the old bound at the
     float32 FMA pipe's 67 TFLOP/s); one exp a score at the card's exp rate. Returns the
-    kernels-line numbers of the step's (head dim 16) sites, summed over a step."""
+    kernels-line numbers of the step's (head dim 16) sites, summed over a step. Given
+    ``sites`` ({site: count a step}) and ``checked`` (the types and their gates), those
+    sites alone, and their numbers."""
     from monai_tpu_torch.ops.window_attention import (_forward, fused_window_attention_backward,
                                                       fused_window_attention_backward_plain,
                                                       window_attention_backward_plan)
@@ -1799,9 +1812,10 @@ def check_attention_backward(masks: dict, dev) -> dict:
     rate = exp_per_s()
     g = torch.Generator(device=dev).manual_seed(9)
     rows = []
-    sites = list(SWIN_ATTN_SITES.items()) + [((b, h, n, 8, nw), 0) for (b, h, n, _, nw) in SWIN_ATTN_SITES]
-    for site, count in sites:
-        for dtype, tol in CHECKED:
+    if sites is None:
+        sites = {**SWIN_ATTN_SITES, **{(b, h, n, 8, nw): 0 for (b, h, n, _, nw) in SWIN_ATTN_SITES}}
+    for site, count in sites.items():
+        for dtype, tol in checked:
             q, k, v, bias, mask, dout = _attention_bwd_inputs(g, site, dtype, masks, dev)
             out, lse = _forward(q, k, v, bias, mask, with_lse=True)
             got = fused_window_attention_backward(q, k, v, bias, mask, out, dout, lse)
@@ -1860,7 +1874,7 @@ def check_attention_backward(masks: dict, dev) -> dict:
     return _summary(rows)
 
 
-def check_attention_forward_f32(masks: dict, dev) -> dict:
+def check_attention_forward_f32(masks: dict, dev, sites: dict | None = None) -> dict:
     """The forward kernel's float32 tensor-core instance ("tf32x3", as the float32 step runs
     it) at each site of the BTCV step and at its head-dim-8 twins: the instance the plan
     names, the result against the plain version at the float32 gate, two calls bit for bit,
@@ -1869,7 +1883,8 @@ def check_attention_forward_f32(masks: dict, dev) -> dict:
     and mask once, the two N^2 D products as 3xTF32 on the tensor cores (the instance's
     arithmetic), one exp a score; beside it the old bound's products at the float32 FMA
     pipe's 67 TFLOP/s, which the instance no longer runs on. Returns the kernels-line
-    numbers of the step's (head dim 16) sites, summed over a step."""
+    numbers of the step's (head dim 16) sites, summed over a step; given ``sites`` ({site:
+    count a step}), those sites alone, and their numbers."""
     from monai_tpu_torch.ops.window_attention import (fused_window_attention, fused_window_attention_plain,
                                                       window_attention_plan)
 
@@ -1877,8 +1892,9 @@ def check_attention_forward_f32(masks: dict, dev) -> dict:
     exp_total = flop_total = fma_total = 0.0
     g = torch.Generator(device=dev).manual_seed(10)
     rows = []
-    sites = list(SWIN_ATTN_SITES.items()) + [((b, h, n, 8, nw), 0) for (b, h, n, _, nw) in SWIN_ATTN_SITES]
-    for (b, h, n, d, nw), count in sites:
+    if sites is None:
+        sites = {**SWIN_ATTN_SITES, **{(b, h, n, 8, nw): 0 for (b, h, n, _, nw) in SWIN_ATTN_SITES}}
+    for (b, h, n, d, nw), count in sites.items():
         q, k, v = (torch.randn((b, h, n, d), generator=g, device=dev) for _ in range(3))
         q *= d ** -0.5
         bias = torch.randn((h, n, n), generator=g, device=dev) * 0.5
@@ -2263,15 +2279,16 @@ TRAIN_MIN_COSINE = 0.999
 
 
 def check_conv_f32_sites(name: str, net, batch: int, dev, roi: tuple[int, ...] = ROI,
-                         norms: bool = False) -> tuple[dict, ...]:
+                         norms: bool = False, in_channels: int | None = None) -> tuple[dict, ...]:
     """Kernel 1's forward, dx and dw at each 3x3x3 site of ``net`` (a CPU network) at
     ``batch`` inputs of ``roi``, in float32 (``check_conv`` and ``check_conv_backward``);
     where ``norms``, also kernel B2's forward and backward at each instance-norm site
     (``check_norm`` and ``check_norm_backward``). Returns the kernels-line summaries, each
     summed over a step's sites (forward, dx, dw, and the norm's forward and backward where
-    ``norms``), and the conv sites (and the norm sites)."""
-    window = torch.rand((batch, net.in_channels, *roi), generator=torch.Generator(device=dev).manual_seed(1),
-                        device=dev)
+    ``norms``), and the conv sites (and the norm sites). ``in_channels`` is the input's
+    channels where the network does not say (``net.in_channels``)."""
+    channels = net.in_channels if in_channels is None else in_channels
+    window = torch.rand((batch, channels, *roi), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
     with torch.no_grad():
         sites, norm_sites, _, _ = record_sites(copy.deepcopy(net).to(dev).eval(), window)
     del window
@@ -3593,6 +3610,420 @@ def ship_phase(dev, tie: dict) -> tuple[dict, dict]:
     return dict(totals), times
 
 
+# Phase 17: the exports of the instance-norm and Swin nets (kernel 1, B2 and kernel 2 as
+# torch operators), Auto3DSeg's run.json with the swinunetr template and the search, and the
+# engine-side analysis, EnsureSameShaped and SegAlgo
+EXPORT_ROOT = BUILD / "export_nets"
+A3D_SWIN_ROOT = BUILD / "auto3dseg_swin_bundle"
+A3D_SWIN_PER_STEP = {"conv3d_3x3_same": 39, "conv3d_3x3_wgrad": 20, "instance_norm_prelu": 26,
+                     "instance_norm_prelu_backward": 26, "fused_window_attention": 8,
+                     "fused_window_attention_backward": 8}
+A3D_SWIN_TRAININGS = 3  # a bundle's: two trials of the default grid, then the best params' training
+SEGALGO_STEPS = 2  # one epoch of 4 phantoms at batch 2
+SUMMARIZED = 4  # phantoms through SegSummarizer on the card and on the CPU
+OPERATOR_NAMES = {"unet": {"conv3d_3x3_same", "instance_norm_prelu"},
+                  "swinunetr": {"conv3d_3x3_same", "instance_norm_prelu", "fused_window_attention"}}
+
+
+def export_check(name: str, kind: str, export_kwargs: dict, fresh_net, state: dict, dev) -> dict:
+    """``ckpt_export`` of a network and its program replayed by ``load_exported_network`` on
+    a 96^3 float32 input, against the module's eager forward (``fresh_net()`` on the card
+    with ``state``): within TOL_F32 of max|module|, kernel 1's, B2's and kernel 2's launches
+    equal to the eager forward's and to the per-forward counts of ``kind``, the program's
+    graph calling the operators of ``kind``. Timed: the export, the program's and the eager
+    forward (CUDA events, back to back). Returns the program's launches."""
+    from monai_tpu_torch.bundle import ckpt_export, load_exported_network
+
+    out = EXPORT_ROOT / name
+    t0 = time.perf_counter()
+    ckpt_export(filepath=str(out), input_shape=(1, 1, *ROI), **export_kwargs)
+    export_s = time.perf_counter() - t0
+    graph = torch.export.load(str(out / "model.pt2")).graph
+    called = {str(n.target).split(".")[1] for n in graph.nodes
+              if n.op == "call_function" and str(n.target).startswith("monai_tpu_torch.")}
+    program = load_exported_network(str(out / "model.pt2"))
+    module = fresh_net()
+    module.load_state_dict(state)
+    module.eval()
+    x = torch.rand((1, 1, *ROI), generator=torch.Generator(device=dev).manual_seed(17), device=dev)
+    with torch.inference_mode():
+        reset_launch_counts()
+        ref = module(x)
+        torch.cuda.synchronize()
+        eager = launch_counts()[:3]
+        reset_launch_counts()
+        y = program(x)
+        torch.cuda.synchronize()
+        counts = all_launch_counts()
+        launched = launch_counts()[:3]
+        program_ms, eager_ms = paired_ms(lambda: program(x), lambda: module(x), iters=5)
+    err = (y - ref).abs().max().item() / ref.abs().max().item()
+    want = (UNET_PER_FORWARD if kind == "unet" else SWIN_PER_FORWARD)[:3]
+    print(f"export {name}: ckpt_export {export_s:.1f} s; the program calls {sorted(called)}; on a 96^3 float32 input "
+          f"within {err:.3g} of max|module| (tol {TOL_F32}); launches (kernel 1, B2, kernel 2) program {launched}, "
+          f"eager {eager}; forward program {program_ms:.3f} ms, eager {eager_ms:.3f} ms (CUDA events, back to back)",
+          flush=True)
+    require(tuple(y.shape) == tuple(ref.shape) and err <= TOL_F32, f"export {name}: {err:.3g} off the module")
+    require(launched == eager == want, f"export {name}: the program launched {launched}, eager {eager}, not {want}")
+    require(called == OPERATOR_NAMES[kind], f"export {name}: the graph calls {sorted(called)}")
+    del program, module, x, y, ref
+    torch.cuda.empty_cache()
+    return counts
+
+
+def exports_part(dev) -> dict:
+    """Phase 17 (a): BTCV's SwinUNETR (feature size 48) from phase 10's checkpoint, the
+    Auto3DSeg UNet template from phase 14's best fold-0 member and the bench UNet (instance
+    norm, bfloat16 weights from seed 0 cast to float32), each through ``export_check``. A
+    checkpoint that is gone is written from seeded weights. Returns the programs' launches."""
+    from monai_tpu_torch.networks.nets import UNet
+
+    totals = Counter()
+    # BTCV: the bundle's own network_def, as phase 10 parsed it
+    btcv_root = BUILD / "btcv_bundle" / "run"
+    ckpt = btcv_root / "models" / "model_final.ckpt"
+    overrides = bundle_overrides(BTCV_CONFIG, btcv_root, BTCV_SYNTH_SIZE, 0, {"_target_": "torch.optim.AdamW"})
+    overrides = {k: overrides[k] for k in ("bundle_root", "imports", "initialize")}
+    from monai_tpu_torch.bundle import ConfigParser
+
+    def btcv_net():
+        parser = ConfigParser()
+        parser.read_config(str(BTCV_CONFIG))
+        parser.update(overrides)
+        return parser.get_parsed_content("network")
+
+    if not ckpt.is_file():
+        ckpt.parent.mkdir(parents=True, exist_ok=True)
+        torch.manual_seed(17)
+        torch.save({"model": btcv_net().state_dict()}, ckpt)
+    state = torch.load(ckpt, map_location=dev, weights_only=True)["model"]
+    totals.update(export_check("btcv_swinunetr", "swinunetr",
+                               {"net_id": "network", "ckpt_file": str(ckpt), "config_file": str(BTCV_CONFIG),
+                                **overrides}, btcv_net, state, dev))
+    # the Auto3DSeg UNet template, fold 0's generated bundle (generated here where it is gone)
+    bundle = BUILD / "auto3dseg_bundle" / "work_dir" / "unet_0"
+    if not (bundle / "configs" / "train.json").is_file():
+        from monai_tpu_torch.apps.auto3dseg import BundleAlgo
+
+        algo = BundleAlgo("unet")
+        algo.fill_template_config({}, roi_size=ROI)
+        algo.export_to_disk(str(EXPORT_ROOT), "auto3dseg_unet_0")
+        bundle = EXPORT_ROOT / "auto3dseg_unet_0"
+    config = bundle / "configs" / "train.json"
+    ckpt = bundle / "model" / "model_final.pt"
+
+    def template_net():
+        parser = ConfigParser()
+        parser.read_config(str(config))
+        return parser.get_parsed_content("network")
+
+    if not ckpt.is_file():
+        ckpt.parent.mkdir(parents=True, exist_ok=True)
+        torch.manual_seed(17)
+        torch.save({"model": template_net().state_dict()}, ckpt)
+    state = torch.load(ckpt, map_location=dev, weights_only=True)["model"]
+    totals.update(export_check("auto3dseg_unet", "unet", {"net_id": "network", "ckpt_file": str(ckpt),
+                                                          "config_file": str(config)}, template_net, state, dev))
+    # the bench UNet, from seeded bfloat16 weights cast to float32
+    spec = {"_target_": "UNet", "spatial_dims": 3, "in_channels": 1, "out_channels": 2,
+            "channels": [16, 32, 64, 128, 256], "strides": [2, 2, 2, 2], "num_res_units": 2}
+    bench = EXPORT_ROOT / "bench_unet"
+    bench.mkdir(parents=True, exist_ok=True)
+    (bench / "config.in.json").write_text(json.dumps({"network_def": spec}))
+    cpu = UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2), num_res_units=2,
+               generator=torch.Generator().manual_seed(0), device="cpu")
+    state = {k: v.to(torch.bfloat16).float() if v.is_floating_point() else v for k, v in cpu.state_dict().items()}
+    torch.save({"model": state}, bench / "model.in.pt")
+    totals.update(export_check("bench_unet", "unet", {"net_id": "network_def", "ckpt_file": str(bench / "model.in.pt"),
+                                                      "config_file": str(bench / "config.in.json")},
+                               lambda: UNet(3, 1, 2, channels=(16, 32, 64, 128, 256), strides=(2, 2, 2, 2),
+                                            num_res_units=2, device=dev), state, dev))
+    return dict(totals)
+
+
+def swin_template_part(dev) -> tuple[dict, dict, dict]:
+    """Phase 17 (b): run.json through ``bundle.run`` with phase 14's overrides, ``algos``
+    ["swinunetr"] and ``runner::hpo`` on (num_fold 2, the file's training_params), after
+    kernel 1's forward, dx and dw, B2 and B2-bwd, and kernel 2 and 2-bwd (head dim 8, the
+    "tf32x3" forward) at the template's float32 sites at batch 4 of 96^3 against their plain
+    versions. Checked: each bundle's ``hpo_trials.json`` of two finite trials and its final
+    training at the best one's params, every loss finite, every crop batch float32 on the
+    card of a shape of AUTO3DSEG_BATCHES, each iteration's launches (A3D_SWIN_PER_STEP), each
+    checkpoint against its trained network, the ensemble's output of each held-out phantom
+    on the card, and one 96^3 window of the first through fold 0's member on the card
+    against the CPU. Returns the run's launches, the kernels' summaries, and the phantoms."""
+    from monai_tpu_torch.apps.auto3dseg import BundleAlgo
+    from monai_tpu_torch.apps.datasets import make_synthetic_datalist
+    from monai_tpu_torch.bundle import ConfigParser, run
+    from monai_tpu_torch.engines import Events, SupervisedTrainer, Workflow
+    from monai_tpu_torch.networks.nets import SwinUNETR
+    from monai_tpu_torch.transforms import Compose, EnsureChannelFirstd, LoadImaged, Orientationd
+    from monai_tpu_torch.utils import AlgoKeys
+
+    cpu_net = SwinUNETR(1, 2, feature_size=24, generator=torch.Generator().manual_seed(0), device="cpu")
+    window = torch.rand((4, 1, *ROI), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    with torch.no_grad():
+        _, _, attn_sites, masks = record_sites(copy.deepcopy(cpu_net).to(dev).eval(), window)
+    del window
+    print("auto3dseg swinunetr attention sites at batch 4 of 96^3: " + ", ".join(
+        f"windows {b} heads {h} N {n} D {d} mask rows {nw} x{c}" for (b, h, n, d, nw), c in attn_sites.items()),
+        flush=True)
+    require(sum(attn_sites.values()) == 8 and all(d == 8 for (_, _, _, d, _) in attn_sites),
+            f"auto3dseg swinunetr: attention sites {dict(attn_sites)}, not 8 of head dim 8")
+    forward, dx, dw, norm, norm_bwd, sites, norm_sites = check_conv_f32_sites("auto3dseg swinunetr", cpu_net, 4, dev,
+                                                                              norms=True, in_channels=1)
+    require(sum(sites.values()) == 20 and sum(norm_sites.values()) == 26,
+            f"auto3dseg swinunetr: {sum(sites.values())} conv and {sum(norm_sites.values())} norm sites, not 20, 26")
+    attention = check_attention_forward_f32(masks, dev, dict(attn_sites))
+    attention_bwd = check_attention_backward(masks, dev, dict(attn_sites), ((torch.float32, TOL_F32),))
+    kernels = {"forward": forward, "dx": dx, "dw": dw, "norm": norm, "norm_backward": norm_bwd,
+               "attention_forward": attention, "attention_backward": attention_bwd}
+    del cpu_net, masks
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(A3D_SWIN_ROOT, ignore_errors=True)
+    overrides = {**auto3dseg_overrides(A3D_SWIN_ROOT), "algos": ["swinunetr"], "runner::hpo": True}
+    data_dir = os.environ.get("MONAI_DATA_DIRECTORY", str(A3D_SWIN_ROOT / "data")) + "/Auto3dSegCT_synth"
+    synth = make_synthetic_datalist(data_dir, num_images=8, spatial_size=AUTO3DSEG_SYNTH_SIZE)
+
+    iterations, calls, trained, stamps = [], [], {}, []
+    fire, train = Workflow.fire_event, BundleAlgo.train
+
+    def recorded_fire(engine, event):
+        if isinstance(engine, SupervisedTrainer):
+            if str(event) == str(Events.ITERATION_STARTED):
+                image = engine.state.batch["image"]
+                data = image.data if hasattr(image, "data") else image
+                iterations.append({"training": len(calls) - 1, "crop": (tuple(data.shape), data.dtype,
+                                                                          data.device.type)})
+                counter.start()
+            elif str(event) == str(Events.ITERATION_COMPLETED):
+                iterations[-1]["launches"] = counter.stop()
+                iterations[-1]["loss"] = engine.state.output["loss"].item()
+        return fire(engine, event)
+
+    def recorded_train(algo, train_params=None, *args, **kwargs):
+        calls.append((algo.name, dict(train_params or {})))
+        t1 = time.perf_counter()
+        out = train(algo, train_params, *args, **kwargs)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter() - t1)
+        trained[algo.name] = (algo, algo._trained_network)  # the last: the best params' training
+        return out
+
+    Workflow.fire_event, BundleAlgo.train = recorded_fire, recorded_train
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with counted_iterations() as counter, cudnn_kept():
+            ensemble = run(config_file=str(AUTO3DSEG_CONFIG), **overrides)[0]
+            torch.cuda.synchronize()
+    finally:
+        Workflow.fire_event, BundleAlgo.train = fire, train
+    total_s = time.perf_counter() - t0
+    counts = all_launch_counts()
+    work = A3D_SWIN_ROOT / "work_dir"
+
+    names = [f"swinunetr_{f}" for f in range(2)]
+    require(sorted(trained) == names and len(calls) == 2 * A3D_SWIN_TRAININGS,
+            f"auto3dseg swinunetr: trainings {calls}")
+    lines = []
+    for n in names:
+        trials = json.loads((work / n / "hpo_trials.json").read_text())
+        require(len(trials) == 2 and all(np.isfinite(t["score"]) for t in trials),
+                f"auto3dseg swinunetr {n}: trials {trials}")
+        best = max(trials, key=lambda t: t["score"])["params"]
+        mine = [p for a, p in calls if a == n]
+        require(len(mine) == A3D_SWIN_TRAININGS and mine[-1] == best,
+                f"auto3dseg swinunetr {n}: trained with {mine}, the best trial's params {best}")
+        lines.append(f"{n}: trials " + ", ".join(f"lr {t['params']['lr']:g} score {t['score']:.6f}" for t in trials)
+                     + f", final training at lr {best['lr']:g}, score {trained[n][0].get_score():.6f}")
+    for i, it in enumerate(iterations):
+        shape, dtype, where = it["crop"]
+        require(shape in AUTO3DSEG_BATCHES and dtype == torch.float32 and where == dev.type,
+                f"auto3dseg swinunetr iteration {i + 1}: a crop batch {shape} {dtype} on {where}")
+        require(np.isfinite(it["loss"]), f"auto3dseg swinunetr iteration {i + 1}: loss {it['loss']}")
+        require(all(it["launches"][k] == v for k, v in A3D_SWIN_PER_STEP.items()),
+                f"auto3dseg swinunetr iteration {i + 1} launched {it['launches']}, not {A3D_SWIN_PER_STEP}")
+    require(len(iterations) == 2 * A3D_SWIN_TRAININGS * AUTO3DSEG_STEPS,
+            f"auto3dseg swinunetr: {len(iterations)} iterations")
+    step = {k: v for k, v in iterations[-1]["launches"].items() if v}
+    for n, (algo, network) in trained.items():
+        parser = ConfigParser()
+        parser.read_config(str(work / n / "configs" / "train.json"))
+        parser["network::device"] = "cpu"
+        fresh = parser.get_parsed_content("network")
+        fresh.load_state_dict(torch.load(work / n / "model" / "model_final.pt", map_location="cpu",
+                                         weights_only=True)["model"])
+        state = network.state_dict()
+        require(all(torch.equal(v, state[k].cpu()) for k, v in fresh.state_dict().items()),
+                f"auto3dseg swinunetr {n}: the checkpoint is not the trained network")
+    del trained
+
+    outs, volume_s = [], []
+    for item in synth["validation"]:
+        t1 = time.perf_counter()
+        out = ensemble({"infer_files": [item]})[0]
+        torch.cuda.synchronize()
+        volume_s.append(time.perf_counter() - t1)
+        out = out.data if hasattr(out, "data") else out
+        require(tuple(out.shape) == (1, 2, *AUTO3DSEG_SYNTH_SIZE) and out.device.type == dev.type
+                and bool(torch.isfinite(out).all()), f"auto3dseg swinunetr: an ensemble output {tuple(out.shape)}")
+        outs.append(out)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    # one 96^3 window of the first held-out phantom, about its label's centre, through fold
+    # 0's member on the card and on the CPU
+    member = ensemble.collect_algos()[0]
+    network = member[AlgoKeys.ALGO]._network().eval()
+    load = Compose([LoadImaged(keys=["image", "label"], device="cpu"),
+                    EnsureChannelFirstd(keys=["image", "label"], channel_dim="no_channel"),
+                    Orientationd(keys=["image", "label"], axcodes="RAS")])
+    case = load(dict(synth["validation"][0]))
+    fg = case["label"].data[0].nonzero().float().mean(0).round().long().tolist()
+    starts = [min(max(c - r // 2, 0), s - r) for c, r, s in zip(fg, ROI, AUTO3DSEG_SYNTH_SIZE)]
+    crop = case["image"].data[(None, slice(None), *(slice(a, a + r) for a, r in zip(starts, ROI)))].contiguous()
+    cpu_copy = copy.deepcopy(network).cpu()
+    with torch.no_grad():
+        on_card = network(crop.to(dev)).cpu()
+        t1 = time.perf_counter()
+        ref = cpu_copy(crop)
+        cpu_s = time.perf_counter() - t1
+    err = (on_card - ref).abs().max().item() / ref.std().item()
+    print(f"auto3dseg run.json with the swinunetr template and the search (runner::hpo; synth_datalist at "
+          f"{AUTO3DSEG_SYNTH_SIZE}): the whole run {total_s:.1f} s; trainings "
+          + ", ".join(f"{a} {p} {s:.1f} s" for (a, p), s in zip(calls, stamps)) + "; " + "; ".join(lines)
+          + f"; {len(iterations)} iterations, losses " + ", ".join(f"{it['loss']:.4f}" for it in iterations)
+          + f"; launches an iteration {step}; the ensemble ({', '.join(m[AlgoKeys.ID] for m in ensemble.collect_algos())}) "
+          f"{', '.join(f'{t:.2f}' for t in volume_s)} s a volume; peak memory {peak_gb:.2f} GB; launches {counts}; a "
+          f"96^3 window at {starts} through {member[AlgoKeys.ID]} on the card within {err:.3g} std of the CPU's "
+          f"({cpu_s:.1f} s there; tol {TOL_ENSEMBLE})", flush=True)
+    require(err <= TOL_ENSEMBLE, "auto3dseg swinunetr: the member's window on the card disagrees with the CPU's")
+    del ensemble, outs, network, cpu_copy
+    torch.cuda.empty_cache()
+    return counts, kernels, synth
+
+
+def analysis_part(dev, synth: dict, stats_file: Path) -> dict:
+    """Phase 17 (c): ``SegSummarizer`` (connected components, a 50-bin histogram) over
+    SUMMARIZED phantoms loaded on the card, its cases' and summary's report against the same
+    on the CPU (intensities within TOL_STATS relative, the rest exactly); ``EnsureSameShaped``
+    on a label 3 voxels short on its last axis (bit for bit the CPU's, kernel 3 once); one
+    epoch of ``SegAlgo``'s UNet over 4 phantoms (every loss finite, each step's launches
+    those of phase 14's UNet template, ``result.json``). Returns the launches."""
+    from monai_tpu_torch.apps.auto3dseg import EnsureSameShaped, SegAlgo
+    from monai_tpu_torch.auto3dseg import SegSummarizer
+    from monai_tpu_torch.transforms import Compose, EnsureChannelFirstd, LoadImaged
+
+    keys = ["image", "label"]
+    items = synth["training"][:SUMMARIZED]
+    reports, times = {}, {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        load = Compose([LoadImaged(keys=keys, device=where), EnsureChannelFirstd(keys=keys, channel_dim="no_channel")])
+        summarizer = SegSummarizer("image", "label", do_ccp=True, hist_bins=50, hist_range=[0.0, 1.0])
+        t0 = time.perf_counter()
+        cases = [summarizer(load(dict(item))) for item in items]
+        cases = [{str(k): v for k, v in c.items() if k not in keys} for c in cases]
+        reports[side] = {"cases": cases, "summary": summarizer.summarize(cases)}
+        times[side] = time.perf_counter() - t0
+    diff = _same_stats(reports["card"], reports["cpu"])
+    require(diff is None, f"SegSummarizer: the card's report differs from the CPU's at {diff}")
+    labels = reports["card"]["summary"]["label_stats"]["labels"]
+
+    # EnsureSameShaped: the label 3 voxels short on its last axis
+    load = Compose([LoadImaged(keys=keys, device=dev), EnsureChannelFirstd(keys=keys, channel_dim="no_channel")])
+    case = load(dict(items[0]))
+    case["label"] = case["label"].new_like(case["label"].data[..., :-3].contiguous())
+    short = tuple(case["label"].shape)
+    cpu_case = {k: case[k].new_like(case[k].data.cpu()) for k in keys}
+    reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fixed = EnsureSameShaped()(case)
+        torch.cuda.synchronize()
+        resample = all_launch_counts()["separable_resample_3d"]
+        counts = Counter(all_launch_counts())
+        cpu_fixed = EnsureSameShaped()(cpu_case)
+    same = torch.equal(fixed["label"].data.cpu(), cpu_fixed["label"].data)
+    require(tuple(fixed["label"].shape) == tuple(case["image"].shape) and same and resample == 1
+            and any("resized" in str(w.message) for w in caught),
+            f"EnsureSameShaped: {short} -> {tuple(fixed['label'].shape)}, equal to the CPU's {same}, kernel 3 "
+            f"launched {resample} times")
+
+    # SegAlgo: one epoch of its UNet over 4 phantoms, each step's launches
+    from monai_tpu_torch.utils.misc import set_determinism
+
+    set_determinism(seed=0)
+    algo = SegAlgo("unet_0", "unet", str(BUILD / "segalgo"), datalist=items, roi_size=ROI)
+    algo.set_data_stats(str(stats_file))
+    steps, build = [], SegAlgo.build_network
+
+    def step_started(module, args) -> None:
+        steps.append((tuple(args[0].shape), args[0].dtype, args[0].device.type))
+        counter.start()
+
+    def step_ended(*args) -> None:  # the optimizer's step: the forward and backward are done
+        counter.stop()
+
+    def counted_build(self):
+        net = build(self)
+        net.register_forward_pre_hook(step_started)
+        return net
+
+    SegAlgo.build_network = counted_build
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    handle = register_optimizer_step_pre_hook(step_ended)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with counted_iterations() as counter, cudnn_kept():
+            result = algo.train({"max_epochs": 1, "batch_size": 2})
+            torch.cuda.synchronize()
+    finally:
+        SegAlgo.build_network = build
+        handle.remove()
+    segalgo_s = time.perf_counter() - t0
+    counts.update(all_launch_counts())
+    per_step = AUTO3DSEG_PER_STEP["unet"]
+    require(len(steps) == len(counter.iterations) == SEGALGO_STEPS and all(s == ((4, 1, *ROI), torch.float32, dev.type)
+                                                                           for s in steps),
+            f"SegAlgo: steps {steps}")
+    require(all(np.isfinite(v) for v in result["loss_history"]) and len(result["loss_history"]) == SEGALGO_STEPS,
+            f"SegAlgo: losses {result['loss_history']}")
+    require(all(it[k] == v for it in counter.iterations for k, v in per_step.items()),
+            f"SegAlgo: launches {counter.iterations}, not {per_step} a step")
+    require(json.loads((BUILD / "segalgo" / "result.json").read_text())["best_metric"] == -result["loss_history"][-1],
+            "SegAlgo: result.json")
+    print(f"SegSummarizer over {len(items)} phantoms of {AUTO3DSEG_SYNTH_SIZE} (connected components, 50 bins): on the "
+          f"card {times['card']:.2f} s, on the CPU {times['cpu']:.2f} s, the reports equal (intensities within "
+          f"{TOL_STATS} relative), labels {labels}; EnsureSameShaped {short} -> {tuple(fixed['label'].shape)}, bit "
+          f"for bit the CPU's, kernel 3 launched {resample} time(s); SegAlgo's UNet one epoch over 4 phantoms "
+          f"{segalgo_s:.1f} s, losses {', '.join(f'{v:.4f}' for v in result['loss_history'])}, launches a step "
+          f"{ {k: v for k, v in counter.iterations[-1].items() if v} }", flush=True)
+    return dict(counts)
+
+
+def auto3dseg_more_phase(dev) -> tuple[dict, dict]:
+    """Phase 17, in its three parts (``exports_part``, ``swin_template_part``,
+    ``analysis_part``), each timed. Returns the main paths' launches (the programs', the
+    run's, EnsureSameShaped's and SegAlgo's, not the checks against the plain versions) and
+    the swinunetr template's kernel summaries."""
+    require(not torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark,
+            f"phase 17: an earlier phase left {cudnn_settings()}")
+    t0 = time.perf_counter()
+    totals = Counter(exports_part(dev))
+    t1 = time.perf_counter()
+    run_counts, kernels, synth = swin_template_part(dev)
+    totals.update(run_counts)
+    t2 = time.perf_counter()
+    totals.update(analysis_part(dev, synth, A3D_SWIN_ROOT / "work_dir" / "datastats.json"))
+    t3 = time.perf_counter()
+    print(f"phase 17: {t3 - t0:.1f} s (exports {t1 - t0:.1f}, swinunetr template and the search {t2 - t1:.1f}, "
+          f"analysis, EnsureSameShaped and SegAlgo {t3 - t2:.1f})", flush=True)
+    return dict(totals), kernels
+
+
 def inference_phases(dev) -> tuple:
     """Phases 2 to 6, under ``torch.inference_mode()``: the forward kernels at the inference paths'
     shapes, the sliding windows, the forwards against the CPU, the Spleen path and the filtering
@@ -3721,6 +4152,10 @@ def main() -> None:
     ship_counts, _ = ship_phase(dev, tie)
     del tie
 
+    # 17. the instance-norm and Swin nets exported; run.json with the swinunetr template and
+    # the search; SegSummarizer, EnsureSameShaped and SegAlgo
+    more_counts, swin_template = auto3dseg_more_phase(dev)
+
     def f32_sites(summary: dict) -> dict:
         """A kernel's numbers summed over a float32 step's sites, for the kernels line."""
         return {key: v for key, v in summary.items() if key not in ("bytes_ms", "ops_ms", "bound_side")}
@@ -3732,23 +4167,26 @@ def main() -> None:
         {"name": "conv3d_3x3_wgrad", "route": "cuda", "source": "monai_tpu_torch/csrc/conv3d_3x3_wgrad.cu",
          "replaces": "monai_tpu/ops/pallas_conv3d.py:200",
          "launches": train_counts["conv3d_3x3_wgrad"] + trained["conv3d_3x3_wgrad"] + conv_trained["conv3d_3x3_wgrad"]
-         + new_f32["conv3d_3x3_wgrad"] + ship_counts["conv3d_3x3_wgrad"],
+         + new_f32["conv3d_3x3_wgrad"] + ship_counts["conv3d_3x3_wgrad"] + more_counts["conv3d_3x3_wgrad"],
          **train["dw"], "swin_train_float32": f32_sites(swin["dw"]), "segresnet_train_float32": f32_sites(brats["dw"]),
          "spleen_train_float32": f32_sites(spleen_train["dw"]),
          "auto3dseg_unet_train_float32": f32_sites(auto3dseg["unet"]["dw"]),
          "auto3dseg_segresnet_train_float32": f32_sites(auto3dseg["segresnet"]["dw"]),
-         "dynunet_train_float32": f32_sites(dynunet["dw"])},
+         "dynunet_train_float32": f32_sites(dynunet["dw"]),
+         "auto3dseg_swinunetr_train_float32": f32_sites(swin_template["dw"])},
         {"name": "instance_norm_prelu_backward", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
          "replaces": "monai_tpu/networks/layers/fast_norm.py:74",
          "launches": train_counts["instance_norm_prelu_backward"] + trained["instance_norm_prelu_backward"]
-         + new_f32["instance_norm_prelu_backward"],
+         + new_f32["instance_norm_prelu_backward"] + more_counts["instance_norm_prelu_backward"],
          **train["norm_backward"], "swin_train_float32": f32_sites(swin["norm_backward"]),
          "auto3dseg_unet_train_float32": f32_sites(auto3dseg["unet"]["norm_backward"]),
-         "dynunet_train_float32": f32_sites(dynunet["norm_backward"])},
+         "dynunet_train_float32": f32_sites(dynunet["norm_backward"]),
+         "auto3dseg_swinunetr_train_float32": f32_sites(swin_template["norm_backward"])},
         {"name": "fused_window_attention_backward", "route": "cuda",
          "source": "monai_tpu_torch/csrc/window_attention_bwd.cu",
          "replaces": "monai_tpu/ops/pallas_window_attention.py:159",
-         "launches": trained["fused_window_attention_backward"], **attn_bwd},
+         "launches": trained["fused_window_attention_backward"] + more_counts["fused_window_attention_backward"],
+         **attn_bwd, "auto3dseg_swinunetr_train_float32": f32_sites(swin_template["attention_backward"])},
     ]
 
     def line(s: dict) -> str:
@@ -3764,7 +4202,9 @@ def main() -> None:
         + "; float32 auto3dseg unet batch 4 " + "; ".join(f"{k} {line(auto3dseg['unet'][k])}" for k in auto3dseg["unet"])
         + "; float32 auto3dseg segresnet batch 4 " + "; ".join(f"{k} {line(auto3dseg['segresnet'][k])}"
                                                            for k in auto3dseg["segresnet"])
-        + "; float32 dynunet batch 2 of 128^3 " + "; ".join(f"{k} {line(dynunet[k])}" for k in dynunet), flush=True)
+        + "; float32 dynunet batch 2 of 128^3 " + "; ".join(f"{k} {line(dynunet[k])}" for k in dynunet)
+        + "; float32 auto3dseg swinunetr batch 4 " + "; ".join(f"{k} {line(swin_template[k])}" for k in swin_template),
+        flush=True)
 
     def merged(i: int) -> dict:
         """The per-forward sums of kernel i over the UNet and SwinUNETR paths (bfloat16)."""
@@ -3780,28 +4220,31 @@ def main() -> None:
          "replaces": "monai_tpu/ops/pallas_conv3d.py:91",
          "launches": unet_counts[0] + swin_sw_counts[0] + spleen_counts[0] + train_counts["conv3d_3x3_same"]
          + bundle_counts[0] + trained["conv3d_3x3_same"] + conv_trained["conv3d_3x3_same"]
-         + new_f32["conv3d_3x3_same"] + ship_counts["conv3d_3x3_same"],
+         + new_f32["conv3d_3x3_same"] + ship_counts["conv3d_3x3_same"] + more_counts["conv3d_3x3_same"],
          **merged(0), "swin_train_float32_dx": f32_sites(swin["dx"]),
          "segresnet_train_float32": f32_sites(brats["forward"]), "segresnet_train_float32_dx": f32_sites(brats["dx"]),
          "spleen_train_float32": f32_sites(spleen_train["forward"]),
          "spleen_train_float32_dx": f32_sites(spleen_train["dx"]),
          **{f"{name}_train_float32{suffix}": f32_sites(summary[k])
             for name, summary in (("auto3dseg_unet", auto3dseg["unet"]), ("auto3dseg_segresnet", auto3dseg["segresnet"]),
-                                  ("dynunet", dynunet)) for k, suffix in (("forward", ""), ("dx", "_dx"))}},
+                                  ("dynunet", dynunet), ("auto3dseg_swinunetr", swin_template))
+            for k, suffix in (("forward", ""), ("dx", "_dx"))}},
         {"name": "instance_norm_prelu", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
          "replaces": "monai_tpu/networks/layers/fast_norm.py:44",
          "launches": unet_counts[1] + swin_sw_counts[1] + train_counts["instance_norm_prelu"]
-         + trained["instance_norm_prelu"] + new_f32["instance_norm_prelu"], **merged(1),
-         "auto3dseg_unet_train_float32": f32_sites(auto3dseg["unet"]["norm"]),
-         "dynunet_train_float32": f32_sites(dynunet["norm"])},
+         + trained["instance_norm_prelu"] + new_f32["instance_norm_prelu"] + more_counts["instance_norm_prelu"],
+         **merged(1), "auto3dseg_unet_train_float32": f32_sites(auto3dseg["unet"]["norm"]),
+         "dynunet_train_float32": f32_sites(dynunet["norm"]),
+         "auto3dseg_swinunetr_train_float32": f32_sites(swin_template["norm"])},
         {"name": "fused_window_attention", "route": "cuda", "source": "monai_tpu_torch/csrc/window_attention.cu",
          "replaces": "monai_tpu/ops/pallas_window_attention.py:106",
-         "launches": swin_sw_counts[2] + trained["fused_window_attention"], **summaries["swinunetr"][2],
-         "swin_train_float32": f32_sites(swin["attention_forward"])},
+         "launches": swin_sw_counts[2] + trained["fused_window_attention"] + more_counts["fused_window_attention"],
+         **summaries["swinunetr"][2], "swin_train_float32": f32_sites(swin["attention_forward"]),
+         "auto3dseg_swinunetr_train_float32": f32_sites(swin_template["attention_forward"])},
         {"name": "separable_resample_3d", "route": "cuda", "source": "monai_tpu_torch/csrc/separable_resample_3d.cu",
          "replaces": "monai_tpu/ops/pallas_resample.py:117",
          "launches": spleen_counts[3] + bundle_counts[3] + mednist_zoom["launches"]
-         + ship_counts["separable_resample_3d"], **spleen["resample"],
+         + ship_counts["separable_resample_3d"] + more_counts["separable_resample_3d"], **spleen["resample"],
          "mednist_zoom_2d": f32_sites(mednist_zoom)},
         {"name": "bilateral_filter_2d", "route": "cuda", "source": "monai_tpu_torch/csrc/bilateral_filter.cu",
          "replaces": "monai_tpu/ops/pallas_filtering.py:99", **filtering["B"]},

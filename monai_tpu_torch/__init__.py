@@ -17,8 +17,15 @@ __all__ = ["bundle", "data", "engines", "handlers", "inferers", "losses", "metri
 _SUBMODULES = set(__all__)
 
 
+# The kernels' torch operators (``torch.ops.monai_tpu_torch.conv3d_3x3_same``,
+# ``instance_norm_prelu`` and ``fused_window_attention``), which a ``torch.export`` program of
+# the port's networks calls (``bundle.ckpt_export``): importing the package registers them.
+from .networks.layers import fast_norm as _fast_norm  # noqa: E402,F401
+from .ops import conv3d as _conv3d, window_attention as _window_attention  # noqa: E402,F401
+
+
 def __getattr__(name: str):
-    """Lazy subpackage import — keeps `import monai_tpu_torch` cheap."""
+    """Lazy import of the subpackages (the operators' modules above are imported at once)."""
     if name in _SUBMODULES:
         mod = importlib.import_module(f"{__name__}.{name}")
         setattr(sys.modules[__name__], name, mod)

@@ -19,26 +19,14 @@ from typing import Any
 import numpy as np
 import torch
 
+from ...auto3dseg.operations import percentiles as _percentiles
 from ...data.affine_utils import affine_to_spacing
 from ...transforms.compose import Compose
 from ...transforms.dictionary import EnsureChannelFirstd, LoadImaged, Orientationd
 from ...utils.backend import resolve_device
+from ...utils.enums import StrEnum
 
-__all__ = ["DataAnalyzer"]
-
-
-def _percentiles(values: torch.Tensor, qs: tuple[float, ...]) -> list[float]:
-    """numpy's ``percentile(values, q)`` ("linear") for each q, from one sort."""
-    s = torch.sort(values.reshape(-1)).values
-    n = s.numel()
-    out = []
-    for q in qs:
-        pos = q / 100.0 * (n - 1)
-        lo = int(np.floor(pos))
-        hi = min(lo + 1, n - 1)
-        a, b = s[lo].item(), s[hi].item()
-        out.append(float(a + (b - a) * (pos - lo)))
-    return out
+__all__ = ["DataAnalyzer", "strenum_representer"]
 
 
 def _intensity(values: torch.Tensor) -> dict:
@@ -151,3 +139,18 @@ class DataAnalyzer:
             all_labels = sorted({v for s in label_sets for v in s})
             summary["label_stats"] = {"labels": all_labels, "n_classes": len(all_labels)}
         return summary
+
+
+def strenum_representer(dumper, data):
+    """A yaml representer writing a ``StrEnum`` member as its plain string; registered on
+    ``yaml.SafeDumper`` when this module is imported, so that reports keyed by
+    ``DataStatsKeys`` and the like dump with ``yaml.safe_dump``."""
+    return dumper.represent_scalar("tag:yaml.org,2002:str", data.value)
+
+
+try:
+    import yaml
+
+    yaml.SafeDumper.add_multi_representer(StrEnum, strenum_representer)
+except ImportError:  # no yaml: nothing to register on
+    pass

@@ -1,7 +1,10 @@
 """AutoRunner (counterpart of monai_tpu/apps/auto3dseg/auto_runner.py): analyze the data,
 generate one bundle a template and fold, train each in this process, and ensemble the
-best of each fold. The hyperparameter search (``hpo=True``, the JAX package's
-``hpo_gen``) is not ported and raises (ROADMAP A7)."""
+best of each fold. With ``hpo=True`` each bundle's training is a search first: a
+``GridHPOGen`` over ``set_hpo_params``'s space (default ``{"lr": [1e-3, 1e-4]}``) trains a
+copy of the bundle at each point, writes ``hpo_trials.json`` into the bundle's folder, and
+the bundle is then trained with the best point's params. ``hpo_backend`` is taken for the
+signature: the search is local, whatever it names."""
 from __future__ import annotations
 
 import json
@@ -11,10 +14,9 @@ from ...utils.enums import AlgoKeys
 from .analyzer import DataAnalyzer
 from .bundle_gen import BundleGen
 from .ensemble_builder import AlgoEnsembleBestByFold, AlgoEnsembleBestN, EnsembleBuilder
+from .hpo_gen import GridHPOGen
 
 __all__ = ["AutoRunner"]
-
-_NO_HPO = "AutoRunner's hyperparameter search (hpo=True, hpo_gen) is not ported (ROADMAP A7)"
 
 
 class AutoRunner:
@@ -27,8 +29,6 @@ class AutoRunner:
                  train: bool | None = None, hpo: bool = False, hpo_backend: str = "nni", ensemble: bool = True,
                  not_use_cache: bool = False, templates_path_or_url: str | None = None, allow_skip: bool = True,
                  device=None, **kwargs):
-        if hpo:
-            raise NotImplementedError(_NO_HPO)
         self.work_dir = os.path.abspath(work_dir)
         os.makedirs(self.work_dir, exist_ok=True)
         if isinstance(input, str):
@@ -47,6 +47,7 @@ class AutoRunner:
         self.ensemble_flag = ensemble
         self.num_fold = kwargs.get("num_fold", 2)
         self.hpo = hpo
+        self.hpo_params: dict | None = None
         self.device = device
         self.train_params: dict = {}
         self.history: list[dict] = []
@@ -63,7 +64,9 @@ class AutoRunner:
         return self
 
     def set_hpo_params(self, params: dict) -> AutoRunner:
-        raise NotImplementedError(_NO_HPO)
+        """The search space of ``hpo=True``: ``{param: [values, ...]}``."""
+        self.hpo_params = dict(params)
+        return self
 
     def set_ensemble_method(self, ensemble_method_name: str = "AlgoEnsembleBestByFold", **kwargs) -> AutoRunner:
         self.ensemble_method_name = ensemble_method_name
@@ -87,8 +90,6 @@ class AutoRunner:
     def run(self):
         """Analyze, generate, train each bundle, ensemble; returns the ensemble (the
         history where ``ensemble`` is off)."""
-        if self.hpo:
-            raise NotImplementedError(_NO_HPO)
         if self.analyze:
             analyzer = DataAnalyzer(self.input_cfg.get("datalist"), self.input_cfg.get("dataroot", ""),
                                     output_path=self.datastats_filename, fmt="json", device=self.device)
@@ -109,7 +110,12 @@ class AutoRunner:
             overrides = {k: v for k, v in self.train_params.items() if k in ("max_epochs", "lr", "batch_size")}
             for record in self.history:
                 algo = record[AlgoKeys.ALGO]
-                algo.train(overrides)
+                if self.hpo:
+                    search = GridHPOGen(algo=algo, search_space=self.hpo_params or {"lr": [1e-3, 1e-4]})
+                    best_params, _, _ = search.run(output_folder=algo.get_output_path() or self.work_dir)
+                    algo.train({**overrides, **best_params})
+                else:
+                    algo.train(overrides)
                 record[AlgoKeys.IS_TRAINED] = True
                 record[AlgoKeys.SCORE] = algo.get_score()
 

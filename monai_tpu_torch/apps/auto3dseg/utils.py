@@ -1,36 +1,17 @@
 """Auto3DSeg's history on disk (counterpart of monai_tpu/apps/auto3dseg/utils.py): each
-algorithm pickled into its folder with its score, and the history read back from those
-pickles."""
+algorithm pickled into its folder with its score (``auto3dseg.utils.algo_to_pickle``), and
+the history read back from those pickles."""
 from __future__ import annotations
 
 import os
-import pickle
 
+from ...auto3dseg.utils import algo_from_pickle, algo_to_pickle
 from ...utils.enums import AlgoKeys
 
 __all__ = ["algo_to_pickle", "algo_from_pickle", "export_bundle_algo_history", "import_bundle_algo_history",
            "get_name_from_algo_id"]
 
 _PKL_NAME = "algo_object.pkl"
-
-
-def algo_to_pickle(algo, template_path: str | None = None, **algo_meta_data) -> str:
-    """Pickle ``algo`` and ``algo_meta_data`` into ``<its output path>/algo_object.pkl``;
-    returns the file's path."""
-    out = algo.get_output_path()
-    os.makedirs(out, exist_ok=True)
-    pkl_filename = os.path.join(out, _PKL_NAME)
-    data = {"algo_bytes": pickle.dumps(algo), "template_path": template_path, **algo_meta_data}
-    with open(pkl_filename, "wb") as f:
-        pickle.dump(data, f)
-    return pkl_filename
-
-
-def algo_from_pickle(pkl_filename: str, template_path: str | None = None):
-    """The algo of ``algo_to_pickle``'s file, and its metadata dict."""
-    with open(pkl_filename, "rb") as f:
-        data = pickle.load(f)
-    return pickle.loads(data.pop("algo_bytes")), data
 
 
 def export_bundle_algo_history(history: list[dict]) -> None:

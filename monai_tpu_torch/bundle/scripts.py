@@ -6,10 +6,13 @@
 ``ckpt_export`` writes what the JAX package's does, in torch's forms: the weights (a torch
 file, ``{"model": state_dict}``, where the JAX package writes an orbax directory), the
 config as JSON, and the network's forward as a ``torch.export`` program where the JAX
-package writes StableHLO. The program calls the port's kernels as torch operators
-(``torch.ops.monai_tpu_torch.*``), so replaying it needs ``monai_tpu_torch`` imported,
-where the JAX artifact replays without the model's code. A failed export raises: there is
-no artifact without its program.
+package writes StableHLO. The program calls the port's kernels as torch operators, each
+the inference forward of a kernel with a fake version for the tracer and no backward:
+``torch.ops.monai_tpu_torch.conv3d_3x3_same`` (kernel 1), ``instance_norm_prelu`` (the
+instance norm, B2) and ``fused_window_attention`` (kernel 2). Importing ``monai_tpu_torch``
+registers them, so replaying a program needs the package imported, where the JAX artifact
+replays without the model's code. A failed export raises: there is no artifact without its
+program.
 """
 from __future__ import annotations
 
@@ -224,12 +227,12 @@ def ckpt_export(net_id: str | None = None, filepath: str | None = None, ckpt_fil
 
 def load_exported_network(filepath: str):
     """The ``model.pt2`` program of ``ckpt_export`` as a callable of one input, run
-    without autograd. Its
-    float32 cuDNN convolutions run in full float32 (``full_float32``), as the network's
-    own forward runs them, and its kernels through ``torch.ops.monai_tpu_torch``, which
-    importing this package registers."""
-    from ..ops import conv3d  # noqa: F401  (registers the kernels' operators)
-
+    without autograd. Its float32 cuDNN convolutions run in full float32
+    (``full_float32``), as the network's own forward runs them, and its kernels through
+    the operators ``torch.ops.monai_tpu_torch.conv3d_3x3_same``, ``instance_norm_prelu``
+    and ``fused_window_attention``, which importing ``monai_tpu_torch`` (as this module
+    does) registers; ``torch.export.load`` replays the file likewise once the package is
+    imported."""
     module = torch.export.load(str(filepath)).module()
 
     def run(x: torch.Tensor) -> torch.Tensor:

@@ -466,6 +466,8 @@ def instance_norm_prelu(x: torch.Tensor, weight: torch.Tensor | None = None, bia
     says how) and ``instance_norm_prelu.launches`` goes up by one. A CPU ``x`` runs the
     plain version. Under autograd the backward runs ``instance_norm_prelu_backward``."""
     _check(x, weight, bias, slope)
+    if type(x) is not torch.Tensor:  # a fake or functional tensor: torch.export is tracing
+        return torch.ops.monai_tpu_torch.instance_norm_prelu(x, weight, bias, slope, eps)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, weight, bias, slope)):
         return _InstanceNormPReLU.apply(x, weight, bias, slope, eps)
     return _forward(x, weight, bias, slope, eps, False)[0]
@@ -500,6 +502,21 @@ def _forward(x, weight, bias, slope, eps: float, want_stats: bool) -> tuple[torc
 
 
 instance_norm_prelu.launches = 0
+
+
+# The inference forward as a torch operator, ``torch.ops.monai_tpu_torch.instance_norm_prelu``,
+# which a ``torch.export`` graph calls (as kernel 1's, ``ops/conv3d.py``): its kernel is the
+# ctypes launch (``_forward``, which counts it), its fake version x's shape, type and strides;
+# it has no backward. The eager wrapper launches directly, without the dispatcher's host time.
+@torch.library.custom_op("monai_tpu_torch::instance_norm_prelu", mutates_args=())
+def _instance_norm_op(x: torch.Tensor, weight: torch.Tensor | None, bias: torch.Tensor | None,
+                      slope: torch.Tensor | None, eps: float) -> torch.Tensor:
+    return _forward(x, weight, bias, slope, eps, False)[0]
+
+
+@_instance_norm_op.register_fake
+def _(x, weight, bias, slope, eps):
+    return torch.empty_like(x)
 
 
 @functools.lru_cache(maxsize=1024)

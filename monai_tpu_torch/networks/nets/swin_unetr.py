@@ -11,8 +11,10 @@ two layouts are views. Module names follow torch MONAI (``swinViT.layers1.0.bloc
 Window attention runs the CUDA kernel of ``ops/window_attention.py``, forward and (under
 autograd) backward; the 3x3x3 convs and the instance norms run the UNet path's kernels,
 forward and backward. The relative-position bias gets its grad through the table gather
-by autograd. The shifted-window masks are built once per padded size, window and shift,
-and kept on the device.
+by autograd. The shifted-window masks are built on the device by torch ops, once per
+padded size, window and shift, and kept there; a traced forward (``torch.export``) builds
+them in its graph each call instead, so that an exported program carries no mask (BTCV's
+first stage's is 161 MB) as a constant to copy to the card at every call.
 
 Where the JAX package differs from torch MONAI, the port follows the JAX package:
 LayerNorm eps 1e-6 (torch MONAI 1e-5) and GELU in the tanh approximation (torch MONAI
@@ -84,22 +86,23 @@ def get_window_size(x_size: Sequence[int], window_size: Sequence[int], shift_siz
     return tuple(use_window_size), tuple(use_shift_size)
 
 
-def compute_mask(dims: Sequence[int], window_size: Sequence[int], shift_size: Sequence[int]) -> np.ndarray:
-    """Additive attention mask (nW, N, N) of the shifted windows over a padded grid of
-    ``dims``: 0 between tokens of one region of the cyclically shifted image, -100
-    between tokens of different regions."""
-    img_mask = np.zeros((1, *dims, 1))
+def compute_mask(dims: Sequence[int], window_size: Sequence[int], shift_size: Sequence[int],
+                 device=None) -> torch.Tensor:
+    """Additive float32 attention mask (nW, N, N) of the shifted windows over a padded grid
+    of ``dims``, on ``device`` (default the CPU): 0 between tokens of one region of the
+    cyclically shifted image, -100 between tokens of different regions."""
+    img_mask = torch.zeros(tuple(dims), device=device)
     regions = [(slice(-w), slice(-w, -s), slice(-s, None)) for w, s in zip(window_size, shift_size)]
     for cnt, region in enumerate(itertools.product(*regions)):
-        img_mask[(slice(None), *region, slice(None))] = cnt
+        img_mask[region] = cnt
     nd = len(dims)
-    shape = [1]
+    shape = []
     for s, w in zip(dims, window_size):
         shape += [s // w, w]
-    perm = (0, *range(1, 2 * nd, 2), *range(2, 2 * nd + 1, 2), 2 * nd + 1)
-    mask_windows = img_mask.reshape(*shape, 1).transpose(perm).reshape(-1, math.prod(window_size))
+    perm = (*range(0, 2 * nd, 2), *range(1, 2 * nd, 2))
+    mask_windows = img_mask.reshape(shape).permute(perm).reshape(-1, math.prod(window_size))
     attn_mask = mask_windows[:, None, :] - mask_windows[:, :, None]
-    return np.where(attn_mask != 0, -100.0, 0.0).astype(np.float32)
+    return torch.where(attn_mask != 0, -100.0, 0.0)
 
 
 def _rel_pos_index(window_size: Sequence[int]) -> np.ndarray:
@@ -256,18 +259,20 @@ class BasicLayer(nn.Module):
         self.downsample = downsample(dim=dim, spatial_dims=spatial_dims, **common) if downsample else None
         self._masks: dict = {}  # (padded dims, window, shift, device) -> mask on that device
 
-    def _mask(self, spatial: Sequence[int], device: torch.device) -> torch.Tensor | None:
+    def _mask(self, spatial: Sequence[int], device: torch.device, traced: bool) -> torch.Tensor | None:
         window_size, shift_size = get_window_size(spatial, self.window_size, self.shift_size)
         if not any(shift_size):
             return None
         padded = tuple(-(-s // w) * w for s, w in zip(spatial, window_size))
+        if traced:  # built in the traced graph, neither a constant of it nor kept
+            return compute_mask(padded, window_size, shift_size, device)
         key = (padded, window_size, shift_size, device)
         if key not in self._masks:
-            self._masks[key] = torch.from_numpy(compute_mask(padded, window_size, shift_size)).to(device)
+            self._masks[key] = compute_mask(padded, window_size, shift_size, device)
         return self._masks[key]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        attn_mask = self._mask(x.shape[1:-1], x.device)
+        attn_mask = self._mask(x.shape[1:-1], x.device, type(x) is not torch.Tensor)
         for blk in self.blocks:
             x = blk(x, attn_mask)
         return x if self.downsample is None else self.downsample(x)

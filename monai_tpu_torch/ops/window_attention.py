@@ -228,14 +228,35 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bi
     _check(q, k, v, bias, mask)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_window_attention runs on CPU or CUDA tensors, not {q.device}")
+    if type(q) is not torch.Tensor:  # a fake or functional tensor: torch.export is tracing
+        return torch.ops.monai_tpu_torch.fused_window_attention(q, k, v, bias, mask)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
         return _WindowAttention.apply(q, k, v, bias, mask)
+    return _inference(q, k, v, bias, mask)
+
+
+def _inference(q, k, v, bias, mask):
     if q.device.type == "cpu":
         return fused_window_attention_plain(q, k, v, bias, mask)
     return _forward(q, k, v, bias, mask)[0]
 
 
 fused_window_attention.launches = 0
+
+
+# The inference forward (no log-sum-exp) as a torch operator,
+# ``torch.ops.monai_tpu_torch.fused_window_attention``, which a ``torch.export`` graph calls
+# (as kernel 1's, ``ops/conv3d.py``): its kernel is the ctypes launch (``_forward``, which
+# counts it), its fake version the output ``_forward`` allocates; it has no backward.
+@torch.library.custom_op("monai_tpu_torch::fused_window_attention", mutates_args=())
+def _window_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                         mask: torch.Tensor | None) -> torch.Tensor:
+    return _inference(q, k, v, bias, mask)
+
+
+@_window_attention_op.register_fake
+def _(q, k, v, bias, mask):
+    return torch.empty_like(q)
 
 
 def fused_window_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,

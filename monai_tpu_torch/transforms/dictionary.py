@@ -18,7 +18,7 @@ from .intensity_array import (NormalizeIntensity, RandScaleIntensity, RandShiftI
 from .inverse import InvertibleTransform
 from .io_array import LoadImage, SaveImage
 from .post_array import Activations, AsDiscrete, MeanEnsemble, VoteEnsemble
-from .spatial_array import Orientation, RandFlip, RandRotate, RandRotate90, RandZoom, Spacing
+from .spatial_array import Orientation, RandFlip, RandRotate, RandRotate90, RandZoom, Resize, Spacing
 from .traits import LazyTrait
 from .transform import MapTransform, Randomizable, RandomizableTransform
 from .utility_array import ConvertToMultiChannelBasedOnBratsClasses, EnsureChannelFirst, FgBgToIndices
@@ -28,7 +28,7 @@ __all__ = ["LoadImaged", "EnsureChannelFirstd", "Orientationd", "Spacingd", "Sca
            "AsDiscreted", "CropForegroundd", "FgBgToIndicesd", "RandCropByPosNegLabeld", "RandFlipd", "RandRotate90d",
            "RandShiftIntensityd", "Invertd", "SaveImaged", "ConvertToMultiChannelBasedOnBratsClassesd",
            "NormalizeIntensityd", "RandScaleIntensityd", "RandSpatialCropd", "ScaleIntensityd", "RandRotated",
-           "RandZoomd", "MeanEnsembled", "VoteEnsembled"]
+           "RandZoomd", "MeanEnsembled", "VoteEnsembled", "Resized"]
 
 
 def _mapped(name: str, array_cls, call_kwargs: tuple = ()):
@@ -65,6 +65,7 @@ def _mapped(name: str, array_cls, call_kwargs: tuple = ()):
 
 Spacingd = _mapped("Spacingd", Spacing, call_kwargs=("mode", "padding_mode", "align_corners"))
 Orientationd = _mapped("Orientationd", Orientation)
+Resized = _mapped("Resized", Resize, call_kwargs=("mode", "align_corners"))
 ScaleIntensityRanged = _mapped("ScaleIntensityRanged", ScaleIntensityRange)
 ScaleIntensityd = _mapped("ScaleIntensityd", ScaleIntensity)
 EnsureChannelFirstd = _mapped("EnsureChannelFirstd", EnsureChannelFirst)

@@ -1,4 +1,4 @@
-"""Spatial transforms: Spacing, Orientation, Flip, Rotate90, Rotate, Zoom and the random
+"""Spatial transforms: Spacing, Orientation, Flip, Rotate90, Rotate, Zoom, Resize and the random
 forms RandFlip, RandRotate90, RandRotate and RandZoom (counterpart of
 monai_tpu/transforms/spatial_array.py).
 
@@ -34,8 +34,8 @@ from .lazy_utils import PAD_MODES, apply_affine_to_data, resolve_mode
 from .transform import LazyTransform, RandomizableTransform
 from .utils import create_rotate, create_translate, map_spatial_axes
 
-__all__ = ["Flip", "Orientation", "RandFlip", "RandRotate", "RandRotate90", "RandZoom", "Rotate", "Rotate90", "Spacing",
-           "SpatialResample", "Zoom"]
+__all__ = ["Flip", "Orientation", "RandFlip", "RandRotate", "RandRotate90", "RandZoom", "Resize", "Rotate", "Rotate90",
+           "Spacing", "SpatialResample", "Zoom"]
 
 
 def resolves_modes(interp_mode, padding_mode) -> tuple[int, str]:
@@ -442,6 +442,81 @@ class Zoom(_SpatialLazyTransform):
         tracked = img.new_like(img.data)
         self.push_transform(tracked, m, out_size, in_shape, {"zoom": list(z)}, mode=order, padding_mode=pm_,
                             align_corners=ac, dtype=dtype or self.dtype)
+        return promote_pending_with_data(tracked, dat)
+
+
+class Resize(_SpatialLazyTransform):
+    """Resize to ``spatial_size`` (one size an axis, -1 keeping the input's; with
+    ``size_mode="longest"`` one int, the longest axis's size, the others scaled alike and
+    rounded), at the border bound, on a half-pixel grid or (``align_corners``) corners.
+    ``anti_aliasing`` first smooths an axis that shrinks with a Gaussian (sigma
+    ``anti_aliasing_sigma``, default (in / out - 1) / 2). A nearest resize indexes
+    floor(y * in / out), torch's legacy nearest, as the JAX package's, while the trace
+    records the half-pixel map, which the inverse undoes; lazily the composed operations
+    take the recorded map. A resample runs the separable kernel on a CUDA image. The output
+    is a MetaImage."""
+
+    def __init__(self, spatial_size: Sequence[int] | int, size_mode: str = "all", mode="bilinear",
+                 align_corners: bool = False, anti_aliasing: bool = False, anti_aliasing_sigma=None,
+                 dtype=np.float32, lazy: bool = False):
+        super().__init__(lazy=lazy)
+        self.size_mode = size_mode
+        self.spatial_size = spatial_size
+        self.mode = mode
+        self.align_corners = align_corners
+        self.anti_aliasing = anti_aliasing
+        self.anti_aliasing_sigma = anti_aliasing_sigma
+        self.dtype = dtype
+
+    def __call__(self, img: Any, mode=None, align_corners=None, anti_aliasing=None, anti_aliasing_sigma=None,
+                 dtype=None, lazy: bool | None = None):
+        img = MetaImage.ensure_meta(img)
+        in_shape = img.peek_pending_shape()
+        sr = len(in_shape)
+        anti_aliasing = self.anti_aliasing if anti_aliasing is None else anti_aliasing
+        aa_sigma = self.anti_aliasing_sigma if anti_aliasing_sigma is None else anti_aliasing_sigma
+        if self.size_mode == "all":
+            size = self.spatial_size if issequenceiterable(self.spatial_size) else ensure_tuple_rep(self.spatial_size, sr)
+            out_size = fall_back_tuple(ensure_tuple(size), in_shape)
+        else:  # "longest"
+            if not isinstance(self.spatial_size, int):
+                raise ValueError(f"spatial_size must be an int number if size_mode is 'longest', got {self.spatial_size}.")
+            scale = self.spatial_size / max(in_shape)
+            out_size = tuple(int(round(n * scale)) for n in in_shape)
+        out_size = tuple(int(n) for n in out_size)
+        ac = self.align_corners if align_corners is None else align_corners
+        m = np.eye(sr + 1, dtype=np.float64)
+        for d in range(sr):
+            if ac:
+                m[d, d] = (in_shape[d] - 1.0) / max(out_size[d] - 1.0, 1.0)
+            else:
+                m[d, d] = in_shape[d] / out_size[d]
+                m[d, sr] = (m[d, d] - 1.0) / 2.0
+        if anti_aliasing and any(o < i for o, i in zip(out_size, in_shape)):
+            from ..ops.gaussian import gaussian_filter
+
+            factors = np.divide(in_shape, out_size)
+            if aa_sigma is None:
+                aa_sigma = list(np.maximum(0.0, (factors - 1) / 2.0))
+            else:
+                aa_sigma = list(ensure_tuple_rep(aa_sigma, sr))
+                for axis in range(sr):
+                    aa_sigma[axis] = aa_sigma[axis] * int(factors[axis] > 1)
+            if any(s > 0 for s in aa_sigma):
+                img = img.new_like(gaussian_filter(img.data, aa_sigma))
+        mode_ = mode or self.mode
+        lazy_ = self.lazy if lazy is None else lazy
+        if str(mode_) != "nearest" or lazy_ or img.pending_operations:
+            return self._op(img, m, out_size, mode=mode_, padding_mode="border", align_corners=ac, lazy=lazy,
+                            dtype=dtype or self.dtype)
+        data_m = np.eye(sr + 1, dtype=np.float64)  # floor(y * in / out) by rounding; the eps dodges ties
+        for d in range(sr):
+            data_m[d, d], data_m[d, sr] = in_shape[d] / out_size[d], -0.5 + 1e-4
+        order, pm = resolves_modes(mode_, "border")
+        dat = apply_affine_to_data(img.data, data_m, out_size, mode=order, padding_mode=pm, align_corners=bool(ac))
+        tracked = img.new_like(img.data)
+        self.push_transform(tracked, m, out_size, in_shape, {}, mode=order, padding_mode=pm, align_corners=ac,
+                            dtype=dtype or self.dtype)
         return promote_pending_with_data(tracked, dat)
 
 

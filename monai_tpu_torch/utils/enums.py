@@ -3,8 +3,9 @@ from __future__ import annotations
 
 from enum import Enum
 
-__all__ = ["StrEnum", "AlgoKeys", "BlendMode", "CommonKeys", "GridSampleMode", "GridSamplePadMode", "LazyAttr", "LossReduction",
-           "MetaKeys", "MetricReduction", "SpaceKeys", "TraceKeys"]
+__all__ = ["StrEnum", "AlgoKeys", "BlendMode", "CommonKeys", "DataStatsKeys", "GridSampleMode", "GridSamplePadMode",
+           "ImageStatsKeys", "LabelStatsKeys", "LazyAttr", "LossReduction", "MetaKeys", "MetricReduction", "SpaceKeys",
+           "TraceKeys"]
 
 
 class StrEnum(str, Enum):
@@ -120,3 +121,39 @@ class AlgoKeys(StrEnum):
     ALGO = "algo_instance"
     IS_TRAINED = "is_trained"
     SCORE = "best_metric"
+
+
+class DataStatsKeys(StrEnum):
+    """The sections of an Auto3DSeg data report (``auto3dseg.SegSummarizer``)."""
+
+    SUMMARY = "stats_summary"
+    BY_CASE = "stats_by_cases"
+    BY_CASE_IMAGE_PATH = "image_filepath"
+    BY_CASE_LABEL_PATH = "label_filepath"
+    IMAGE_STATS = "image_stats"
+    FG_IMAGE_STATS = "image_foreground_stats"
+    LABEL_STATS = "label_stats"
+    IMAGE_HISTOGRAM = "image_histogram"
+
+
+class ImageStatsKeys(StrEnum):
+    """The keys of an image's statistics."""
+
+    SHAPE = "shape"
+    CHANNELS = "channels"
+    CROPPED_SHAPE = "cropped_shape"
+    SPACING = "spacing"
+    SIZEMM = "sizemm"
+    INTENSITY = "intensity"
+    HISTOGRAM = "histogram"
+
+
+class LabelStatsKeys(StrEnum):
+    """The keys of a label map's statistics."""
+
+    LABEL_UID = "labels"
+    PIXEL_PCT = "foreground_percentage"
+    IMAGE_INTST = "image_intensity"
+    LABEL = "label"
+    LABEL_SHAPE = "shape"
+    LABEL_NCOMP = "ncomponents"

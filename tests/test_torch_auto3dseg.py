@@ -19,7 +19,7 @@
   runner is slow on the CPU): roi 16^3, 1 epoch, batch 1, ``algos=["unet"]``; two trained
   bundles, their ``result.json`` and checkpoints, an ensemble whose prediction has the
   input's spatial shape; the history pickled and read back by ``EnsembleRunner``; and
-  ``hpo=True`` raising.
+  ``hpo=True``'s search over the default grid.
 - No module of the port, nor ``chip_smoke.py``, imports jax, flax or monai_tpu.
 - Fault C12: the group norm on the CPU, given kernel 1's channels-last output of a window
   of background (a group of 98% one value), within 1e-4 std of the float64 math, and so a
@@ -278,10 +278,30 @@ def test_auto_runner_run_json_on_cpu(tmp_path):
 
 
 def test_auto_runner_refuses_hpo(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        a3d.AutoRunner(work_dir=str(tmp_path), input={}, hpo=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        a3d.AutoRunner(work_dir=str(tmp_path), input={}, device="cpu").set_hpo_params({"lr": [1e-3]})
+    """The search is no longer refused: run.json with ``runner::hpo`` (the CPU overrides of
+    test_auto_runner_run_json_on_cpu) trains each bundle at the default grid's two
+    learning rates, writes both trials to its ``hpo_trials.json``, and trains it again at
+    the better one; a bundle with its network loaded deep-copies without it; ``set_hpo_params``
+    sets the grid."""
+    cfg = json.loads(RUN_JSON.read_text())
+    overrides = {"bundle_root": str(tmp_path),
+                 "imports": [re.sub(r"\bmonai_tpu\b", "monai_tpu_torch", i) for i in cfg["imports"]],
+                 "initialize": [re.sub(r"\bmonai_tpu\b", "monai_tpu_torch", i) for i in cfg["initialize"]],
+                 "synth_datalist": cfg["synth_datalist"].replace("(64, 64, 64)", "(24, 24, 24)"),
+                 "num_synth_images": 4, "algos": ["unet"], "runner::device": "cpu", "runner::hpo": True,
+                 "training_params": {"roi_size": [16, 16, 16], "max_epochs": 1, "batch_size": 1}}
+    ensemble = run(config_file=str(RUN_JSON), **overrides)[0]
+    for record in ensemble.algos:
+        out = Path(record[AlgoKeys.ALGO].get_output_path())
+        trials = json.loads((out / "hpo_trials.json").read_text())
+        assert [t["params"] for t in trials] == [{"lr": 1e-3}, {"lr": 1e-4}]
+        assert all(np.isfinite(t["score"]) for t in trials)
+        assert record[AlgoKeys.SCORE] == json.loads((out / "result.json").read_text())["best_metric"]
+        net = record[AlgoKeys.ALGO]._network()  # the checkpoint loaded into the algo
+        assert record[AlgoKeys.ALGO]._trained_network is net
+        assert not hasattr(copy.deepcopy(record[AlgoKeys.ALGO]), "_trained_network")
+    runner = a3d.AutoRunner(work_dir=str(tmp_path / "w"), input={}, hpo=True, device="cpu")
+    assert runner.set_hpo_params({"lr": [1e-3]}) is runner and runner.hpo_params == {"lr": [1e-3]}
 
 
 def test_port_sources_import_no_jax():

@@ -129,6 +129,43 @@ def test_conv_operator_is_the_ctypes_launch(cuda, dtype):
     _assert_close(got, want, torch.float32)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_norm_and_attention_operators_are_the_ctypes_launches(cuda, dtype):
+    """The instance norm (B2) and window attention (kernel 2) as the operators an exported
+    program calls against their ctypes launches (the eager wrappers' calls): the same bits,
+    one launch counted each; and ``torch.export`` programs of an instance-norm UNet and a
+    SwinUNETR on the card: the module's output, the eager forward's launches."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    x = torch.randn((2, 24, 9, 7, 5), generator=g, device=cuda).to(dtype).contiguous(
+        memory_format=torch.channels_last_3d)
+    w, b, a = (torch.rand((24,), generator=g, device=cuda).to(dtype) for _ in range(3))
+    q, k, v = (torch.randn((8, 3, 49, 16), generator=g, device=cuda).to(dtype) for _ in range(3))
+    bias, mask = torch.randn((3, 49, 49), generator=g, device=cuda), torch.randn((4, 49, 49), generator=g, device=cuda)
+    with torch.inference_mode():
+        before = (instance_norm_prelu.launches, fused_window_attention.launches)
+        norm = _forward(x, w, b, a, 1e-5, False)[0]
+        norm_op = torch.ops.monai_tpu_torch.instance_norm_prelu(x, w, b, a, 1e-5)
+        attn = _attention_forward(q, k, v, bias, mask)[0]
+        attn_op = torch.ops.monai_tpu_torch.fused_window_attention(q, k, v, bias, mask)
+        assert (instance_norm_prelu.launches, fused_window_attention.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(norm_op, norm) and norm_op.stride() == norm.stride()
+    assert torch.equal(attn_op, attn)
+    nets = (UNet(3, 1, 2, (16, 32), (2,), num_res_units=2, device=cuda), SwinUNETR(1, 2, feature_size=12, device=cuda))
+    for net, size in zip(nets, (32, 64)):
+        net.eval()
+        u = torch.rand((1, 1, size, size, size), generator=g, device=cuda)
+        with torch.no_grad():
+            program = torch.export.export(net, (u,), strict=False).module()
+            counted = (conv3d_3x3_same, instance_norm_prelu, fused_window_attention)
+            before = [f.launches for f in counted]
+            want = net(u)
+            eager = [f.launches - n for f, n in zip(counted, before)]
+            got = program(u)
+            launched = [f.launches - n - e for f, n, e in zip(counted, before, eager)]
+        assert launched == eager and eager[1] > 0
+        _assert_close(got, want, torch.float32)
+
+
 # ragged spatial shapes no brick divides, N in {1, 3}, every CI and CO class of the kernel
 CONV_GRID_SHAPES = [(1, 5, 7, 9), (3, 5, 7, 9), (1, 1, 1, 1), (3, 1, 1, 1), (1, 3, 96, 5), (3, 3, 96, 5)]
 

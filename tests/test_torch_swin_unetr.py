@@ -118,8 +118,8 @@ def test_window_partition_and_reverse_equal_jax(shape, window):
                                               ((6, 6, 6), (6, 3, 3), (0, 1, 1)), ((8, 6), (4, 3), (2, 1))])
 def test_compute_mask_equals_jax(dims, window, shift):
     got = swin_unetr.compute_mask(dims, window, shift)
-    assert got.dtype == np.float32
-    np.testing.assert_array_equal(got, jax_swin.compute_mask(dims, window, shift))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), jax_swin.compute_mask(dims, window, shift))
 
 
 @pytest.mark.parametrize("window", [(7, 7, 7), (6, 6, 6), (3, 2, 4), (7, 7)])
@@ -211,8 +211,8 @@ def test_swin_transformer_block_matches_jax(shift):
     x = _rand(7, 2, 5, 6, 4, 12)
     mask = swin_unetr.compute_mask((6, 6, 6), (3, 3, 3), shift)
     with torch.inference_mode():
-        got = port_block(torch.from_numpy(x), torch.from_numpy(mask)).numpy()
-    np.testing.assert_allclose(got, _jax_apply(jax_block, x, mask), **TOL_BLOCK)
+        got = port_block(torch.from_numpy(x), mask).numpy()
+    np.testing.assert_allclose(got, _jax_apply(jax_block, x, mask.numpy()), **TOL_BLOCK)
 
 
 def test_basic_layer_matches_jax_and_caches_its_mask():
