@@ -193,6 +193,22 @@ Drives the port's paths, each at full width with random weights from a seed:
      the ensemble's output, a 96³ window of a held-out phantom against the CPU);
      ``SegSummarizer`` on the card against the CPU, ``EnsureSameShaped`` (kernel 3 once), an
      epoch of ``SegAlgo``'s UNet
+  18. UNETR at the BTCV research recipe's width (``unetr_phase``): ``UNETR(1, 14, img_size=96,
+     feature_size=16, hidden_size=768, mlp_dim=3072, num_heads=12, proj_type="perceptron",
+     norm_name="instance")`` from a seed, kernel 1's forward, dx and dw and B2's forward and
+     backward at its 16 conv and 21 norm float32 sites (batch 4 of 96^3) against their plain
+     versions, timed beside cuDNN / ``F.instance_norm`` and the bound; the same widths at a
+     32^3 image on the card against the CPU (forward, a step's loss and grads);
+     ``SupervisedTrainer`` in float32 with the recipe's ``DiceCELoss(squared_pred=True,
+     smooth_nr=0, smooth_dr=1e-6)`` and AdamW (lr 1e-4, weight decay 1e-5) on one batch of 4
+     96^3 crops, 2 warm-up and 5 timed steps (steps/s, median step, peak memory, each step's
+     launches 16, 15, 16, 21, 21, losses falling), the ViT's share of a step and one step's
+     profile; the trained net under ``SlidingWindowInferer(96^3, 1, overlap 0.5)`` over a
+     160x160x200 phantom and its ``ckpt_export`` program against it; ``SegResNetVAE`` at the
+     BraTS bundle's SegResNet widths (4 channels, 96^3) for 3 steps of DiceLoss + 0.1 x its VAE
+     loss (kernel 1 only, at the forward's sites) and its forward against the CPU with the
+     noise fixed; ``UpSample``'s deconv and pixelshuffle, ``SubpixelUpsample`` and
+     ``interpolate``'s cubic, area and shrinking linear modes on the card against the CPU
 
 It prints the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, so the exit code is not 0; so it is without a CUDA device.
@@ -3083,6 +3099,33 @@ DYNUNET_PER_STEP = {"conv3d_forward": 17, "conv3d_dx": 16, "conv3d_3x3_wgrad": 1
 DYNUNET_CHECK_PATCH = (64, 64, 64)  # the step on the card against the CPU
 
 
+def step_against_cpu(name: str, cpu, x: torch.Tensor, y: torch.Tensor, loss_fn, dev) -> None:
+    """One float32 training step of ``cpu`` (a CPU network) on (x, y) against the same step of
+    its copy on the card: the loss within TOL_STEP_F32 relative, each grad's cosine with the
+    CPU's at least TRAIN_MIN_COSINE (the LeakyReLU's kink, as phases 11-15), the grads exactly
+    0 on the CPU under TOL_STEP_F32 of the largest grad on both sides."""
+    card = copy.deepcopy(cpu).to(dev)
+    results = []
+    for net, device in ((cpu, "cpu"), (card, dev)):
+        net.train()
+        net.zero_grad(set_to_none=True)
+        loss = loss_fn(net(x.to(device)), y.to(device))
+        loss.backward()
+        results.append((loss.item(), {k: p.grad.double().cpu().reshape(-1) for k, p in net.named_parameters()}))
+    (loss_cpu, g_cpu), (loss_card, g_card) = results
+    largest = max(g.abs().max().item() for g in g_cpu.values())
+    zero = {k for k, g in g_cpu.items() if not g.any()}
+    zero_max = max((g[k].abs().max().item() for g in (g_cpu, g_card) for k in zero), default=0.0) / largest
+    cosines = sorted((F.cosine_similarity(g_card[k][None], g_cpu[k][None]).item(), k) for k in g_cpu if k not in zero)
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    print(f"{name} batch-{x.shape[0]} {tuple(x.shape[2:])} float32 step on the card against the CPU: loss "
+          f"{loss_card:.6f} against {loss_cpu:.6f} ({loss_rel:.3g} relative, tol {TOL_STEP_F32}); least grad cosine "
+          f"{cosines[0][0]:.6f} ({cosines[0][1]}; tol {TRAIN_MIN_COSINE}); {len(zero)} grads exactly 0 on the CPU, at "
+          f"most {zero_max:.3g} of the largest grad (tol {TOL_STEP_F32})", flush=True)
+    require(loss_rel <= TOL_STEP_F32 and cosines[0][0] >= TRAIN_MIN_COSINE and zero_max <= TOL_STEP_F32,
+            f"{name}: the float32 step on the card disagrees with the CPU")
+
+
 def nnunet_plans() -> tuple[dict, dict]:
     """An nnU-Net v2 plans dict (the schema of tests/test_nnunet_plans_fixture.py) of a
     3d_fullres ``PlainConvUNet`` and its dataset dict: 1 CT channel, 2 classes."""
@@ -3150,27 +3193,8 @@ def dynunet_train_phase(dev) -> tuple[dict, dict]:
     gen = torch.Generator().manual_seed(35)
     x = torch.rand((1, 1, *DYNUNET_CHECK_PATCH), generator=gen)
     y = (torch.rand((1, 1, *DYNUNET_CHECK_PATCH), generator=gen) > 0.5).float()
-    card = copy.deepcopy(cpu).to(dev)
-    results = []
-    for net, device in ((cpu, "cpu"), (card, dev)):
-        net.train()
-        net.zero_grad(set_to_none=True)
-        loss = loss_fn(net(x.to(device)), y.to(device))
-        loss.backward()
-        results.append((loss.item(), {k: p.grad.double().cpu().reshape(-1) for k, p in net.named_parameters()}))
-    (loss_cpu, g_cpu), (loss_card, g_card) = results
-    largest = max(g.abs().max().item() for g in g_cpu.values())
-    zero = {k for k, g in g_cpu.items() if not g.any()}
-    zero_max = max((g[k].abs().max().item() for g in (g_cpu, g_card) for k in zero), default=0.0) / largest
-    cosines = sorted((F.cosine_similarity(g_card[k][None], g_cpu[k][None]).item(), k) for k in g_cpu if k not in zero)
-    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    print(f"dynunet batch-1 {DYNUNET_CHECK_PATCH} float32 step on the card against the CPU: loss {loss_card:.6f} against "
-          f"{loss_cpu:.6f} ({loss_rel:.3g} relative, tol {TOL_STEP_F32}); least grad cosine {cosines[0][0]:.6f} "
-          f"({cosines[0][1]}; tol {TRAIN_MIN_COSINE}); {len(zero)} grads exactly 0 on the CPU, at most {zero_max:.3g} "
-          f"of the largest grad (tol {TOL_STEP_F32})", flush=True)
-    require(loss_rel <= TOL_STEP_F32 and cosines[0][0] >= TRAIN_MIN_COSINE and zero_max <= TOL_STEP_F32,
-            "dynunet: the float32 step on the card disagrees with the CPU")
-    del cpu, card, results, g_cpu, g_card
+    step_against_cpu("dynunet", cpu, x, y, loss_fn, dev)
+    del cpu
     torch.cuda.empty_cache()
 
     # the trainer: one fixed batch, 2 warm-up steps and 5 timed
@@ -3622,7 +3646,8 @@ A3D_SWIN_TRAININGS = 3  # a bundle's: two trials of the default grid, then the b
 SEGALGO_STEPS = 2  # one epoch of 4 phantoms at batch 2
 SUMMARIZED = 4  # phantoms through SegSummarizer on the card and on the CPU
 OPERATOR_NAMES = {"unet": {"conv3d_3x3_same", "instance_norm_prelu"},
-                  "swinunetr": {"conv3d_3x3_same", "instance_norm_prelu", "fused_window_attention"}}
+                  "swinunetr": {"conv3d_3x3_same", "instance_norm_prelu", "fused_window_attention"},
+                  "unetr": {"conv3d_3x3_same", "instance_norm_prelu"}}
 
 
 def export_check(name: str, kind: str, export_kwargs: dict, fresh_net, state: dict, dev) -> dict:
@@ -3658,7 +3683,7 @@ def export_check(name: str, kind: str, export_kwargs: dict, fresh_net, state: di
         launched = launch_counts()[:3]
         program_ms, eager_ms = paired_ms(lambda: program(x), lambda: module(x), iters=5)
     err = (y - ref).abs().max().item() / ref.abs().max().item()
-    want = (UNET_PER_FORWARD if kind == "unet" else SWIN_PER_FORWARD)[:3]
+    want = {"unet": UNET_PER_FORWARD[:3], "swinunetr": SWIN_PER_FORWARD[:3], "unetr": UNETR_PER_FORWARD}[kind]
     print(f"export {name}: ckpt_export {export_s:.1f} s; the program calls {sorted(called)}; on a 96^3 float32 input "
           f"within {err:.3g} of max|module| (tol {TOL_F32}); launches (kernel 1, B2, kernel 2) program {launched}, "
           f"eager {eager}; forward program {program_ms:.3f} ms, eager {eager_ms:.3f} ms (CUDA events, back to back)",
@@ -4024,6 +4049,372 @@ def auto3dseg_more_phase(dev) -> tuple[dict, dict]:
     return dict(totals), kernels
 
 
+# Phase 18, UNETR at the BTCV research recipe's width (research-contributions UNETR/BTCV
+# main.py's defaults) trained in float32, its sliding window and export; SegResNetVAE at the
+# BraTS bundle's widths; the new upsampling modes
+UNETR_KW = dict(in_channels=1, out_channels=14, img_size=96, feature_size=16, hidden_size=768, mlp_dim=3072,
+                num_heads=12, proj_type="perceptron", norm_name="instance", res_block=True, conv_block=True,
+                dropout_rate=0.0)
+UNETR_BATCH, UNETR_WARMUP, UNETR_TIMED = 4, 2, 5
+UNETR_CHECK_IMG = 32  # the batch-1 step on the card against the CPU, the same widths
+# a step's launches: 8 UnetResBlocks of two 3x3x3 convs (encoder1's first on the image has no
+# dx) and two norms, a third norm in the 5 whose channels change
+UNETR_PER_STEP = {"conv3d_forward": 16, "conv3d_dx": 15, "conv3d_3x3_wgrad": 16, "instance_norm_prelu": 21,
+                  "instance_norm_prelu_backward": 21}
+UNETR_PER_FORWARD = (16, 21, 0)  # kernel 1, B2 and kernel 2 in one forward
+UNETR_VOLUME, UNETR_SW_OVERLAP = (160, 160, 200), 0.5
+UNETR_ROOT = BUILD / "unetr"
+VAE_KW = dict(input_image_size=(96, 96, 96), spatial_dims=3, init_filters=16, in_channels=4, out_channels=3,
+              dropout_prob=0.2, blocks_down=(1, 2, 2, 4), blocks_up=(1, 1, 1))
+VAE_STEPS, VAE_WEIGHT = 3, 0.1
+TOL_UPSAMPLE = 1e-5  # the new upsampling on the card against the CPU, relative to max|ref|
+
+
+def unetr_loss():
+    from monai_tpu_torch.losses import DiceCELoss
+
+    return DiceCELoss(to_onehot_y=True, softmax=True, squared_pred=True, smooth_nr=0.0, smooth_dr=1e-6)
+
+
+def unetr_net(device, img_size=None):
+    from monai_tpu_torch.networks.nets import UNETR
+
+    kw = dict(UNETR_KW) if img_size is None else {**UNETR_KW, "img_size": img_size}
+    return UNETR(**kw, device=device, generator=torch.Generator().manual_seed(0))
+
+
+def unetr_step_check(dev) -> None:
+    """A UNETR at the phase's widths with a UNETR_CHECK_IMG^3 image, on the card against the
+    port's CPU from the same weights: the eval forward (batch 1) within TOL_FWD_F32_MAX of
+    the CPU logits' std, then one training step (``step_against_cpu``)."""
+    cpu = unetr_net("cpu", UNETR_CHECK_IMG)
+    gen = torch.Generator().manual_seed(41)
+    side = (UNETR_CHECK_IMG,) * 3
+    x = torch.rand((1, 1, *side), generator=gen)
+    y = torch.randint(0, UNETR_KW["out_channels"], (1, 1, *side), generator=gen).float()
+    with torch.no_grad():
+        ref = cpu.eval()(x)
+        got = copy.deepcopy(cpu).to(dev).eval()(x.to(dev)).cpu()
+    fwd_err = (got - ref).abs().max().item() / ref.std().item()
+    print(f"unetr img {UNETR_CHECK_IMG}^3 (the phase's widths) on the card against the CPU: eval forward max err "
+          f"{fwd_err:.3g} std of the CPU logits (tol {TOL_FWD_F32_MAX})", flush=True)
+    require(fwd_err <= TOL_FWD_F32_MAX, "unetr: the forward on the card disagrees with the CPU")
+    step_against_cpu("unetr", cpu, x, y, unetr_loss(), dev)
+
+
+def unetr_vit_share(network, batch: dict, loss_fn, dev, runs: int = 3) -> None:
+    """The ViT's share of a step: the device time (CUDA events, median of ``runs``) of the
+    whole step (forward, loss, backward) against that of the ViT alone, its forward and the
+    backward of its four outputs that the decoder reads (blocks 3, 6, 9 and the normed
+    tokens) under fixed random grads; the rest is the conv decoder's."""
+    g = torch.Generator(device=dev).manual_seed(43)
+
+    def timed(fn) -> float:
+        out = []
+        for _ in range(runs + 1):
+            network.zero_grad(set_to_none=True)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return statistics.median(out[1:])
+
+    def step():
+        loss_fn(network(batch["image"]), batch["label"]).backward()
+
+    x, hidden = network.vit(batch["image"])
+    grads = [torch.randn(t.shape, generator=g, device=dev) for t in (x, hidden[3], hidden[6], hidden[9])]
+    del x, hidden
+
+    def vit():
+        x, hidden = network.vit(batch["image"])
+        torch.autograd.backward([x, hidden[3], hidden[6], hidden[9]], grads)
+
+    network.train()
+    step_ms, vit_ms = timed(step), timed(vit)
+    print(f"unetr one step at {tuple(batch['image'].shape)}: device time {step_ms:.3f} ms (CUDA events, median of "
+          f"{runs}); the ViT's forward and backward alone {vit_ms:.3f} ms, {vit_ms / step_ms:.3f} of the step; the conv "
+          f"decoder and the loss the rest, {(step_ms - vit_ms) / step_ms:.3f}", flush=True)
+
+
+def unetr_train_part(dev) -> tuple[dict, dict, object]:
+    """Phase 18 (a): kernels 1 and B2 at the UNETR step's float32 sites (``check_conv_f32_sites``,
+    batch 4 of 96^3), the card against the CPU (``unetr_step_check``), then
+    ``SupervisedTrainer`` in float32 on one fixed batch (x uniform, labels uniform in 0-13,
+    from a seed) with the recipe's DiceCELoss and AdamW (lr 1e-4, weight decay 1e-5): 2 warm-up
+    steps and 5 timed, steps/s, the median step, the peak memory, each step's launches
+    (UNETR_PER_STEP) and loss (finite, the last below the first); the ViT's share and one
+    step's profile. Returns the trainer's launch counts, the kernels' summaries and the trained
+    network."""
+    from monai_tpu_torch.engines import Events, SupervisedTrainer
+
+    print(f"unetr: {cudnn_settings()}; matmul TF32 {torch.backends.cuda.matmul.allow_tf32}; SDPA backends flash "
+          f"{torch.backends.cuda.flash_sdp_enabled()}, memory-efficient {torch.backends.cuda.mem_efficient_sdp_enabled()},"
+          f" math {torch.backends.cuda.math_sdp_enabled()}", flush=True)
+    cpu = unetr_net("cpu")
+    n_params = sum(p.numel() for p in cpu.parameters())
+    forward, dx, dw, norm, norm_bwd, sites, norm_sites = check_conv_f32_sites(
+        "unetr", cpu, UNETR_BATCH, dev, roi=ROI, norms=True)
+    require(sum(sites.values()) == UNETR_PER_STEP["conv3d_forward"]
+            and sum(norm_sites.values()) == UNETR_PER_STEP["instance_norm_prelu"],
+            f"unetr: {sum(sites.values())} conv and {sum(norm_sites.values())} norm sites")
+    del cpu
+    torch.cuda.empty_cache()
+    unetr_step_check(dev)
+    torch.cuda.empty_cache()
+
+    network = unetr_net(dev)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    batch = {"image": torch.rand((UNETR_BATCH, 1, *ROI), generator=gen, device=dev),
+             "label": torch.randint(0, UNETR_KW["out_channels"], (UNETR_BATCH, 1, *ROI), generator=gen,
+                                    device=dev).float()}
+    optimizer = torch.optim.AdamW(network.parameters(), lr=1e-4, weight_decay=1e-5)
+    n_steps = UNETR_WARMUP + UNETR_TIMED
+    trainer = SupervisedTrainer(device=dev, max_epochs=1, train_data_loader=[batch] * n_steps, network=network,
+                                optimizer=optimizer, loss_function=unetr_loss())
+    steps = []
+
+    def started(engine):
+        torch.cuda.synchronize()
+        steps.append({"t0": time.perf_counter()})
+        counter.start()
+
+    def completed(engine):
+        torch.cuda.synchronize()
+        step = steps[-1]
+        step["ms"] = (time.perf_counter() - step["t0"]) * 1e3
+        step["launches"] = counter.stop()
+        step["loss"] = engine.state.output["loss"].item()
+
+    trainer.add_event_handler(Events.ITERATION_STARTED, started)
+    trainer.add_event_handler(Events.ITERATION_COMPLETED, completed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    with counted_iterations() as counter:
+        trainer.run()
+        torch.cuda.synchronize()
+    counts = all_launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    require(len(steps) == n_steps, f"unetr: {len(steps)} steps, not {n_steps}")
+    timed_ms = [s["ms"] for s in steps[UNETR_WARMUP:]]
+    losses = [s["loss"] for s in steps]
+    step = {k: v for k, v in steps[-1]["launches"].items() if v}
+    print(f"unetr (UNETR(1, 14, img_size=96, feature_size=16, hidden_size=768, mlp_dim=3072, num_heads=12, perceptron, "
+          f"instance norm, res blocks), {n_params / 1e6:.2f} M parameters) SupervisedTrainer float32 at "
+          f"({UNETR_BATCH}, 1, {ROI}), DiceCELoss(squared_pred, smooth_nr 0, smooth_dr 1e-6), AdamW lr 1e-4 weight "
+          f"decay 1e-5: {len(timed_ms) / sum(timed_ms) * 1e3:.4f} steps/s over {len(timed_ms)} steps after "
+          f"{UNETR_WARMUP} warm-ups, median step {statistics.median(timed_ms):.2f} ms (steps "
+          f"{', '.join(f'{t:.2f}' for t in timed_ms)}); peak memory {peak_gb:.2f} GB; launches a step {step}; losses "
+          + ", ".join(f"{v:.4f}" for v in losses), flush=True)
+    require(all(np.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            f"unetr: losses {losses} (finite, the last below the first)")
+    for i, s_ in enumerate(steps):
+        require(all(s_["launches"][k] == v for k, v in UNETR_PER_STEP.items()),
+                f"unetr step {i + 1} launched {s_['launches']}, not {UNETR_PER_STEP}")
+    del trainer, optimizer
+    unetr_vit_share(network, batch, unetr_loss(), dev)
+    step_profile("unetr", network, batch, unetr_loss(), dev, wall_steps=3)
+    del batch
+    network.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    return counts, {"forward": forward, "dx": dx, "dw": dw, "norm": norm, "norm_backward": norm_bwd}, network
+
+
+def unetr_inference_part(network, dev) -> dict:
+    """Phase 18 (b): the trained UNETR under ``SlidingWindowInferer(96^3, sw_batch_size=1,
+    overlap=0.5)`` over one 160x160x200 phantom (``create_test_image_3d``, from a seed) in
+    float32 under inference mode, timed after a warm-up volume, with the launches of the
+    timed volume (each window's UNETR_PER_FORWARD); then ``ckpt_export`` of its weights
+    through a bundle config naming it by a bare ``_target_`` and the program against the
+    module (``export_check``). Returns the launches of the volume and of the program."""
+    from monai_tpu_torch.data.synthetic import create_test_image_3d
+    from monai_tpu_torch.data.utils import dense_patch_slices
+    from monai_tpu_torch.inferers import SlidingWindowInferer, compute_scan_interval
+
+    image, _ = create_test_image_3d(*UNETR_VOLUME, num_objs=14, rad_max=30, num_seg_classes=13,
+                                    random_state=np.random.RandomState(44))
+    vol = torch.from_numpy(image)[None, None].to(dev)
+    windows = len(dense_patch_slices(UNETR_VOLUME, ROI, compute_scan_interval(UNETR_VOLUME, ROI, 3,
+                                                                              (UNETR_SW_OVERLAP,) * 3)))
+    inferer = SlidingWindowInferer(ROI, sw_batch_size=1, overlap=UNETR_SW_OVERLAP)
+    network.eval()
+    with torch.inference_mode():
+        out = inferer(vol, network)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = inferer(vol, network)
+        torch.cuda.synchronize()
+        volume_s = time.perf_counter() - t0
+        counts = all_launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launched = launch_counts()[:3]
+    print(f"unetr SlidingWindowInferer(96^3, sw_batch_size 1, overlap {UNETR_SW_OVERLAP}) over a {UNETR_VOLUME} "
+          f"phantom, float32: {windows} windows, {volume_s * 1e3:.1f} ms the volume, peak memory {peak_gb:.2f} GB; "
+          f"launches kernel 1 {launched[0]}, B2 {launched[1]}, kernel 2 {launched[2]}; out {tuple(out.shape)}",
+          flush=True)
+    require(tuple(out.shape) == (1, UNETR_KW["out_channels"], *UNETR_VOLUME) and bool(torch.isfinite(out).all()),
+            "unetr: the sliding-window output is not finite of the volume's shape")
+    require(launched == tuple(windows * n for n in UNETR_PER_FORWARD),
+            f"unetr: {windows} windows launched {launched}, not {UNETR_PER_FORWARD} a window")
+    del out, vol
+    UNETR_ROOT.mkdir(parents=True, exist_ok=True)
+    spec = {"_target_": "UNETR", **{k: list(v) if isinstance(v, tuple) else v for k, v in UNETR_KW.items()}}
+    (UNETR_ROOT / "config.in.json").write_text(json.dumps({"network_def": spec}))
+    state = {k: v.detach().clone() for k, v in network.state_dict().items()}
+    torch.save({"model": state}, UNETR_ROOT / "model.in.pt")
+    program = export_check("unetr", "unetr", {"net_id": "network_def", "ckpt_file": str(UNETR_ROOT / "model.in.pt"),
+                                               "config_file": str(UNETR_ROOT / "config.in.json")},
+                           lambda: unetr_net(dev), state, dev)
+    torch.cuda.empty_cache()
+    return dict(Counter(counts) + Counter(program))
+
+
+def segresnet_vae_part(dev) -> dict:
+    """Phase 18 (c): ``SegResNetVAE`` at the BraTS bundle's SegResNet widths (init filters 16,
+    blocks (1, 2, 2, 4) and (1, 1, 1), dropout 0.2) with 4 input channels and
+    ``input_image_size`` 96^3, float32: 3 steps of the bundle's DiceLoss plus 0.1 x the VAE loss
+    on one batch of a 96^3 crop (AdamW at the bundle's rates), each step's kernel-1 forward, dx
+    and dw equal to the 3x3x3 convs a forward runs (the decoder's ResBlocks run twice, once
+    for the VAE) and no other hand kernel launched; then, with the noise fixed, the eval
+    forward's logits and VAE loss on the card against the CPU. Returns the launches."""
+    from monai_tpu_torch.losses import DiceLoss
+    from monai_tpu_torch.networks.layers.factories import Conv3d
+    from monai_tpu_torch.networks.nets import SegResNetVAE
+
+    def fresh(device):
+        return SegResNetVAE(**VAE_KW, device=device, generator=torch.Generator().manual_seed(0),
+                            noise_generator=torch.Generator().manual_seed(1))
+
+    cpu = fresh("cpu")
+    network = copy.deepcopy(cpu).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(45)
+    side = VAE_KW["input_image_size"]
+    x = torch.rand((1, VAE_KW["in_channels"], *side), generator=gen, device=dev)
+    y = (torch.rand((1, VAE_KW["out_channels"], *side), generator=gen, device=dev) > 0.7).float()
+    calls = [0]
+    hooks = [m.register_forward_hook(lambda *a: calls.__setitem__(0, calls[0] + 1))
+             for m in network.modules() if isinstance(m, Conv3d) and m.same_3x3x3]
+    with torch.no_grad():
+        network.eval()(x)
+    for h in hooks:
+        h.remove()
+    n = calls[0]
+    want = {"conv3d_forward": n, "conv3d_dx": n - 1, "conv3d_3x3_wgrad": n}
+    dice = DiceLoss(smooth_nr=0, smooth_dr=1e-5, squared_pred=True, sigmoid=True)
+    optimizer = torch.optim.AdamW(network.parameters(), lr=1e-4, weight_decay=1e-5)
+    network.train()
+    losses, steps_ms = [], []
+    reset_launch_counts()
+    with counted_iterations() as counter:
+        for _ in range(VAE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            counter.start()
+            optimizer.zero_grad(set_to_none=True)
+            logits, vae_loss = network(x)
+            loss = dice(logits, y) + VAE_WEIGHT * vae_loss
+            loss.backward()
+            optimizer.step()
+            torch.cuda.synchronize()
+            it = counter.stop()
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append((loss.item(), vae_loss.item()))
+            others = {k: v for k, v in it.items() if v and k not in ("conv3d_3x3_same", *want)}
+            require(all(it[k] == v for k, v in want.items()) and not others,
+                    f"segresnet_vae: a step launched {it}, not {want} and nothing else")
+    counts = all_launch_counts()
+    print(f"segresnet_vae (BraTS widths, 4 channels, input_image_size {side}) float32, DiceLoss + {VAE_WEIGHT} x the VAE "
+          f"loss, AdamW: steps {', '.join(f'{t:.1f}' for t in steps_ms)} ms; launches a step {want} (the forward's "
+          f"3x3x3 convs; no other hand kernel); losses (total, VAE) "
+          + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in losses), flush=True)
+    require(all(np.isfinite(v) for pair in losses for v in pair), f"segresnet_vae: losses {losses}")
+    del optimizer
+    # the eval forward and the VAE loss with one fixed draw of noise, on the card against the CPU
+    cpu.load_state_dict({k: v.cpu() for k, v in network.state_dict().items()})
+    noise = torch.randn((1, cpu.vae_nz), generator=torch.Generator().manual_seed(46))
+    cpu.sample_noise = lambda like: noise.to(like.device)
+    network.sample_noise = lambda like: noise.to(like.device)
+    with torch.no_grad():
+        ref, ref_loss = cpu.eval()(x.cpu())
+        got, got_loss = network.eval()(x)
+    err = (got.cpu() - ref).abs().max().item() / ref.std().item()
+    loss_rel = abs(got_loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    print(f"segresnet_vae trained network, eval forward with the noise fixed, on the card against the CPU: logits max err "
+          f"{err:.3g} std of the CPU's (tol {TOL_FWD_F32_MAX}); VAE loss {got_loss.item():.6f} against "
+          f"{ref_loss.item():.6f} ({loss_rel:.3g} relative, tol {TOL_FWD_F32_MAX})", flush=True)
+    require(err <= TOL_FWD_F32_MAX and loss_rel <= TOL_FWD_F32_MAX, "segresnet_vae: the card disagrees with the CPU")
+    del network, cpu
+    torch.cuda.empty_cache()
+    return counts
+
+
+def upsampling_part(dev) -> dict:
+    """Phase 18 (d): ``UpSample`` deconv (kernel = stride 2, and kernel 3 at stride 2) and
+    pixelshuffle, ``SubpixelUpsample`` in 3-D (its 3x3x3 conv on kernel 1: one launch) and
+    ``interpolate`` cubic, area and linear shrinking, each on the card against the CPU within
+    TOL_UPSAMPLE of max|ref|, float32. Returns the launches."""
+    from monai_tpu_torch.networks.blocks import SubpixelUpsample, UpSample, interpolate
+
+    gen = torch.Generator().manual_seed(47)
+    x = torch.rand((2, 32, 24, 24, 24), generator=gen)
+    big = torch.rand((1, 4, 64, 64, 48), generator=gen)
+    def g():
+        return torch.Generator().manual_seed(48)
+
+    cases = [("UpSample deconv k2 s2", UpSample(3, 32, 16, 2, mode="deconv", generator=g()), x, 0),
+             ("UpSample deconv k3 s2", UpSample(3, 32, 16, 2, kernel_size=3, mode="deconv", generator=g()), x, 0),
+             ("UpSample pixelshuffle", UpSample(3, 32, 16, 2, mode="pixelshuffle", generator=g()), x, 1),
+             ("SubpixelUpsample", SubpixelUpsample(3, 32, 8, 2, generator=g()), x, 1)]
+    cases += [(f"interpolate {mode} {size}", lambda t, m=mode, s_=size: interpolate(t, size=s_, mode=m), big, 0)
+              for mode, size in (("bicubic", (96, 80, 40)), ("area", (40, 32, 24)), ("trilinear", (33, 80, 47)))]
+    totals = Counter()
+    msgs = []
+    with torch.inference_mode():
+        for name, module, inp, kernel_launches in cases:
+            ref = module(inp)
+            card = copy.deepcopy(module).to(dev) if isinstance(module, torch.nn.Module) else module
+            reset_launch_counts()
+            got = card(inp.to(dev))
+            torch.cuda.synchronize()
+            launched = launch_counts()[0]
+            totals.update(all_launch_counts())
+            err = (got.cpu() - ref).abs().max().item() / ref.abs().max().item()
+            msgs.append(f"{name} {tuple(inp.shape)} -> {tuple(got.shape)} err {err:.3g} kernel 1 x{launched}")
+            require(tuple(got.shape) == tuple(ref.shape) and err <= TOL_UPSAMPLE, f"upsampling {name}: err {err:.3g}")
+            require(launched == kernel_launches, f"upsampling {name}: kernel 1 launched {launched}, not {kernel_launches}")
+    print(f"upsampling on the card against the CPU, float32, max err over max|ref| (tol {TOL_UPSAMPLE}): "
+          + "; ".join(msgs), flush=True)
+    return dict(totals)
+
+
+def unetr_phase(dev) -> tuple[dict, dict]:
+    """Phase 18, in its four parts (``unetr_train_part``, ``unetr_inference_part``,
+    ``segresnet_vae_part``, ``upsampling_part``), each timed. Returns the parts' launches (the
+    trainer's, the volume's, the program's, the VAE's and the upsampling's, not the checks
+    against the plain versions) and the UNETR step's kernel summaries."""
+    require(not torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark,
+            f"phase 18: an earlier phase left {cudnn_settings()}")
+    t0 = time.perf_counter()
+    totals, kernels, network = unetr_train_part(dev)
+    totals = Counter(totals)
+    t1 = time.perf_counter()
+    totals.update(unetr_inference_part(network, dev))
+    del network
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    totals.update(segresnet_vae_part(dev))
+    t3 = time.perf_counter()
+    totals.update(upsampling_part(dev))
+    t4 = time.perf_counter()
+    print(f"phase 18: {t4 - t0:.1f} s (UNETR step {t1 - t0:.1f}, sliding window and export {t2 - t1:.1f}, "
+          f"SegResNetVAE {t3 - t2:.1f}, upsampling {t4 - t3:.1f})", flush=True)
+    return dict(totals), kernels
+
+
 def inference_phases(dev) -> tuple:
     """Phases 2 to 6, under ``torch.inference_mode()``: the forward kernels at the inference paths'
     shapes, the sliding windows, the forwards against the CPU, the Spleen path and the filtering
@@ -4153,8 +4544,15 @@ def main() -> None:
     del tie
 
     # 17. the instance-norm and Swin nets exported; run.json with the swinunetr template and
-    # the search; SegSummarizer, EnsureSameShaped and SegAlgo
-    more_counts, swin_template = auto3dseg_more_phase(dev)
+    # the search; SegSummarizer, EnsureSameShaped and SegAlgo (whose set_determinism turns
+    # cuDNN's deterministic algorithms on: the settings are restored after the phase)
+    with cudnn_kept():
+        more_counts, swin_template = auto3dseg_more_phase(dev)
+
+    # 18. UNETR at the BTCV research width trained in float32, its sliding window and export;
+    # SegResNetVAE at the BraTS widths; the new upsampling modes
+    unetr_counts, unetr = unetr_phase(dev)
+    more_counts = {k: more_counts.get(k, 0) + unetr_counts.get(k, 0) for k in set(more_counts) | set(unetr_counts)}
 
     def f32_sites(summary: dict) -> dict:
         """A kernel's numbers summed over a float32 step's sites, for the kernels line."""
@@ -4173,7 +4571,8 @@ def main() -> None:
          "auto3dseg_unet_train_float32": f32_sites(auto3dseg["unet"]["dw"]),
          "auto3dseg_segresnet_train_float32": f32_sites(auto3dseg["segresnet"]["dw"]),
          "dynunet_train_float32": f32_sites(dynunet["dw"]),
-         "auto3dseg_swinunetr_train_float32": f32_sites(swin_template["dw"])},
+         "auto3dseg_swinunetr_train_float32": f32_sites(swin_template["dw"]),
+         "unetr_train_float32": f32_sites(unetr["dw"])},
         {"name": "instance_norm_prelu_backward", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
          "replaces": "monai_tpu/networks/layers/fast_norm.py:74",
          "launches": train_counts["instance_norm_prelu_backward"] + trained["instance_norm_prelu_backward"]
@@ -4181,7 +4580,8 @@ def main() -> None:
          **train["norm_backward"], "swin_train_float32": f32_sites(swin["norm_backward"]),
          "auto3dseg_unet_train_float32": f32_sites(auto3dseg["unet"]["norm_backward"]),
          "dynunet_train_float32": f32_sites(dynunet["norm_backward"]),
-         "auto3dseg_swinunetr_train_float32": f32_sites(swin_template["norm_backward"])},
+         "auto3dseg_swinunetr_train_float32": f32_sites(swin_template["norm_backward"]),
+         "unetr_train_float32": f32_sites(unetr["norm_backward"])},
         {"name": "fused_window_attention_backward", "route": "cuda",
          "source": "monai_tpu_torch/csrc/window_attention_bwd.cu",
          "replaces": "monai_tpu/ops/pallas_window_attention.py:159",
@@ -4203,7 +4603,8 @@ def main() -> None:
         + "; float32 auto3dseg segresnet batch 4 " + "; ".join(f"{k} {line(auto3dseg['segresnet'][k])}"
                                                            for k in auto3dseg["segresnet"])
         + "; float32 dynunet batch 2 of 128^3 " + "; ".join(f"{k} {line(dynunet[k])}" for k in dynunet)
-        + "; float32 auto3dseg swinunetr batch 4 " + "; ".join(f"{k} {line(swin_template[k])}" for k in swin_template),
+        + "; float32 auto3dseg swinunetr batch 4 " + "; ".join(f"{k} {line(swin_template[k])}" for k in swin_template)
+        + "; float32 unetr batch 4 " + "; ".join(f"{k} {line(unetr[k])}" for k in unetr),
         flush=True)
 
     def merged(i: int) -> dict:
@@ -4227,7 +4628,7 @@ def main() -> None:
          "spleen_train_float32_dx": f32_sites(spleen_train["dx"]),
          **{f"{name}_train_float32{suffix}": f32_sites(summary[k])
             for name, summary in (("auto3dseg_unet", auto3dseg["unet"]), ("auto3dseg_segresnet", auto3dseg["segresnet"]),
-                                  ("dynunet", dynunet), ("auto3dseg_swinunetr", swin_template))
+                                  ("dynunet", dynunet), ("auto3dseg_swinunetr", swin_template), ("unetr", unetr))
             for k, suffix in (("forward", ""), ("dx", "_dx"))}},
         {"name": "instance_norm_prelu", "route": "cuda", "source": "monai_tpu_torch/csrc/instance_norm.cu",
          "replaces": "monai_tpu/networks/layers/fast_norm.py:44",
@@ -4235,7 +4636,8 @@ def main() -> None:
          + trained["instance_norm_prelu"] + new_f32["instance_norm_prelu"] + more_counts["instance_norm_prelu"],
          **merged(1), "auto3dseg_unet_train_float32": f32_sites(auto3dseg["unet"]["norm"]),
          "dynunet_train_float32": f32_sites(dynunet["norm"]),
-         "auto3dseg_swinunetr_train_float32": f32_sites(swin_template["norm"])},
+         "auto3dseg_swinunetr_train_float32": f32_sites(swin_template["norm"]),
+         "unetr_train_float32": f32_sites(unetr["norm"])},
         {"name": "fused_window_attention", "route": "cuda", "source": "monai_tpu_torch/csrc/window_attention.cu",
          "replaces": "monai_tpu/ops/pallas_window_attention.py:106",
          "launches": swin_sw_counts[2] + trained["fused_window_attention"] + more_counts["fused_window_attention"],

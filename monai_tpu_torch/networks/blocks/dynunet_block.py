@@ -1,5 +1,5 @@
 """DynUNet-style conv blocks (counterpart of monai_tpu/networks/blocks/dynunet_block.py,
-for the blocks DynUNet and SwinUNETR use), with torch
+for the blocks DynUNet, SwinUNETR and UNETR use), with torch
 MONAI's module names: a block holds ``conv1``, ``conv2`` (and ``conv3`` on the
 downsampling path), ``norm1``, ``norm2`` (``norm3``) and ``lrelu``; every conv is a
 ``Convolution`` with only a ``conv`` child, so its weight is ``conv1.conv.weight``.
@@ -20,8 +20,8 @@ from ..layers.factories import get_act_layer, get_norm_layer
 from ..layers.fast_norm import InstanceNorm, channels_last
 from .convolutions import Convolution
 
-__all__ = ["UnetBasicBlock", "UnetResBlock", "UnetUpBlock", "UnetOutBlock", "UnetrBasicBlock", "UnetrUpBlock",
-           "get_conv_layer", "get_output_padding", "get_padding"]
+__all__ = ["UnetBasicBlock", "UnetResBlock", "UnetUpBlock", "UnetOutBlock", "UnetrBasicBlock", "UnetrPrUpBlock",
+           "UnetrUpBlock", "get_conv_layer", "get_output_padding", "get_padding"]
 
 _LRELU = ("leakyrelu", {"negative_slope": 0.01})
 _INSTANCE_AFFINE = ("instance", {"affine": True})
@@ -183,3 +183,35 @@ class UnetrUpBlock(nn.Module):
     def forward(self, inp: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         out = channels_last(torch.cat((self.transp_conv(inp), skip), dim=1))
         return self.conv_block(out)
+
+
+class UnetrPrUpBlock(nn.Module):
+    """UNETR's projection upsampling: ``transp_conv_init``, then ``num_layer`` more transposed
+    convs (``blocks.<i>``), each followed where ``conv_block`` by a ``UnetResBlock`` (or a
+    ``UnetBasicBlock`` without ``res_block``) of ``kernel_size``, the pair a ``Sequential``
+    (``blocks.<i>.0``, ``blocks.<i>.1``) as in torch MONAI. Every transposed conv has kernel =
+    stride = ``upsample_kernel_size``, as the JAX package's ``get_conv_layer`` gives it;
+    ``stride`` is taken and unused, as there."""
+
+    def __init__(self, spatial_dims: int, in_channels: int, out_channels: int, num_layer: int, kernel_size=3,
+                 stride=1, upsample_kernel_size=2, norm_name=_INSTANCE_AFFINE, conv_block: bool = False,
+                 res_block: bool = False, device=None, dtype=None, generator: torch.Generator | None = None):
+        super().__init__()
+        made = dict(device=device, dtype=dtype, generator=generator)
+
+        def up(cin: int) -> Convolution:
+            return get_conv_layer(spatial_dims, cin, out_channels, upsample_kernel_size, upsample_kernel_size,
+                                  is_transposed=True, **made)
+
+        self.transp_conv_init = up(in_channels)
+        block = UnetResBlock if res_block else UnetBasicBlock
+        self.blocks = nn.ModuleList(
+            nn.Sequential(up(out_channels), block(spatial_dims, out_channels, out_channels, kernel_size, 1, norm_name,
+                                                  **made)) if conv_block else up(out_channels)
+            for _ in range(num_layer))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.transp_conv_init(x)
+        for blk in self.blocks:
+            x = blk(channels_last(x))
+        return x

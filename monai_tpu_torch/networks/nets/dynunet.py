@@ -32,8 +32,9 @@ class DynUNet(nn.Module):
     """``device=None`` is the CUDA card (``utils.backend.resolve_device``); pass
     ``device="cpu"`` for the CPU. The weights are drawn on the CPU from ``generator`` (or
     torch's global seed) and then moved. ``filters`` defaults to 32 doubling a stage, at
-    most 320 (3-D) or 512 (2-D). ``dropout`` is not ported (the JAX net takes it and
-    applies none); anything but None raises."""
+    most 320 (3-D) or 512 (2-D). ``dropout`` is taken and no dropout is applied, in train
+    mode as in eval mode, as in the JAX net (whose blocks take ``dropout=None`` whatever it
+    says); torch MONAI's blocks drop after each norm."""
 
     def __init__(self, spatial_dims: int, in_channels: int, out_channels: int, kernel_size: Sequence,
                  strides: Sequence, upsample_kernel_size: Sequence, filters: Sequence[int] | None = None,
@@ -42,8 +43,6 @@ class DynUNet(nn.Module):
                  deep_supr_num: int = 1, res_block: bool = False, trans_bias: bool = False, device=None,
                  dtype=None, generator: torch.Generator | None = None):
         super().__init__()
-        if dropout is not None:
-            raise NotImplementedError("DynUNet's dropout is not ported (ROADMAP A7)")
         n = len(strides)
         if len(kernel_size) != n or len(upsample_kernel_size) != n - 1 or n < 3:
             raise ValueError("DynUNet takes a kernel_size a stage, one upsample_kernel_size a stage but the first, "

@@ -22,7 +22,10 @@ the exact erf), so a torch MONAI checkpoint gives slightly different logits; and
 ``use_checkpoint`` and ``dropout_path_rate`` are taken and have no effect, as in the JAX
 package (torch MONAI recomputes each stage under ``use_checkpoint``, which bounds its
 memory, and drops paths at ``dropout_path_rate``). Not taken: ``use_v2`` and the
-deprecated ``img_size``; attention dropout (``attn_drop_rate`` > 0) raises.
+deprecated ``img_size``. Attention dropout (``attn_drop_rate`` > 0) is the JAX package's
+route off its kernel: in train mode the attention is products, softmax and dropout in
+plain torch (``WindowAttention``), the dropout drawn from the module's generator; in eval
+mode, where the dropout is the identity, it is the kernel as at rate 0.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from ..blocks.attention import MLPBlock, PatchEmbed
 from ..blocks.dynunet_block import UnetOutBlock, UnetrBasicBlock, UnetrUpBlock
 from ..layers.factories import Norm, linear
 from ..layers.fast_norm import channels_last
+from ..utils import generator_on
 
 __all__ = ["SwinUNETR", "SwinTransformer", "WindowAttention", "SwinTransformerBlock", "PatchMerging",
            "PatchMergingV2", "MERGING_MODE", "BasicLayer", "window_partition", "window_reverse",
@@ -122,14 +126,23 @@ def _rel_pos_index(window_size: Sequence[int]) -> np.ndarray:
 
 class WindowAttention(nn.Module):
     """Multi-head self-attention inside each window, with a learned relative position
-    bias; (B·nW, N, C) in and out."""
+    bias; (B·nW, N, C) in and out. The fused kernel computes it, but in train mode at an
+    ``attn_drop`` above 0: then it is q kᵀ + bias + mask, softmax, dropout and the product
+    with v in plain torch (``_attention_with_dropout``), as the JAX package leaves its
+    kernel for einsum, softmax, dropout and einsum. The dropout keeps each weight where a
+    uniform draw on the weights' device is at least ``attn_drop``, and scales it by
+    1 / (1 - ``attn_drop``); the draw comes from ``dropout_generator`` (the construction's
+    generator; torch's default one where None) through ``generator_on``."""
 
     def __init__(self, dim: int, num_heads: int, window_size: Sequence[int], qkv_bias: bool = False,
                  attn_drop: float = 0.0, proj_drop: float = 0.0, device=None, dtype=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if attn_drop != 0.0:
-            raise NotImplementedError("attention dropout is not ported (the fused attention kernel has none)")
+        if not 0.0 <= attn_drop < 1.0:
+            raise ValueError(f"attn_drop {attn_drop} should be in [0, 1)")
+        self.attn_drop = attn_drop
+        self.dropout_generator = generator
+        self._generators: dict = {}
         self.dim = dim
         self.window_size = tuple(window_size)
         self.num_heads = num_heads
@@ -152,8 +165,24 @@ class WindowAttention(nn.Module):
         # 7^3 table's first n x n entries serve a smaller window, as in torch MONAI
         idx = self.relative_position_index[:n, :n].reshape(-1)
         bias = self.relative_position_bias_table[idx].reshape(n, n, -1).permute(2, 0, 1).float().contiguous()
-        out = fused_window_attention(q, qkv[1], qkv[2], bias, mask)
+        if self.training and self.attn_drop > 0:
+            out = self._attention_with_dropout(q, qkv[1], qkv[2], bias, mask)
+        else:
+            out = fused_window_attention(q, qkv[1], qkv[2], bias, mask)
         return self.proj_drop(self.proj(out.transpose(1, 2).reshape(b, n, c)))
+
+    def _attention_with_dropout(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                                mask: torch.Tensor | None) -> torch.Tensor:
+        b, h, n, _ = q.shape
+        attn = q @ k.transpose(-2, -1) + bias.to(q.dtype)
+        if mask is not None:
+            nw = mask.shape[0]
+            attn = (attn.view(b // nw, nw, h, n, n) + mask.to(q.dtype)[None, :, None]).view(b, h, n, n)
+        attn = attn.softmax(-1)
+        g = generator_on(self.dropout_generator, attn.device, self._generators)
+        draw = torch.rand(attn.shape, generator=g, device=attn.device)
+        attn = attn * (draw >= self.attn_drop).to(attn.dtype) / (1.0 - self.attn_drop)
+        return attn @ v
 
 
 class SwinTransformerBlock(nn.Module):

@@ -1,5 +1,6 @@
-"""Weight bridge: a monai_tpu UNet's, SwinUNETR's, SegResNet's, DenseNet's, DynUNet's or trainable
-bilateral filter's parameters as a monai_tpu_torch ``state_dict``.
+"""Weight bridge: a monai_tpu UNet's, SwinUNETR's, SegResNet's (and SegResNetVAE's), DenseNet's,
+DynUNet's, ViT's (and ViTAutoEnc's), UNETR's or trainable bilateral filter's parameters as a
+monai_tpu_torch ``state_dict``.
 
 The input is keyed by the flattened nnx variable paths of ``monai_tpu``'s network, e.g.
 ``model.down.convs.0.conv.kernel``, ``model.down.convs.0.adn.2.alpha`` or
@@ -19,8 +20,9 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["densenet_state_dict_from_jax", "dynunet_state_dict_from_jax", "filter_state_dict_from_jax", "segresnet_state_dict_from_jax", "swin_state_dict_from_jax",
-           "unet_state_dict_from_jax"]
+__all__ = ["densenet_state_dict_from_jax", "dynunet_state_dict_from_jax", "filter_state_dict_from_jax",
+           "segresnet_state_dict_from_jax", "swin_state_dict_from_jax", "unet_state_dict_from_jax",
+           "unetr_state_dict_from_jax", "vit_state_dict_from_jax"]
 
 _ADN_LEAVES = {"alpha": "A.weight", "scale": "N.weight", "bias": "N.bias", "mean": "N.running_mean",
                "var": "N.running_var"}
@@ -67,7 +69,7 @@ def _is_transposed(toks: list[str]) -> bool:
 def _conv_weight(arr: np.ndarray, transposed: bool) -> np.ndarray:
     nsp = arr.ndim - 2
     if transposed:
-        return np.flip(arr, axis=tuple(range(nsp))).transpose(nsp, nsp + 1, *range(nsp))
+        return np.flip(arr, axis=tuple(range(nsp))).transpose(nsp, nsp + 1, *range(nsp)).copy()  # positive strides
     return arr.transpose(nsp + 1, nsp, *range(nsp))
 
 
@@ -156,12 +158,14 @@ def dynunet_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Te
 
 
 def segresnet_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Map ``{nnx variable path: array}`` of a monai_tpu SegResNet (its ``Param``s) to the
-    port's ``state_dict``, loadable with ``SegResNet.load_state_dict(strict=True)``. A level of
-    ``down_layers`` is the JAX list ``[blocks]`` at the first level and ``[pre_conv, blocks]``
-    after it, the port's one ``Sequential(pre_conv or Identity, *blocks)``; every conv gains
-    the ``.conv`` level of ``Convolution`` (DHWIO kernels to OIDHW), and a group norm's
-    ``scale`` is its ``weight``."""
+    """Map ``{nnx variable path: array}`` of a monai_tpu SegResNet or SegResNetVAE (its
+    ``Param``s) to the port's ``state_dict``, loadable with ``load_state_dict(strict=True)``.
+    A level of ``down_layers`` is the JAX list ``[blocks]`` at the first level and
+    ``[pre_conv, blocks]`` after it, the port's one ``Sequential(pre_conv or Identity,
+    *blocks)``; every conv gains the ``.conv`` level of ``Convolution`` (DHWIO kernels to
+    OIDHW) but an ``UpSample``'s own (``deconv``, transposed, and ``pixelshuffle.conv_block``),
+    the VAE's linear layers' kernels (I, O) are transposed, and a group norm's ``scale`` is
+    its ``weight``."""
     out: dict[str, torch.Tensor] = {}
     for path, value in params.items():
         toks = path.split(".")
@@ -173,10 +177,14 @@ def segresnet_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.
             else:
                 toks = ["down_layers", str(level), str(int(rest[0]) + 1), *rest[1:]]
         leaf = toks[-1]
-        if leaf == "kernel":
+        if toks[0] in ("vae_fc1", "vae_fc2", "vae_fc3") or toks[-2] in ("deconv", "conv_block"):
+            if leaf == "kernel":
+                toks[-1] = "weight"
+                arr = arr.T if arr.ndim == 2 else _conv_weight(arr, toks[-2] == "deconv")
+        elif leaf == "kernel":
             toks = [*toks[:-1], "conv", "weight"]
             arr = _conv_weight(arr, False)
-        elif toks[-2:] == ["conv_final", "bias"]:  # the one conv with a bias
+        elif toks[-2] in ("conv_final", "vae_conv_final") and leaf == "bias":  # the convs with a bias
             toks = [*toks[:-1], "conv", "bias"]
         elif leaf == "scale":
             toks = [*toks[:-1], "weight"]
@@ -245,3 +253,68 @@ def filter_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Ten
     if set(params) != set(shapes):
         raise KeyError(f"a trainable filter has the parameters {sorted(shapes)}; got {sorted(params)}")
     return {k: torch.tensor(np.asarray(v, dtype=np.float32).reshape(shapes[k])) for k, v in params.items()}
+
+
+def _vit_param(toks: list[str], arr: np.ndarray, path: str, perceptron: bool) -> tuple[str, np.ndarray]:
+    """The port's name and array of a ViT or ViTAutoEnc parameter, ``toks`` its nnx path
+    under the ViT: a linear kernel (I, O) is transposed, the ``perceptron``'s linear is
+    ``patch_embeddings.1`` (after torch MONAI's ``Rearrange``), the classification head's is
+    ``classification_head.0``, the decoder's ``conv3d_transpose*``
+    kernels are transposed convs, and ``scale`` is ``weight``."""
+    leaf, parent = toks[-1], toks[-2] if len(toks) > 1 else ""
+    key = toks[:-1]
+    if parent == "patch_embeddings" and perceptron or parent == "classification_head":
+        key = key + ["1" if parent == "patch_embeddings" else "0"]
+    if leaf == "kernel":
+        arr = arr.T if arr.ndim == 2 else _conv_weight(arr, parent.startswith("conv3d_transpose"))
+        leaf = "weight"
+    elif leaf == "scale":
+        leaf = "weight"
+    elif leaf not in ("bias", "position_embeddings", "cls_token"):
+        raise KeyError(f"cannot map {path}")
+    return ".".join(key + [leaf]), arr
+
+
+def vit_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Map ``{nnx variable path: array}`` of a monai_tpu ViT or ViTAutoEnc (its ``Param``s) to
+    the port's ``state_dict``, loadable with ``load_state_dict(strict=True)``: the module
+    paths are the same (``blocks.0.attn.qkv``, ``blocks.0.mlp.linear1``,
+    ``patch_embedding.position_embeddings``), linear kernels (I, O) become (O, I), conv kernels
+    (*K, I, O) become (O, I, *K) (the decoder's transposed ones (I, O, *K), flipped), the
+    ``"perceptron"`` patch embedding's linear is ``patch_embedding.patch_embeddings.1``, and
+    with ``classification`` the head's linear is ``classification_head.0``."""
+    perceptron = any(p.endswith("patch_embeddings.kernel") and np.ndim(v) == 2 for p, v in params.items())
+    out: dict[str, torch.Tensor] = {}
+    for path, value in params.items():
+        name, arr = _vit_param(path.split("."), np.asarray(value), path, perceptron)
+        out[name] = torch.tensor(np.ascontiguousarray(arr))
+    return out
+
+
+def unetr_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Map ``{nnx variable path: array}`` of a monai_tpu UNETR (its ``Param``s) to the port's
+    ``state_dict``, loadable with ``UNETR.load_state_dict(strict=True)``: ``vit.*`` as
+    ``vit_state_dict_from_jax``; each conv of the conv blocks gains the ``.conv`` level of
+    torch MONAI's ``Convolution`` (``encoder1.layer.conv1.conv.weight``,
+    ``decoder5.transp_conv.conv.weight``, ``out.conv.conv.weight``); a ``UnetrPrUpBlock``'s
+    ``transp_conv_init`` and ``blocks.<i>.0`` are transposed convs, and without a conv block
+    the JAX ``blocks.<i>.0`` is the port's ``blocks.<i>``."""
+    vit = {p[len("vit."):]: v for p, v in params.items() if p.startswith("vit.")}
+    out = {f"vit.{k}": v for k, v in vit_state_dict_from_jax(vit).items()}
+    conv_blocks = {p.split(".")[0] for p in params if ".blocks." in p and p.split(".")[3:4] == ["1"]}
+    for path, value in params.items():
+        if path.startswith("vit."):
+            continue
+        toks = path.split(".")
+        key, leaf, arr = toks[:-1], toks[-1], np.asarray(value)
+        init = len(key) > 1 and key[1] == "transp_conv_init"
+        if init or len(key) > 3 and key[1] == "blocks" and key[3] == "0":  # a transposed conv
+            if not init and key[0] not in conv_blocks:
+                key = key[:3]
+            if leaf == "kernel":
+                leaf, arr = "weight", _conv_weight(arr, True)
+            name = ".".join(key + ["conv", leaf])
+        else:
+            name, arr = _block_param(key, leaf, arr, path)
+        out[name] = torch.tensor(np.ascontiguousarray(arr))
+    return out

@@ -43,8 +43,9 @@ from monai_tpu_torch.ops.window_attention import (_forward as _attention_forward
 
 # every conv site of the two training steps, and of the BraTS and Spleen bundles' float32 steps
 from test_torch_conv3d_wgrad_plan import F32_BUNDLE_SITES, STEP_SITES
-# every site of the Auto3DSeg templates' and DynUNet's float32 steps
-from test_torch_float32_step_sites import NEW_F32_CONV_SITES, NEW_F32_NORM_SITES
+# every site of the Auto3DSeg templates', DynUNet's and UNETR's float32 steps
+from test_torch_float32_step_sites import (NEW_F32_CONV_SITES, NEW_F32_NORM_SITES, UNETR_F32_CONV_SITES,
+                                           UNETR_F32_NORM_SITES)
 from test_torch_norm_bwd_plan import SWIN_NORM_SITES, UNET_NORM_SITES  # every norm site of the two training steps
 # every attention site of the float32 Swin step and of the bench SwinUNETR (head dim 8)
 from test_torch_window_attention_bwd_plan import BENCH_ATTN_SITES, STEP_D8_SITES, SWIN_ATTN_SITES
@@ -1007,6 +1008,33 @@ def test_norm_kernels_at_the_auto3dseg_and_dynunet_sites(cuda, batch, c, spatial
     _norm_bwd_check(x, gy, w, b, a, torch.float32)
 
 
+@pytest.mark.parametrize("batch,ci,co,spatial", sorted(UNETR_F32_CONV_SITES))
+def test_conv_kernels_at_the_unetr_sites(cuda, batch, ci, co, spatial):
+    """As at the bundle sites, at each float32 site of the UNETR BTCV step (batch 4 of 96^3):
+    the widest, 1 -> 16, 16 -> 16 and 32 -> 16 at 96^3, down to the deepest, 256 -> 128 at
+    12^3."""
+    _conv_kernels_f32(cuda, batch, ci, co, spatial)
+
+
+@pytest.mark.parametrize("batch,c,spatial,affine,slope", sorted(UNETR_F32_NORM_SITES, key=str))
+def test_norm_kernels_at_the_unetr_sites(cuda, batch, c, spatial, affine, slope):
+    """Kernel B2's forward and backward in float32 at each norm site of the UNETR BTCV step
+    (no affine; norm1 with the LeakyReLU's slope fused, norm2 and norm3 without one), from
+    16 channels at 96^3 to 128 at 12^3: each against its plain version, one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(c * 17 + spatial[0])
+    x, gy, w, b, a = _norm_bwd_inputs(g, (batch, c, *spatial), torch.float32, cuda, affine,
+                                      None if slope is None else "one")
+    if a is not None:
+        a.fill_(slope)
+    with torch.inference_mode():
+        before = instance_norm_prelu.launches
+        got = instance_norm_prelu(x, w, b, a)
+        torch.cuda.synchronize()
+        assert instance_norm_prelu.launches == before + 1
+        _assert_close(got, instance_norm_prelu_plain(x, w, b, a), torch.float32)
+    _norm_bwd_check(x, gy, w, b, a, torch.float32)
+
+
 def _conv_kernels_f32(cuda, batch, ci, co, spatial):
     g = torch.Generator(device=cuda).manual_seed(ci * 31 + co)
     x = torch.randn((batch, *spatial, ci), generator=g, device=cuda).requires_grad_()
@@ -1553,3 +1581,29 @@ def test_float32_swin_decoder_step_ignores_the_tf32_setting(cuda):
     assert len(decoder) > 50
     for k in decoder:
         assert torch.equal(a[k], b[k]) and torch.equal(a[k], c[k]), k
+
+
+def test_seeded_draws_of_a_net_built_on_the_cpu_lie_on_the_card(cuda):
+    """A net is built on the CPU from a seeded generator; its attention dropout and its VAE
+    noise then draw on the card: ``generator_on`` gives a card generator seeded once from the
+    CPU one (kept, and the same seed the same draws), and SwinUNETR's ``WindowAttention`` in
+    train mode at a rate above 0 and SegResNetVAE each hold one such generator after a step."""
+    from monai_tpu_torch.networks.nets import SegResNetVAE
+    from monai_tpu_torch.networks.nets.swin_unetr import WindowAttention
+    from monai_tpu_torch.networks.utils import generator_on
+
+    made = {}
+    g = torch.Generator().manual_seed(3)
+    on = generator_on(g, cuda, made)
+    assert on.device.type == "cuda" and generator_on(g, cuda, made) is on
+    again = generator_on(torch.Generator().manual_seed(3), cuda, {})
+    assert torch.equal(torch.rand(64, generator=on, device=cuda), torch.rand(64, generator=again, device=cuda))
+    attn = WindowAttention(12, 3, (4, 4), qkv_bias=True, attn_drop=0.2,
+                           generator=torch.Generator().manual_seed(6)).to(cuda).train()
+    attn(torch.randn(8, 16, 12, device=cuda)).sum().backward()
+    vae = SegResNetVAE((16, 16, 16), vae_nz=32, in_channels=2, out_channels=3, blocks_down=(1, 2, 2),
+                       blocks_up=(1, 1), device=cuda,
+                       generator=torch.Generator().manual_seed(0), noise_generator=torch.Generator().manual_seed(1))
+    vae(torch.rand(1, 2, 16, 16, 16, device=cuda))[1].backward()
+    for module in (attn, vae):
+        assert [d.device.type for d in module._generators.values()] == ["cuda"]

@@ -186,6 +186,9 @@ def test_upsample_at_an_odd_size_matches_jax(mode):
 
 
 def test_upsample_modes_not_ported_raise():
+    """deconv and pixelshuffle are ported (tests/test_torch_upsample_modes.py holds them to
+    JAX); a mode the JAX ``UpSample`` does not know raises, as there."""
     for mode in ("deconv", "pixelshuffle"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A item 7"):
-            UpSample(3, 4, 4, 2, mode=mode)
+        assert UpSample(3, 4, 4, 2, mode=mode)(torch.zeros(1, 4, 2, 3, 2)).shape == (1, 4, 4, 6, 4)
+    with pytest.raises(NotImplementedError):
+        UpSample(3, 4, 4, 2, mode="transpose")

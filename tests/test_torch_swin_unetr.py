@@ -382,10 +382,14 @@ def test_generator_init_is_reproducible():
 
 
 def test_rejects_bad_feature_size_and_attention_dropout():
+    """A feature size not a multiple of 12 raises; attention dropout is taken at a rate in
+    [0, 1) (tests/test_torch_segresnet_vae.py holds it to JAX) and raises at 1."""
     with pytest.raises(ValueError):
         swin_unetr.SwinUNETR(1, 2, feature_size=20, device="cpu")
-    with pytest.raises(NotImplementedError):
-        swin_unetr.SwinUNETR(1, 2, feature_size=12, attn_drop_rate=0.1, device="cpu")
+    net = swin_unetr.SwinUNETR(1, 2, feature_size=12, attn_drop_rate=0.1, device="cpu")
+    assert net.swinViT.layers1[0].blocks[0].attn.attn_drop == 0.1
+    with pytest.raises(ValueError):
+        swin_unetr.SwinUNETR(1, 2, feature_size=12, attn_drop_rate=1.0, device="cpu")
 
 
 # --- sliding-window inference ------------------------------------------------------------
